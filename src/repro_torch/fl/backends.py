@@ -1,0 +1,109 @@
+"""RoundLoop backend of the paper regime — port of
+``repro.fl.backends.ClientStackedBackend``.
+
+A backend owns model state and the learning side of a round; the RoundLoop
+owns selection, failures and PON transport. Contract:
+
+    backend.strategy        — the Strategy instance (transport + hooks)
+    backend.sample_counts   — (n_clients,) k_ij
+    backend.onu_ids         — (n_clients,) int
+    backend.run_round(rnd, selected, mask, rt, rng) -> metrics dict
+    backend.replay_round(rnd, selected, mask, rt, rng)
+        — consume exactly run_round's RNG draws without training (resume)
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import fedavg
+from repro_torch.core.fedavg import FLConfig
+from repro_torch.data import femnist
+from repro_torch.device import timed
+from repro_torch.fl.strategy import Strategy
+
+
+class ClientStackedBackend:
+    """Per-client model copies + H local steps (the paper's Fig. 2 regime).
+
+    Parameters, eval batch and every round's minibatches live on the
+    device of ``params``.
+    """
+
+    def __init__(self, fl: FLConfig, strategy: Strategy, params,
+                 clients, eval_batch, loss_fn: Callable,
+                 sample_counts: Optional[np.ndarray] = None,
+                 onu_ids: Optional[np.ndarray] = None,
+                 minibatch_fn: Callable = femnist.client_minibatches):
+        self.fl = fl
+        self.strategy = strategy
+        self.params = params
+        self.device = next(iter(params.values())).device
+        self.server_state = strategy.init_state(params)
+        self.clients = clients
+        self.eval_batch = eval_batch
+        self.loss_fn = loss_fn
+        self.sample_counts = (sample_counts if sample_counts is not None
+                              else femnist.sample_counts(clients))
+        self.onu_ids = onu_ids if onu_ids is not None else fedavg.onu_of_client(fl)
+        self.minibatch_fn = minibatch_fn
+        self._last_eval: Dict[str, float] = {}
+
+    def _eval(self) -> Dict[str, float]:
+        with torch.no_grad():
+            loss, metrics = self.loss_fn(self.params, self.eval_batch)
+        out = {"eval_loss": float(loss)}
+        out.update({k: float(v) for k, v in metrics.items()})
+        self._last_eval = out
+        return out
+
+    def _idle_metrics(self) -> Dict[str, float]:
+        """No update this round — carry the last eval forward."""
+        return dict(self._last_eval) if self._last_eval else {"acc": 0.0}
+
+    def _padded(self, selected: np.ndarray, mask: np.ndarray):
+        """Involved clients padded to a chunk multiple with weight-0 copies
+        of the first (constant vmap shapes across rounds)."""
+        active = selected[mask > 0]
+        pad = (-len(active)) % self.fl.client_chunk
+        return active, np.concatenate([active, np.full(pad, active[0])]), pad
+
+    def run_round(self, rnd: int, selected: np.ndarray, mask: np.ndarray,
+                  rt: Dict[str, Any], rng: np.random.Generator
+                  ) -> Dict[str, float]:
+        fl = self.fl
+        if not np.any(mask > 0):
+            return self._idle_metrics()     # nothing beat the deadline
+        active, padded, pad = self._padded(selected, mask)
+        w = np.concatenate([self.sample_counts[active], np.zeros(pad, np.float32)])
+        row_mask = np.concatenate([np.ones(len(active), np.float32),
+                                   np.zeros(pad, np.float32)])
+        mbs = [self.minibatch_fn(rng, self.clients[c], fl.local_steps,
+                                 fl.local_batch) for c in padded]
+        cb = {k: torch.from_numpy(np.stack([b[k] for b in mbs])).to(self.device)
+              for k in mbs[0]}
+        (deltas, _), train_s = timed(
+            fedavg.train_selected_clients, self.params, cb, self.loss_fn, fl,
+            local_update=self.strategy.local_update)
+        (agg, stats), aggregate_s = timed(
+            self.strategy.aggregate, deltas, w, row_mask, self.onu_ids[padded],
+            fl.n_onus)
+        self.params, self.server_state = self.strategy.server_update(
+            self.params, agg, self.server_state)
+        out = {"uplink_models": float(stats["uplink_models"]),
+               "train_s": train_s, "aggregate_s": aggregate_s}
+        out.update(self._eval())
+        return out
+
+    def replay_round(self, rnd: int, selected: np.ndarray, mask: np.ndarray,
+                     rt: Dict[str, Any], rng: np.random.Generator) -> None:
+        """Consume run_round's minibatch draws without training (resume
+        fast-forward — must mirror run_round's rng consumption exactly)."""
+        if not np.any(mask > 0):
+            return
+        _, padded, _ = self._padded(selected, mask)
+        for c in padded:
+            self.minibatch_fn(rng, self.clients[c], self.fl.local_steps,
+                              self.fl.local_batch)
