@@ -25,8 +25,24 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 5. parity  — one round on the card and on the CPU, at reduced width and
              at full width: the same involvement, parameters within
              atol 1e-4 after 1 local step (the gap after 8 is printed).
+6. compression kernels — quantize, dequantize and the top-k mask (row
+             forms) bit for bit against their plain versions, the fused
+             aggregate + quantize (its θ bit for bit segment_agg_reduce's,
+             its q within one level of the plain version), at the shapes
+             the compressed rounds give them; times as in phase 3, and
+             torch.topk's threshold time on its own line.
+7. compressed slice — launch.run at full width, 3 rounds each of
+             sfl_two_step int8 (the fused route), sfl_two_step int4 with
+             error feedback and classical top-k (1%); every kernel's count
+             zeroed before each run and checked against the routing table
+             after it; the upstream billed at the compressed wire size.
+8. compressed parity — one round of H = 1 at reduced width on the card
+             and on the CPU, sfl_two_step int8 and classical top-k, the
+             same noise fed to both: equal involvement, parameters within
+             one quantization level (or top-k threshold) of each other.
 
-The last lines are the ``kernels`` JSON object and then
+Phase 4 and 7 are the main path (uncompressed and compressed). The last
+lines are the ``kernels`` JSON object and then
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -77,12 +93,18 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, flops: float):
+    """Least time for work that moves ``nbytes`` and does ``flops`` f32
+    operations: (ms, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def agg_bound(C: int, N: int, n_seg: int, itemsize: int):
     """Least time for out = per-segment Σ wm·x: read x, wm and the CSR once,
     write θ once; 2·C·N f32 flops."""
-    nbytes = C * N * itemsize + n_seg * N * 4 + C * 4 + (C + n_seg + 1) * 4
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * C * N / F32_FLOPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound(C * N * itemsize + n_seg * N * 4 + C * 4 + (C + n_seg + 1) * 4,
+                 2 * C * N)
 
 
 def phase_card() -> str:
@@ -262,6 +284,8 @@ def phase_slice():
                   f"wall_s {r['wall_s']:.3f} train_s {r.get('train_s', 0):.3f} "
                   f"aggregate_s {r.get('aggregate_s', 0):.4f}")
             check(0.0 <= r["acc"] <= 1.0, f"{mode} acc {r['acc']}")
+            check("wire_mbits" not in r and "compress" not in r,
+                  f"{mode}: an uncompressed row carries wire keys")
             if r["involved"] == 0:
                 continue
             trained += 1
@@ -286,7 +310,7 @@ def phase_slice():
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check(launches > 0 and launches == 8 * trained,
           f"agg_reduce launched {launches} times for {trained} trained rounds")
-    return launches
+    return launches, res["classical"]["involved"]
 
 
 def phase_parity() -> None:
@@ -332,6 +356,310 @@ def phase_parity() -> None:
                 check(diff <= 1e-4, f"{width}: card and CPU params differ by {diff}")
 
 
+def _row_inputs(gen, R, N):
+    x = torch.randn((R, N), generator=gen, device="cuda") * 1e-2
+    u = torch.rand((R, N), generator=gen, device="cuda")
+    m = (torch.arange(R, device="cuda") % 5 != 0).float()     # silent rows
+    return x, u, m
+
+
+def _report(name, what, err, ms, plain_ms, library_ms, bound_ms, bound_by, note=""):
+    lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
+    print(f"kernel {name} [{what}]: max_abs_err {err:.3e}{note}; ms {ms:.4f} "
+          f"plain_ms {plain_ms:.4f} library_ms {lib} bound_ms {bound_ms:.4f} "
+          f"({bound_by}, {100 * bound_ms / ms:.1f}% of bound)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def phase_compression_kernels():
+    """quantize / dequantize / top-k mask / fused agg + quantize against
+    their plain versions; returns each kernel's row at its main shape."""
+    from repro_torch.kernels import quantize as kq
+    from repro_torch.kernels.agg_reduce import (segment_agg_reduce,
+                                                segment_agg_reduce_absmax,
+                                                segment_agg_reduce_quant,
+                                                segment_agg_reduce_quant_plain)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    n_fc1 = 3136 * 2048
+    k_fc1 = kq.topk_k(n_fc1, 0.01)
+    main = {}
+    # SFL θ: 16 ONU rows; classical top-k: ~127 involved clients padded to
+    # 128 rows. fc2_b (N = 62) and an odd N take the scalar path.
+    for what, R, N, is_main in (("fc1_w, SFL θ (16 ONUs)", 16, n_fc1, True),
+                                ("fc2_b, SFL θ, scalar path", 16, 62, False),
+                                ("odd N, scalar path", 16, 100_003, False)):
+        x, u, m = _row_inputs(gen, R, N)
+        for bits in (8, 4):
+            qmax = float(2 ** (bits - 1) - 1)
+            s = x.abs().amax(1).clamp_min(1e-12) / qmax
+            q = kq.quantize_rows(x, u, s, qmax)
+            qp = kq.quantize_rows_plain(x, u, s, qmax)
+            torch.cuda.synchronize()
+            check(torch.equal(q, qp), f"quantize_rows int{bits} differs [{what}]")
+            ms = time_ms(lambda: kq.quantize_rows(x, u, s, qmax))
+            plain_ms = time_ms(lambda: kq.quantize_rows_plain(x, u, s, qmax))
+            row = _report("quantize_rows", f"{what} R={R} N={N} int{bits}", 0.0, ms,
+                          plain_ms, None, *bound(R * N * 9 + R * 4, 6 * R * N),
+                          note=" (bit for bit)")
+            if is_main and bits == 4:        # the int4 + EF run launches it
+                main["quantize_rows"] = row
+        xd = kq.dequantize_rows(q, s, m)
+        check(torch.equal(xd, kq.dequantize_rows_plain(q, s, m)),
+              f"dequantize_rows differs [{what}]")
+        check(torch.equal(kq.dequantize_rows(q, s), kq.dequantize_rows_plain(q, s)),
+              f"dequantize_rows without a mask differs [{what}]")
+        ms = time_ms(lambda: kq.dequantize_rows(q, s, m))
+        plain_ms = time_ms(lambda: kq.dequantize_rows_plain(q, s, m))
+        library_ms = time_ms(lambda: torch.mul(q, s[:, None]))
+        row = _report("dequantize_rows", f"{what} R={R} N={N}", 0.0, ms, plain_ms,
+                      library_ms, *bound(R * N * 5 + R * 8, 2 * R * N),
+                      note=" (bit for bit; library: torch.mul(q, s), no row mask)")
+        if is_main:
+            main["dequantize_rows"] = row
+        t = kq.topk_thresholds(x, kq.topk_k(N, 0.01))
+        check(torch.equal(kq.topk_mask_rows(x, t, m), kq.topk_mask_rows_plain(x, t, m)),
+              f"topk_mask_rows differs [{what}]")
+        ms = time_ms(lambda: kq.topk_mask_rows(x, t, m))
+        plain_ms = time_ms(lambda: kq.topk_mask_rows_plain(x, t, m))
+        _report("topk_mask_rows", f"{what} R={R} N={N}", 0.0, ms, plain_ms, None,
+                *bound(R * N * 8 + R * 8, 3 * R * N), note=" (bit for bit)")
+        if is_main:
+            topk_ms = time_ms(lambda: kq.topk_thresholds(x, k_fc1))
+            print(f"torch.topk threshold [fc1_w, R=16 N={N} k={k_fc1}]: ms {topk_ms:.4f}")
+        del x, u, m, q, qp, xd
+        torch.cuda.empty_cache()
+
+    x, _, m = _row_inputs(gen, 128, n_fc1)
+    t = kq.topk_thresholds(x, k_fc1)
+    got, want = kq.topk_mask_rows(x, t, m), kq.topk_mask_rows_plain(x, t, m)
+    check(torch.equal(got, want), "topk_mask_rows differs [classical fc1_w]")
+    del got, want
+    ms = time_ms(lambda: kq.topk_mask_rows(x, t, m))
+    plain_ms = time_ms(lambda: kq.topk_mask_rows_plain(x, t, m))
+    main["topk_mask_rows"] = _report(
+        "topk_mask_rows", f"fc1_w, classical client δ R=128 N={n_fc1}", 0.0, ms,
+        plain_ms, None, *bound(128 * n_fc1 * 8 + 128 * 8, 3 * 128 * n_fc1),
+        note=" (bit for bit)")
+    topk_ms = time_ms(lambda: kq.topk_thresholds(x, k_fc1), reps=5, warmup=1)
+    print(f"torch.topk threshold [fc1_w, classical R=128 N={n_fc1} k={k_fc1}]: "
+          f"ms {topk_ms:.4f} (outside the kernel, per leaf per round)")
+    del x, m, t
+    torch.cuda.empty_cache()
+
+    for what, C, N, n_seg in (("fc1_w, SFL (128 rows, 16 ONUs)", 128, n_fc1, 16),
+                              ("fc2_b, SFL, scalar path", 128, 62, 16),
+                              ("odd N, scalar path", 128, 100_003, 16)):
+        x = torch.randn((C, N), generator=gen, device="cuda")
+        keep = (torch.rand(C, generator=gen, device="cuda") > 0.2).float()
+        wm = (torch.rand(C, generator=gen, device="cuda") * 400 * keep).contiguous()
+        seg = np.random.default_rng(C + N).integers(0, n_seg, C)
+        u = torch.rand((n_seg, N), generator=gen, device="cuda")
+        theta, _ = segment_agg_reduce_absmax(x, wm, seg, n_seg)
+        check(torch.equal(theta, segment_agg_reduce(x, wm, seg, n_seg)),
+              f"fused pass A θ differs from segment_agg_reduce [{what}]")
+        q, s = segment_agg_reduce_quant(x, wm, seg, n_seg, u, 8)
+        qp, sp = segment_agg_reduce_quant_plain(x, wm, seg, n_seg, u, 8)
+        s_theta = theta.abs().amax(1).clamp_min(1e-12) / 127.0
+        check(torch.equal(s, s_theta)
+              and torch.equal(q, kq.quantize_rows_plain(theta, u, s_theta, 127.0)),
+              f"fused q differs from the unfused port route [{what}]")
+        lvl = int((q.int() - qp.int()).abs().max())
+        srel = float(((s - sp).abs() / sp).max())
+        check(lvl <= 1 and srel <= 1e-5,
+              f"fused q off by {lvl} levels, scales by {srel} [{what}]")
+        del theta, qp
+        ms = time_ms(lambda: segment_agg_reduce_quant(x, wm, seg, n_seg, u, 8))
+        plain_ms = time_ms(lambda: segment_agg_reduce_quant_plain(x, wm, seg, n_seg, u, 8))
+        nbytes = C * N * 4 + C * 4 + (2 * C + n_seg + 1) * 4 + n_seg * N * 5 + n_seg * 4
+        row = _report("agg_reduce_quant", f"{what} C={C} N={N} n_seg={n_seg} int8",
+                      float(lvl), ms, plain_ms, None, *bound(nbytes, 2 * C * N + 6 * n_seg * N),
+                      note=f" levels (θ bit for bit; scales rel {srel:.1e})")
+        main.setdefault("agg_reduce_quant", row)
+        del x, u, q
+        torch.cuda.empty_cache()
+    return main
+
+
+def _counters():
+    from repro_torch.kernels import (dequantize_rows, quantize_rows,
+                                     segment_agg_reduce, segment_agg_reduce_quant,
+                                     topk_mask_rows)
+    return {"agg_reduce": segment_agg_reduce, "agg_reduce_quant": segment_agg_reduce_quant,
+            "quantize_rows": quantize_rows, "dequantize_rows": dequantize_rows,
+            "topk_mask_rows": topk_mask_rows}
+
+
+def phase_compressed_slice(classical_involved):
+    """The compressed main path at full width; returns launches by kernel."""
+    from repro_torch.fl.backends import backend_wire_scale
+    from repro_torch.launch import femnist as launch
+    from repro_torch.pon import MODEL_UPDATE_MBITS, PonConfig
+
+    counters = _counters()
+    runs = (  # (mode, compression, launches per trained round: the routing table)
+        ("sfl_two_step", dict(compress="int8"),
+         {"agg_reduce_quant": 8, "dequantize_rows": 8}),
+        ("sfl_two_step", dict(compress="int4", error_feedback=True),
+         {"agg_reduce": 8, "quantize_rows": 8, "dequantize_rows": 8}),
+        ("classical", dict(compress="topk", topk_frac=0.01),
+         {"topk_mask_rows": 8, "agg_reduce": 8}),
+    )
+    wire_want = {"int8": MODEL_UPDATE_MBITS / 4, "int4": MODEL_UPDATE_MBITS / 8}
+    totals = dict.fromkeys(counters, 0)
+    for mode, kw, per_round in runs:
+        tag = f"{mode} {kw['compress']}" + (" + EF" if kw.get("error_feedback") else "")
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = launch.run(n_rounds=3, n_selected=128, full=True, seed=0, modes=(mode,),
+                         pon=PonConfig(n_onus=16, clients_per_onu=20), device="cuda",
+                         **kw)
+        wall = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in counters.items()}
+        loop = res[mode]["loop"]
+        wire = MODEL_UPDATE_MBITS * backend_wire_scale(loop.backend)
+        trained = 0
+        for r in loop.history:
+            print(f"compressed {tag} round {r['round']}: involved {r['involved']:.0f}/"
+                  f"{r['n_selected']} wire_mbits {r['wire_mbits']} upstream_mbits "
+                  f"{r['upstream_mbits']:.3f} uplink_models {r.get('uplink_models', 0):.0f} "
+                  f"acc {r['acc']:.4f} eval_loss {r.get('eval_loss', float('nan')):.4f} "
+                  f"wall_s {r['wall_s']:.3f} train_s {r.get('train_s', 0):.3f} "
+                  f"aggregate_s {r.get('aggregate_s', 0):.4f}")
+            check(r["compress"] == kw["compress"] and r["wire_mbits"] == wire,
+                  f"{tag}: row wire {r['wire_mbits']} vs {wire}")
+            check(wire == wire_want.get(kw["compress"], wire),
+                  f"{tag}: wire_mbits {wire}")
+            if mode == "sfl_two_step":
+                check(r["upstream_mbits"] == r.get("uplink_models", 0) * wire,
+                      f"{tag}: upstream {r['upstream_mbits']} vs "
+                      f"{r.get('uplink_models')} θ × {wire}")
+            else:
+                check(r["upstream_mbits"] == r["n_selected"] * wire,
+                      f"{tag}: upstream {r['upstream_mbits']} vs {r['n_selected']} × {wire}")
+            if r["involved"] == 0:
+                continue
+            trained += 1
+            check(math.isfinite(r["eval_loss"]), f"{tag} eval_loss {r['eval_loss']}")
+        params = loop.backend.params
+        check(all(bool(torch.isfinite(v).all()) for v in params.values()),
+              f"{tag} params not finite")
+        want = {k: per_round.get(k, 0) * trained for k in counters}
+        print(f"compressed {tag}: {trained} trained rounds, launches {counts} "
+              f"(routing table: {want}), wall {wall:.2f} s, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check(trained > 0 and counts == want, f"{tag}: launches {counts}, want {want}")
+        if mode == "classical":
+            inv = loop.history.column("involved")
+            print(f"compressed {tag}: involvement {inv} against {classical_involved} "
+                  "uncompressed (phase 4)")
+            check(min(inv) > max(classical_involved),
+                  f"{tag}: involvement {inv} did not rise over {classical_involved}")
+        for k in totals:
+            totals[k] += counts[k]
+    return totals
+
+
+class _Levels:
+    """Records, while active, the per-row scales (or top-k thresholds) the
+    compressed round dequantizes with, and the round's K and weights: one
+    quantization level of an aggregated element is Σ_r level_r · w_r / K."""
+
+    def __enter__(self):
+        from repro_torch.core import compression, fedavg
+        self.mods = (compression, fedavg)
+        self.saved = (compression._dequantize_kernel, compression.topk_mask_rows,
+                      fedavg.aggregate)
+        self.rows, self.seen = [], {}
+        real_dq, real_tk, real_agg = self.saved
+
+        def dq(q, s, mask=None):
+            self.rows.append(s.detach().double().cpu())
+            return real_dq(q, s, mask)
+
+        def tk(x, t, mask=None):
+            self.rows.append(t.detach().double().cpu())
+            return real_tk(x, t, mask)
+
+        def agg(deltas, weights, mask, onu_ids, n_onus, mode, **kw):
+            out, stats = real_agg(deltas, weights, mask, onu_ids, n_onus, mode, **kw)
+            self.seen.setdefault("K", float(stats["K"]))
+            self.seen.setdefault("w", np.asarray(weights, np.float64))
+            self.seen.setdefault("names", sorted(deltas))
+            self.seen.setdefault("mode", mode)
+            return out, stats
+
+        compression._dequantize_kernel, compression.topk_mask_rows = dq, tk
+        fedavg.aggregate = agg
+        return self
+
+    def __exit__(self, *exc):
+        compression, fedavg = self.mods
+        (compression._dequantize_kernel, compression.topk_mask_rows,
+         fedavg.aggregate) = self.saved
+
+    def bounds(self):
+        w = self.seen["w"] if self.seen["mode"] == "classical" else None
+        out = {}
+        for name, lv in zip(self.seen["names"], self.rows):
+            lv = lv.numpy()
+            out[name] = float((lv * (w[:len(lv)] if w is not None else 1.0)).sum()) / self.seen["K"]
+        return out
+
+
+def phase_compressed_parity() -> None:
+    """One compressed round of H = 1 at reduced width on the card and on
+    the CPU, the same noise (drawn on the CPU per call) fed to both.
+    θ or a client's δ is summed in another order on each device, so an
+    element within an ulp of a rounding or threshold boundary may land on
+    the other side: each element is held to one level of every row it sums
+    (``_Levels``) plus 1e-5, and at most 0.1% of a leaf (at least one
+    element) may be off by more than 1e-5."""
+    from repro_torch import configs
+    from repro_torch.bridge import params_to_jax
+    from repro_torch.core import compression
+    from repro_torch.launch import femnist as launch
+    from repro_torch.models import femnist_cnn
+    from repro_torch.pon import PonConfig
+
+    def cpu_noise(self, call, shapes):
+        g = torch.Generator().manual_seed(1000 + call)
+        return [torch.rand(tuple(s), generator=g).to(self.device) for s in shapes]
+
+    cfg = configs.get("femnist_cnn").reduced()
+    p0 = femnist_cnn.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    saved = compression.CompressionState.uniform_noise
+    compression.CompressionState.uniform_noise = cpu_noise
+    try:
+        for mode, kw in (("sfl_two_step", dict(compress="int8")),
+                         ("classical", dict(compress="topk", topk_frac=0.01))):
+            run_kw = dict(n_rounds=1, n_selected=10, seed=0, modes=(mode,), local_steps=1,
+                          pon=PonConfig(n_onus=4, clients_per_onu=5), params=p0, **kw)
+            card = launch.run(**run_kw, device="cuda")[mode]["loop"]
+            with _Levels() as levels:
+                cpu = launch.run(**run_kw, device="cpu")[mode]["loop"]
+            check(card.history.column("involved") == cpu.history.column("involved"),
+                  f"compressed parity {mode}: involvement differs")
+            a, b = params_to_jax(card.backend.params), params_to_jax(cpu.backend.params)
+            worst, flips = 0.0, 0
+            for k, lvl in levels.bounds().items():
+                diff = np.abs(a[k] - b[k])
+                off = int((diff > 1e-5).sum())
+                check(float(diff.max()) <= lvl + 1e-5
+                      and off <= max(1, math.floor(1e-3 * diff.size)),
+                      f"compressed parity {mode} {kw['compress']} {k}: max |diff| "
+                      f"{float(diff.max())} vs one level {lvl}, {off} elements off")
+                worst, flips = max(worst, float(diff.max())), flips + off
+            print(f"compressed parity: {mode} {kw['compress']}, reduced, H=1, card vs "
+                  f"CPU: involved {card.history.column('involved')} equal, params max "
+                  f"|diff| {worst:.3e}, {flips} elements past 1e-5 (each within one "
+                  "level)")
+    finally:
+        compression.CompressionState.uniform_noise = saved
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -343,18 +671,38 @@ def main() -> int:
     from repro_torch import device as device_mod
     device_mod.resolve("cuda")                 # f32 numerics, as the port runs
     t0 = time.perf_counter()
-    phase_card()
-    phase_build()
-    main_case = phase_kernels()
-    phase_conv()
-    launches = phase_slice()
-    phase_parity()
+
+    def phase(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {fn.__name__}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    phase(phase_card)
+    phase(phase_build)
+    main_case = phase(phase_kernels)
+    phase(phase_conv)
+    launches, classical_involved = phase(phase_slice)
+    phase(phase_parity)
+    rows = phase(phase_compression_kernels)
+    rows["agg_reduce"] = main_case
+    compressed = phase(phase_compressed_slice, classical_involved)
+    compressed["agg_reduce"] += launches
+    phase(phase_compressed_parity)
     print(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [{
-        "name": "agg_reduce", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/agg_reduce.cu",
-        "replaces": "src/repro/kernels/agg_reduce.py:60",
-        "launches": launches, **main_case}]}))
+    csrc = "src/repro_torch/kernels/csrc/"
+    table = (("agg_reduce", csrc + "agg_reduce.cu", "src/repro/kernels/agg_reduce.py:60"),
+             ("agg_reduce_quant", csrc + "agg_reduce.cu",
+              "src/repro/kernels/agg_reduce.py:85"),
+             ("quantize_rows", csrc + "quantize.cu", "src/repro/kernels/quantize.py:55"),
+             ("dequantize_rows", csrc + "quantize.cu", "src/repro/kernels/quantize.py:92"),
+             ("topk_mask_rows", csrc + "quantize.cu", "src/repro/kernels/quantize.py:130"))
+    for name, _, _ in table:
+        check(compressed[name] > 0, f"{name} never launched on the main path")
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": compressed[name], **rows[name]}
+        for name, source, replaces in table]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,8 +8,10 @@ The paper's protocol (PON):
 Step 1 is the segmented ``agg_reduce`` kernel, one launch per leaf; the
 classical FedAvg benchmark is the same kernel with a single segment. Step 2
 is a plain ``torch.sum`` over the ONU axis, as the reference leaves it to
-``jnp.sum`` outside any kernel. The collective forms (shard_map all-reduces)
-belong to the language-model slice.
+``jnp.sum`` outside any kernel. With wire compression
+(:func:`compressed_segment_aggregate`) each ONU compresses its θ before the
+PON upstream and step 2 reduces the decompressed θ̂. The collective forms
+(shard_map all-reduces) belong to the language-model slice.
 """
 from __future__ import annotations
 
@@ -29,6 +31,13 @@ def _on_device(client_tree: Tree, weights, mask):
             torch.as_tensor(mask, dtype=torch.float32, device=dev))
 
 
+def _folded(client_tree: Tree, weights, mask):
+    """(wm = weight · mask on the leaves' device, K = Σ wm)."""
+    weights, mask = _on_device(client_tree, weights, mask)
+    w = (weights * mask).contiguous()
+    return w, w.sum()
+
+
 def segment_aggregate(client_tree: Tree, weights, mask, onu_ids, n_onus: int):
     """Exactly the paper's two-step aggregation over client-stacked leaves.
 
@@ -38,15 +47,33 @@ def segment_aggregate(client_tree: Tree, weights, mask, onu_ids, n_onus: int):
     onu_ids:     (C,) ints, host side — which ONU each client hangs off
     Returns (aggregated leaves, per-ONU θ leaves (n_onus leading), K).
     """
-    weights, mask = _on_device(client_tree, weights, mask)
-    w = (weights * mask).contiguous()
-    K = w.sum()
+    w, K = _folded(client_tree, weights, mask)
     thetas = {}
     for name, x in client_tree.items():
         C = x.shape[0]
         theta = segment_agg_reduce(x.reshape(C, -1), w, onu_ids, n_onus)  # step 1
         thetas[name] = theta.reshape((n_onus,) + tuple(x.shape[1:]))
     agg = {k: th.sum(0) / K.clamp_min(1e-9) for k, th in thetas.items()}  # step 2
+    return agg, thetas, K
+
+
+def onu_active(onu_ids, mask, n_onus: int) -> np.ndarray:
+    """(n_onus,) bool: ONUs with an involved client, each of which sends
+    one θ up the PON."""
+    return np.bincount(np.asarray(onu_ids), weights=np.asarray(mask, np.float64),
+                       minlength=n_onus) > 0
+
+
+def compressed_segment_aggregate(client_tree: Tree, weights, mask, onu_ids,
+                                 n_onus: int, comp):
+    """The two-step aggregation with a compressed PON upstream: each ONU
+    compresses its θ (``comp``, a ``CompressionState``, which also owns the
+    EF residuals); the CPS reduces the decompressed θ̂, and silent ONUs
+    transmit nothing. Returns (aggregated leaves, θ̂ leaves, K)."""
+    w, K = _folded(client_tree, weights, mask)
+    thetas = comp.roundtrip_segments("theta", client_tree, w, onu_ids, n_onus,
+                                     row_mask=onu_active(onu_ids, mask, n_onus))
+    agg = {k: th.sum(0) / K.clamp_min(1e-9) for k, th in thetas.items()}
     return agg, thetas, K
 
 

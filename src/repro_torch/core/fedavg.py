@@ -62,14 +62,26 @@ def onu_of_client(fl: FLConfig) -> np.ndarray:
 def round_transport(fl: FLConfig, rng: np.random.Generator,
                     selected: np.ndarray, sample_counts: np.ndarray,
                     onu_ids: Optional[np.ndarray] = None, *,
-                    mode: str) -> Dict[str, Any]:
+                    mode: str, wire_scale: Optional[float] = None
+                    ) -> Dict[str, Any]:
     """One round of the PON transport under ``fl``'s config; ``mode`` is
     what crosses the upstream ("sfl" | "classical", a Strategy's
-    ``transport``). The mask ``apply_round`` expects is ``["involved"]``."""
+    ``transport``). The mask ``apply_round`` expects is ``["involved"]``.
+
+    ``wire_scale`` (compressed ÷ raw payload) scales ``model_mbits``: the
+    compressed payload is what rides the wire, so the deadline physics and
+    the Mbits billed both see it, and ``["wire_mbits"]`` records the
+    per-model wire size. None (no compression) leaves the round untouched.
+    """
     if onu_ids is None:
         onu_ids = onu_of_client(fl)
-    return round_times(fl.pon_config(), rng, selected, onu_ids,
-                       sample_counts, mode)
+    pon = fl.pon_config()
+    if wire_scale is not None:
+        pon = dataclasses.replace(pon, model_mbits=pon.model_mbits * wire_scale)
+    rt = round_times(pon, rng, selected, onu_ids, sample_counts, mode)
+    if wire_scale is not None:
+        rt["wire_mbits"] = pon.model_mbits
+    return rt
 
 
 def local_sgd(params: Params, batches: Dict[str, torch.Tensor],
@@ -118,24 +130,34 @@ def train_selected_clients(global_params: Params, client_batches,
 
 def active_onus(onu_ids: np.ndarray, mask: np.ndarray, n_onus: int) -> int:
     """ONUs with an involved client: each sends one θ up the PON."""
-    per_onu = np.bincount(np.asarray(onu_ids), weights=np.asarray(mask),
-                          minlength=n_onus)
-    return int(np.sum(per_onu > 0))
+    return int(np.sum(aggregation.onu_active(onu_ids, mask, n_onus)))
 
 
 def aggregate(deltas: Params, weights, mask, onu_ids: np.ndarray,
-              n_onus: int, mode: str):
+              n_onus: int, mode: str, *, comp=None, client_ids=None):
     """Aggregate client deltas -> (mean delta, stats).
 
     Both modes compute the same update; they differ in the transport (what
-    crosses the PON upstream), which ``uplink_models`` accounts.
+    crosses the PON upstream), which ``uplink_models`` accounts. With an
+    active ``comp`` (a ``CompressionState``) what crosses is compressed:
+    each ONU's θ under "sfl"; under "classical" each involved client's δ,
+    its EF residual keyed by its global id (``client_ids``, one per row).
     """
     mask_np = np.asarray(mask, np.float32)
+    compressed = comp is not None and comp.active
     if mode == "sfl":
-        agg, _, K = aggregation.segment_aggregate(deltas, weights, mask_np,
-                                                  onu_ids, n_onus)
+        if compressed:
+            agg, _, K = aggregation.compressed_segment_aggregate(
+                deltas, weights, mask_np, onu_ids, n_onus, comp)
+        else:
+            agg, _, K = aggregation.segment_aggregate(deltas, weights, mask_np,
+                                                      onu_ids, n_onus)
         uplink_models = active_onus(onu_ids, mask_np, n_onus)
     else:
+        if compressed:
+            ids = (list(client_ids) if client_ids is not None
+                   else list(range(len(mask_np))))
+            deltas = comp.roundtrip_clients(ids, deltas, row_mask=mask_np)
         agg, K = aggregation.classical_aggregate(deltas, weights, mask_np)
         uplink_models = float(mask_np.sum())           # every involved client
     return agg, {"K": K, "uplink_models": uplink_models,

@@ -19,10 +19,21 @@ import numpy as np
 import torch
 
 from repro_torch.core import fedavg
+from repro_torch.core.compression import CompressionState
 from repro_torch.core.fedavg import FLConfig
 from repro_torch.data import femnist
 from repro_torch.device import timed
 from repro_torch.fl.strategy import Strategy
+
+
+def backend_wire_scale(backend) -> float:
+    """Compressed ÷ raw wire size of what this backend puts on the wire:
+    exact from ``backend.params`` (per-leaf top-k counts included), the
+    scheme's nominal ratio when the backend holds none."""
+    spec = backend.strategy.compression_spec()
+    if not spec.active:
+        return 1.0
+    return spec.wire_scale(getattr(backend, "params", None))
 
 
 class ClientStackedBackend:
@@ -50,6 +61,12 @@ class ClientStackedBackend:
         self.onu_ids = onu_ids if onu_ids is not None else fedavg.onu_of_client(fl)
         self.minibatch_fn = minibatch_fn
         self._last_eval: Dict[str, float] = {}
+        # wire compression: the backend owns the stateful side (EF residuals
+        # and the rounding noise) so the frozen Strategy stays pure and
+        # ``compress="none"`` allocates nothing
+        spec = strategy.compression_spec()
+        self._comp = (CompressionState(spec, device=self.device)
+                      if spec.active else None)
 
     def _eval(self) -> Dict[str, float]:
         with torch.no_grad():
@@ -89,7 +106,7 @@ class ClientStackedBackend:
             local_update=self.strategy.local_update)
         (agg, stats), aggregate_s = timed(
             self.strategy.aggregate, deltas, w, row_mask, self.onu_ids[padded],
-            fl.n_onus)
+            fl.n_onus, comp=self._comp, client_ids=padded)
         self.params, self.server_state = self.strategy.server_update(
             self.params, agg, self.server_state)
         out = {"uplink_models": float(stats["uplink_models"]),

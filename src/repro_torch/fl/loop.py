@@ -23,6 +23,7 @@ import numpy as np
 from repro_torch.core import selection
 from repro_torch.core.fedavg import round_transport
 from repro_torch.device import timed
+from repro_torch.fl.backends import backend_wire_scale
 from repro_torch.fl.config import ExperimentConfig
 
 
@@ -78,8 +79,12 @@ def _transport_stage(cfg: ExperimentConfig, backend, failures,
         crash_alive, transient_alive = failures.step_components(rnd, fl.n_clients)
     live = (crash_alive[sel] if crash_alive is not None
             else np.ones(len(sel), bool))
+    spec = backend.strategy.compression_spec()
     rt = round_transport(fl, rng, sel[live], backend.sample_counts,
-                         backend.onu_ids, mode=backend.strategy.transport)
+                         backend.onu_ids, mode=backend.strategy.transport,
+                         wire_scale=backend_wire_scale(backend) if spec.active else None)
+    if spec.active:
+        rt["compress"] = spec.scheme
     if not live.all():
         rt = _expand_rt(rt, live)
     mask = np.asarray(rt["involved"], np.float32)
@@ -96,6 +101,10 @@ def sync_round(cfg: ExperimentConfig, backend, failures,
     rec = {"round": rnd, "n_selected": len(sel),
            "involved": float(mask.sum()),
            "upstream_mbits": float(rt["upstream_mbits"])}
+    if "wire_mbits" in rt:
+        # the compressed per-model wire size; absent in an uncompressed run
+        rec["wire_mbits"] = float(rt["wire_mbits"])
+        rec["compress"] = rt["compress"]
     rec.update(metrics)
     return rec
 

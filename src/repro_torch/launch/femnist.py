@@ -5,6 +5,11 @@ columns of ``examples/train_femnist_sfl.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.femnist --full --rounds 3
     PYTHONPATH=src python -m repro_torch.launch.femnist --rounds 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.femnist --full --compress int8
+
+``--compress {none,int8,int4,topk}`` (with ``--topk-frac`` and
+``--error-feedback``) compresses what crosses the PON upstream: each ONU's
+θ under sfl_two_step, each involved client's δ under classical.
 """
 from __future__ import annotations
 
@@ -24,14 +29,18 @@ def run(n_rounds: int = 30, n_selected: int = 128, full: bool = False,
         seed: int = 0, modes: Sequence[str] = ("classical", "sfl"),
         pon: Optional[PonConfig] = None, overselect: float = 0.0,
         params: Optional[Dict[str, torch.Tensor]] = None,
-        device: str | torch.device = "cuda", local_steps: int = 8):
+        device: str | torch.device = "cuda", local_steps: int = 8,
+        compress: str = "none", topk_frac: float = 0.01,
+        error_feedback: bool = False):
     """Run each strategy in ``modes`` through the RoundLoop.
 
     Returns ``{mode: {"accs": [...], "involved": [...], "loop": RoundLoop}}``;
     the loop holds the History, the final parameters
     (``loop.backend.params``) and the RNG stream. ``params`` (port layout,
     e.g. bridged from the reference's init) replaces the seeded init;
-    ``local_steps`` is H, the paper's 8 by default.
+    ``local_steps`` is H, the paper's 8 by default. ``compress``,
+    ``topk_frac`` and ``error_feedback`` set every strategy's wire
+    compression.
     """
     dev = device_mod.resolve(device)
     cfg = configs.get("femnist_cnn") if full else configs.get("femnist_cnn").reduced()
@@ -48,7 +57,9 @@ def run(n_rounds: int = 30, n_selected: int = 128, full: bool = False,
     for mode in modes:
         p0 = (femnist_cnn.init_params(cfg, torch.Generator().manual_seed(seed), dev)
               if params is None else {k: v.to(dev) for k, v in params.items()})
-        backend = fl.ClientStackedBackend(flc, fl.make_strategy(mode), p0,
+        strategy = fl.make_strategy(mode, compress=compress, topk_frac=topk_frac,
+                                    error_feedback=error_feedback)
+        backend = fl.ClientStackedBackend(flc, strategy, p0,
                                           clients, eval_batch,
                                           femnist_cnn.loss_fn,
                                           sample_counts=counts)
@@ -76,6 +87,18 @@ def main(argv=None):
                          "compared against classical")
     ap.add_argument("--onus", type=int, default=d.n_onus)
     ap.add_argument("--clients-per-onu", type=int, default=d.clients_per_onu)
+    ap.add_argument("--compress", default="none",
+                    choices=["none", "int8", "int4", "topk"],
+                    help="wire compression for every transport tier "
+                         "(θ/Φ/Ψ or client uploads): stochastic-rounding "
+                         "int8/int4 or magnitude top-k (DESIGN.md §17)")
+    ap.add_argument("--topk-frac", type=float, default=0.01,
+                    help="top-k: fraction of elements kept per leaf "
+                         "(wire bills value+index per kept element)")
+    ap.add_argument("--error-feedback", action="store_true",
+                    help="carry the compression residual into the next "
+                         "round (EF-SGD; per-tier for sfl/hier, per-client "
+                         "for classical)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -83,13 +106,18 @@ def main(argv=None):
     res = run(n_rounds=args.rounds, n_selected=args.n_selected, full=args.full,
               seed=args.seed, modes=modes,
               pon=PonConfig(n_onus=args.onus, clients_per_onu=args.clients_per_onu),
-              device=args.device)
+              device=args.device, compress=args.compress,
+              topk_frac=args.topk_frac, error_feedback=args.error_feedback)
     print("round," + ",".join(f"{m}_acc" for m in modes)
           + "," + ",".join(f"{m}_involved" for m in modes))
     for i in range(args.rounds):
         print(f"{i},"
               + ",".join(f"{res[m]['accs'][i]:.4f}" for m in modes) + ","
               + ",".join(f"{res[m]['involved'][i]:.0f}" for m in modes))
+    if args.compress != "none":
+        wire = res[modes[0]]["loop"].history.column("wire_mbits")[0]
+        print(f"# wire: {args.compress} payload {wire} Mb per model "
+              f"(f32 {PonConfig().model_mbits} Mb)")
     finals = " | ".join(f"{m} {res[m]['accs'][-1]:.3f}" for m in modes)
     print(f"\nfinal accuracy: {finals} (paper: 0.77 vs 0.85 at N=128)")
 

@@ -31,10 +31,22 @@ from repro_torch.pon import PonConfig  # noqa: E402
 ROUNDS, N_SELECTED, SEED = 3, 10, 0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in several worker processes, each beside JAX's own
+    thread pool; torch's intra-op threads would only oversubscribe the
+    cores, so these CPU tests run torch on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_loop(mode, full=False, n_selected=N_SELECTED, rounds=ROUNDS,
-              client_chunk=16):
+              client_chunk=16, **strategy_kw):
     """bench_accuracy.run's loop for one mode, keeping the loop object;
-    returns (initial params, loop, params after the first round)."""
+    returns (initial params, loop, the params after each round).
+    ``strategy_kw`` (e.g. compress=...) go to the strategy."""
     cfg = jconfigs.get("femnist_cnn")
     cfg = cfg if full else cfg.reduced()
     pon = JPonConfig(n_onus=4, clients_per_onu=5)
@@ -45,53 +57,63 @@ def _jax_loop(mode, full=False, n_selected=N_SELECTED, rounds=ROUNDS,
         jfemnist.FemnistConfig(n_clients=flc.n_clients, seed=SEED + 7))
     params, _ = jcnn.init_params(cfg, jax.random.PRNGKey(SEED))
     backend = jfl.ClientStackedBackend(
-        flc, jfl.make_strategy(mode), params, clients,
+        flc, jfl.make_strategy(mode, **strategy_kw), params, clients,
         jax.tree.map(jnp.asarray, eval_set),
         lambda p, b: jcnn.loss_fn(p, b),
         sample_counts=jfemnist.sample_counts(clients))
     exp = jfl.ExperimentConfig(fl=flc, strategy=jfl.canonical_name(mode),
                                n_rounds=rounds, seed=SEED)
-    first = {}
+    snaps = []
     loop = jfl.RoundLoop(exp, backend, callbacks=[
-        lambda lp, rec: first or first.update(
+        lambda lp, rec: snaps.append(
             {k: np.asarray(v) for k, v in lp.backend.params.items()})])
     loop.run()
-    return {k: np.asarray(v) for k, v in params.items()}, loop, first
+    return {k: np.asarray(v) for k, v in params.items()}, loop, snaps
 
 
-def _port_run(mode, init, n_rounds):
-    return launch.run(n_rounds=n_rounds, n_selected=N_SELECTED, seed=SEED,
+def _port_rounds(mode, init, rounds=ROUNDS, **run_kw):
+    """launch.run's loop for one mode from the bridged ``init``, driven
+    round by round; returns (loop, the params after each round in the
+    reference's layout). ``run_kw`` (e.g. compress=...) go to run."""
+    loop = launch.run(n_rounds=0, n_selected=N_SELECTED, seed=SEED,
                       modes=(mode,), pon=PonConfig(n_onus=4, clients_per_onu=5),
-                      params=params_from_jax(init), device="cpu")[mode]
+                      params=params_from_jax(init), device="cpu",
+                      **run_kw)[mode]["loop"]
+    snaps = []
+    for rnd in range(rounds):
+        loop.run_round(rnd)
+        snaps.append(params_to_jax(loop.backend.params))
+    return loop, snaps
+
+
+TRANSPORT_COLUMNS = ("round", "n_selected", "involved", "upstream_mbits",
+                     "uplink_models")
 
 
 @pytest.mark.parametrize("mode", ["sfl_two_step", "classical"])
 def test_slice_matches_reference_round_loop(mode):
     """Transport columns and the RNG stream exact; accuracy and eval loss
-    of every round within tolerance; parameters within atol 1e-4 after the
-    first round. Later parameters are not held to 1e-4: a max-pool window
-    whose top two values lie an ulp apart routes a client's gradient to
-    the other input when the f32 sums run in another order (ROADMAP.md
-    Queue 3), and SGD carries that on."""
-    init, jloop, jfirst = _jax_loop(mode)
+    of every round within tolerance; parameters within atol 1e-4 after
+    every round (f32 sums run in another order in the two packages, and
+    the port's convolutions are an f32 matmul over unfolded patches)."""
+    init, jloop, jsnaps = _jax_loop(mode)
     before = segment_agg_reduce.launches
-    res = _port_run(mode, init, ROUNDS)
+    loop, snaps = _port_rounds(mode, init)
     assert segment_agg_reduce.launches == before      # CPU: the plain version
-    loop = res["loop"]
     rows, jrows = list(loop.history), list(jloop.history)
     assert len(rows) == len(jrows) == ROUNDS
     for r, j in zip(rows, jrows):
-        for key in ("round", "n_selected", "involved", "upstream_mbits",
-                    "uplink_models"):
+        for key in TRANSPORT_COLUMNS:
             assert r[key] == j[key], (key, r[key], j[key])
-        # per-client SGD over 3 rounds compounds f32 ordering differences
+        assert "wire_mbits" not in r and "compress" not in r
         assert r["acc"] == pytest.approx(j["acc"], abs=0.02)
         assert r["eval_loss"] == pytest.approx(j["eval_loss"], rel=1e-3)
-    assert res["involved"] == jloop.history.column("involved")
     assert loop.rng.integers(0, 1 << 30) == jloop.rng.integers(0, 1 << 30)
-    got = params_to_jax(_port_run(mode, init, 1)["loop"].backend.params)
-    for k, want in jfirst.items():
-        np.testing.assert_allclose(got[k], want, rtol=0, atol=1e-4, err_msg=k)
+    assert len(snaps) == len(jsnaps) == ROUNDS
+    for rnd, (got, want) in enumerate(zip(snaps, jsnaps)):
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4,
+                                       err_msg=f"{k} after round {rnd}")
 
 
 @pytest.mark.parametrize("mode", ["sfl_two_step", "classical"])

@@ -1,10 +1,11 @@
-"""repro_torch.kernels.agg_reduce and the aggregation built on it, held
-against the reference: the Pallas kernel in interpret mode, its jnp oracle
-(kernels/ref.py) and core.aggregation. On the CPU the wrapper runs its
+"""repro_torch's kernels — agg_reduce and the aggregation built on it, the
+fused aggregate + quantize, and the compressed uplink's quantize,
+dequantize and top-k mask — held against the reference: the Pallas kernels
+in interpret mode, their jnp oracles (kernels/ref.py) and core.aggregation. On the CPU the wrapper runs its
 plain PyTorch version; the CUDA kernel is held against that plain version
 by the ``cuda``-marked test (and by chip_smoke.py) on the card.
 
-JAX comes in through the ``jx`` fixture, so the ``cuda`` test also runs on
+JAX comes in through the ``jx`` fixture, so the ``cuda`` tests also run on
 a machine that has a card but no JAX:
 ``python -m pytest -q -m cuda tests/test_torch_kernels.py``.
 """
@@ -18,9 +19,20 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import aggregation  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     agg_reduce,
+    agg_reduce_quant,
+    dequantize_rows,
+    dequantize_rows_plain,
+    quantize_rows,
+    quantize_rows_plain,
     segment_agg_reduce,
     segment_agg_reduce_plain,
+    segment_agg_reduce_quant,
+    segment_agg_reduce_quant_plain,
+    topk_mask_rows,
+    topk_mask_rows_plain,
 )
+from repro_torch.kernels import quantize as kq  # noqa: E402
+from repro_torch.kernels.agg_reduce import segment_agg_reduce_absmax  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -30,11 +42,24 @@ def jx():
     pytest.importorskip("jax")
     import jax.numpy as jnp
 
+    import jax
+
     from repro.core import aggregation as jagg
+    from repro.kernels import quantize as pallas_quant
     from repro.kernels import ref
     from repro.kernels.agg_reduce import agg_reduce as pallas_agg_reduce
-    return types.SimpleNamespace(jnp=jnp, agg=jagg, ref=ref,
-                                 pallas_agg_reduce=pallas_agg_reduce)
+    from repro.kernels.agg_reduce import agg_reduce_quant as pallas_agg_reduce_quant
+    return types.SimpleNamespace(jax=jax, jnp=jnp, agg=jagg, ref=ref,
+                                 pallas_agg_reduce=pallas_agg_reduce,
+                                 pallas_agg_reduce_quant=pallas_agg_reduce_quant,
+                                 quant=pallas_quant)
+
+
+@pytest.fixture
+def card():
+    """Skips a ``cuda`` test where there is no card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
 
 
 def _inputs(C, N, dtype, seed):
@@ -163,3 +188,176 @@ def test_cuda_kernel_matches_plain_version():
         assert bool(((got - want).abs() <= 1e-3 + 1e-4 * abs_sum).all())
         # fixed sum order, no atomics: a second launch repeats bit for bit
         assert torch.equal(got, segment_agg_reduce(x, wm, seg, n_seg))
+
+
+# ---------------------------------------------------------------------------
+# the compressed uplink: quantize, dequantize, top-k mask, fused agg + quant
+# ---------------------------------------------------------------------------
+
+def _jax_vector(jx, N, dtype, seed):
+    """x (numpy f32, bf16-rounded if asked), its JAX array, a key, and the
+    key's U[0, 1) noise (what the Pallas wrapper draws from it)."""
+    x = (np.random.default_rng(seed).normal(size=N) * 10.0 ** (seed % 7 - 3)
+         ).astype(np.float32)
+    jdt = jx.jnp.bfloat16 if dtype == "bfloat16" else jx.jnp.float32
+    jxx = jx.jnp.asarray(x).astype(jdt)
+    key = jx.jax.random.PRNGKey(seed)
+    noise = np.asarray(jx.jax.random.uniform(key, (N,), jx.jnp.float32))
+    tx = torch.from_numpy(np.array(jxx.astype(jx.jnp.float32))).to(getattr(torch, dtype))
+    return tx, jxx, key, torch.from_numpy(noise.copy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [1, 127, 8191, 8192, 100_001])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_dequantize_match_pallas_bit_for_bit(jx, bits, N, dtype):
+    """quantize_intb (int8/int4) and dequantize_int8 against the Pallas
+    kernels in interpret mode and the jnp oracle, given the same noise:
+    q, scale and the dequantized values identical (test_kernels.py:88)."""
+    tx, jxx, key, noise = _jax_vector(jx, N, dtype, seed=N + bits)
+    q, s = kq.quantize_intb(tx, noise, bits)
+    for jq, js in (jx.quant.quantize_intb(jxx, key, bits, interpret=True),
+                   jx.ref.quantize_intb_ref(jxx, key, bits)):
+        assert q.dtype == torch.int8 and np.array_equal(q.numpy(), np.asarray(jq))
+        assert float(s) == float(js)
+    xd = kq.dequantize_int4(q, s) if bits == 4 else kq.dequantize_int8(q, s)
+    want = jx.quant.dequantize_int8(jx.jnp.asarray(q.numpy()), jx.jnp.float32(float(s)),
+                                    interpret=True)
+    assert np.array_equal(xd.numpy(), np.asarray(want))
+    assert float((xd - tx.float()).abs().max()) <= float(s) * 1.01
+
+
+@pytest.mark.parametrize("N,frac", [(1, 0.5), (127, 0.01), (8192, 0.1), (100_001, 0.01)])
+def test_topk_mask_matches_pallas_bit_for_bit(jx, N, frac):
+    """topk_sparsify / topk_mask against the Pallas kernel and the oracle;
+    ties at the threshold are all kept (test_kernels.py:155)."""
+    import math
+    tx, jxx, _, _ = _jax_vector(jx, N, "float32", seed=N)
+    tx = torch.round(tx * 4) / 4          # many ties at the threshold
+    jxx = jx.jnp.asarray(tx.numpy())
+    k = max(1, min(N, math.ceil(frac * N)))
+    got = kq.topk_sparsify(tx, k)
+    for want in (jx.quant.topk_sparsify(jxx, k, interpret=True),
+                 jx.ref.topk_sparsify_ref(jxx, k)):
+        assert np.array_equal(got.numpy(), np.asarray(want))
+    t = kq.topk_threshold(tx, k)
+    assert float(t) == float(jx.quant.topk_threshold(jxx, k))
+    assert np.array_equal(kq.topk_mask(tx, t).numpy(),
+                          np.asarray(jx.quant.topk_mask(jxx, float(t), interpret=True)))
+    assert int((got != 0).sum()) >= min(k, int((tx != 0).sum()))
+
+
+@pytest.mark.parametrize("C,N,bits", [(1, 1, 8), (7, 333, 4), (20, 5000, 8), (24, 4000, 4)])
+def test_agg_reduce_quant_matches_pallas(jx, C, N, bits):
+    """The fused aggregate + quantize against the Pallas kernel and the
+    unfused oracle: scale rtol 1e-5, q within one level
+    (test_kernels.py:167-181; the sums run in another order)."""
+    jax, jnp = jx.jax, jx.jnp
+    key = jax.random.PRNGKey(C * N + bits)
+    ks = jax.random.split(key, 3)
+    x = jax.random.normal(ks[0], (C, N), jnp.float32)
+    w = jax.random.uniform(ks[1], (C,)) * 10
+    m = (jax.random.uniform(ks[2], (C,)) > 0.3).astype(jnp.float32)
+    noise = torch.from_numpy(np.asarray(jax.random.uniform(key, (N,), jnp.float32)).copy())
+    q, s = agg_reduce_quant(*(torch.from_numpy(np.asarray(a).copy()) for a in (x, w, m)),
+                            noise, bits)
+    assert q.shape == (N,) and q.dtype == torch.int8
+    for jq, js in (jx.pallas_agg_reduce_quant(x, w, m, key, bits=bits, interpret=True),
+                   jx.ref.agg_reduce_quant_ref(x, w, m, key, bits)):
+        assert np.isclose(float(s), float(js), rtol=1e-5)
+        assert np.abs(q.numpy().astype(np.int32) - np.asarray(jq, np.int32)).max() <= 1
+
+
+def test_compression_zero_length_guards(jx):
+    """N = 0 and C = 0 return empty / zeros and scale 1.0, as the
+    reference's guards do (test_kernels.py:184-201)."""
+    jnp, key = jx.jnp, jx.jax.random.PRNGKey(0)
+    e = torch.zeros(0)
+    for bits in (8, 4):
+        q, s = kq.quantize_intb(e, e, bits)
+        jq, js = jx.quant.quantize_intb(jnp.zeros((0,)), key, bits, interpret=True)
+        assert q.shape == jq.shape == (0,) and float(s) == float(js) == 1.0
+    assert kq.dequantize_int8(torch.zeros(0, dtype=torch.int8), torch.tensor(1.0)).shape == (0,)
+    assert kq.topk_sparsify(e, 5).shape == (0,)
+    assert kq.topk_mask(e, 0.5).shape == (0,)
+    assert kq.pack_int4(torch.zeros(0, dtype=torch.int8)).shape == (0,)
+    assert kq.unpack_int4(torch.zeros(0, dtype=torch.uint8), 0).shape == (0,)
+    for shape in ((0, 7), (3, 0)):
+        q, s = agg_reduce_quant(torch.zeros(shape), torch.zeros(shape[0]),
+                                torch.zeros(shape[0]), torch.zeros(shape[1]))
+        jq, js = jx.pallas_agg_reduce_quant(jnp.zeros(shape), jnp.zeros((shape[0],)),
+                                            jnp.zeros((shape[0],)), key, interpret=True)
+        assert q.shape == jq.shape == (shape[1],) and float(s) == float(js) == 1.0
+        assert not q.any()
+
+
+@pytest.mark.parametrize("N", [1, 2, 7, 1000])
+def test_int4_packing_equals_reference(jx, N):
+    q = np.random.default_rng(N).integers(-7, 8, N).astype(np.int8)
+    packed = kq.pack_int4(torch.from_numpy(q))
+    jpacked = jx.quant.pack_int4(jx.jnp.asarray(q))
+    assert packed.dtype == torch.uint8 and np.array_equal(packed.numpy(), np.asarray(jpacked))
+    back = kq.unpack_int4(packed, N)
+    assert np.array_equal(back.numpy(), np.asarray(jx.quant.unpack_int4(jpacked, N)))
+    assert np.array_equal(back.numpy(), q)
+
+
+def test_compression_wrappers_reject_other_devices():
+    """A tensor on neither the CPU nor a CUDA card: every new wrapper
+    raises, never falls back."""
+    meta = {k: torch.ones(s, device="meta") for k, s in
+            (("x", (2, 8)), ("r", (2,)), ("n1", (1, 8)))}
+    q = torch.ones((2, 8), dtype=torch.int8, device="meta")
+    calls = [
+        lambda: quantize_rows(meta["x"], meta["x"], meta["r"], 127.0),
+        lambda: dequantize_rows(q, meta["r"]),
+        lambda: topk_mask_rows(meta["x"], meta["r"]),
+        lambda: segment_agg_reduce_quant(meta["x"], meta["r"], np.zeros(2, np.int64),
+                                         1, meta["n1"]),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            call()
+    with pytest.raises(ValueError, match="noise"):
+        quantize_rows(torch.ones(2, 8), torch.ones(2, 7), torch.ones(2), 127.0)
+    with pytest.raises(ValueError, match="unsupported quantization width"):
+        kq.quantize_intb(torch.ones(4), torch.ones(4), 3)
+
+
+@pytest.mark.cuda
+def test_cuda_compression_kernels_match_plain_versions(card):
+    """On the card: quantize, dequantize and the top-k mask bit for bit
+    against their plain versions; the fused kernel's θ bit for bit
+    segment_agg_reduce's, its q within one level of the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for R, N, dtype in [(16, 1 << 16, torch.float32), (16, 62, torch.float32),
+                        (5, 100_003, torch.float32), (16, 1 << 14, torch.bfloat16)]:
+        x = torch.randn((R, N), generator=gen, device="cuda").to(dtype)
+        u = torch.rand((R, N), generator=gen, device="cuda")
+        s = x.float().abs().amax(1).clamp_min(1e-12) / 127.0
+        m = (torch.arange(R, device="cuda") % 3 != 0).float()
+        before = (quantize_rows.launches, dequantize_rows.launches, topk_mask_rows.launches)
+        q = quantize_rows(x, u, s, 127.0)
+        assert torch.equal(q, quantize_rows_plain(x, u, s, 127.0))
+        assert torch.equal(dequantize_rows(q, s, m), dequantize_rows_plain(q, s, m))
+        assert torch.equal(dequantize_rows(q, s), dequantize_rows_plain(q, s))
+        t = kq.topk_thresholds(x, max(1, N // 100))
+        assert torch.equal(topk_mask_rows(x, t, m), topk_mask_rows_plain(x, t, m))
+        torch.cuda.synchronize()
+        assert (quantize_rows.launches, dequantize_rows.launches,
+                topk_mask_rows.launches) == (before[0] + 1, before[1] + 2, before[2] + 1)
+    for C, N, n_seg in [(128, 1 << 16, 16), (16, 62, 1), (20, 100_003, 4)]:
+        x = torch.randn((C, N), generator=gen, device="cuda")
+        wm = torch.rand(C, generator=gen, device="cuda") * 50
+        seg = np.random.default_rng(C).integers(0, n_seg, C)
+        u = torch.rand((n_seg, N), generator=gen, device="cuda")
+        theta, _ = segment_agg_reduce_absmax(x, wm, seg, n_seg)
+        assert torch.equal(theta, segment_agg_reduce(x, wm, seg, n_seg))
+        q, s = segment_agg_reduce_quant(x, wm, seg, n_seg, u, 8)
+        qp, sp = segment_agg_reduce_quant_plain(x, wm, seg, n_seg, u, 8)
+        torch.cuda.synchronize()
+        assert torch.allclose(s, sp, rtol=1e-5, atol=0)
+        assert int((q.int() - qp.int()).abs().max()) <= 1
+        s_theta = theta.abs().amax(1).clamp_min(1e-12) / 127.0
+        assert torch.equal(s, s_theta)
+        assert torch.equal(q, quantize_rows_plain(theta, u, s_theta, 127.0))
