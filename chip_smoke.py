@@ -41,12 +41,34 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              same noise fed to both: equal involvement, parameters within
              one quantization level (or top-k threshold) of each other.
 
-Phase 4 and 7 are the main path (uncompressed and compressed). The last
-lines are the ``kernels`` JSON object and then
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+9. lm kernels — flash attention, the RG-LRU scan and the RWKV6 scan
+             against their plain versions at the shapes the serve path
+             gives them (recurrentgemma-9b's windowed MQA prefill, its
+             ragged P + 1 prefill and a window-free case; the RG-LRU
+             prefill and decode shapes; the RWKV6 prefill with and
+             without an initial state and its decode step); times as in
+             phase 3, bounds at the card's bf16 tensor-core rate (989
+             TFLOP/s) for bf16 attention and its f32 rate otherwise,
+             ``scaled_dot_product_attention`` as flash's library call.
+10. serve  — ``repro_torch.launch.serve.run`` at full width for
+             recurrentgemma-9b and rwkv6-3b: batch 4, a 4096-token prompt,
+             32 greedy decode steps, twice (cold, then warm on the same
+             weights and prompt); launch counts zeroed before each run and
+             checked against the routing table after it; every logit
+             finite; [prefill(P) then decode(token P)] against prefill(P + 1)
+             within 5% of the largest logit, and within 1e-4 of it with the
+             same weights upcast to f32 (rounding is all that differs).
+11. lm parity — reduced width, card against CPU on the same weights and
+             tokens: prefill logits and caches and 3 teacher-forced decode
+             steps, f32 within 1e-4 and bf16 within 0.08.
+
+Phases 4, 7 and 10 are the main paths (the FEMNIST round uncompressed and
+compressed, LM serving). The last lines are the ``kernels`` JSON object
+and then ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -61,6 +83,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device-memory rate
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 # f32 sums in another order: the error scales with Σ|w·x| of each output,
 # not with the (possibly cancelled) sum itself; one dropped or doubled row
 # of 128 would be ~1e-2 of it
@@ -93,10 +116,10 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
-    """Least time for work that moves ``nbytes`` and does ``flops`` f32
-    operations: (ms, what bounds it)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
+    """Least time for work that moves ``nbytes`` and does ``flops``
+    operations at ``flops_per_s`` (f32 by default): (ms, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -660,6 +683,318 @@ def phase_compressed_parity() -> None:
         compression.CompressionState.uniform_noise = saved
 
 
+# ---------------------------------------------------------------------------
+# language-model serving: recurrentgemma-9b (flash attention + RG-LRU) and
+# rwkv6-3b (RWKV6)
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("recurrentgemma-9b", "rwkv6-3b")
+SERVE = dict(batch=4, prompt_len=4096, gen=32)
+
+
+def _within(got, want, rtol, atol):
+    """(max |got − want|, all within atol + rtol·|want|), in f32."""
+    d = (got.float() - want.float()).abs()
+    return float(d.max()), bool((d <= atol + rtol * want.float().abs()).all())
+
+
+def _visible_pairs(S: int, window: int, causal: bool = True) -> int:
+    """(query, key) pairs the causal window admits: the attention's work."""
+    if not causal:
+        return S * S
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def _rwkv_ops(S: int, hd: int, W: int) -> int:
+    """Operations of the chunked wkv per (batch, head), as the kernel does
+    them: per chunk of n tokens the cross-chunk and state products
+    (4·n·hd²), the pair matrix (5 per pair and channel), its product with v
+    and the elementwise decays."""
+    ops = 0
+    for t0 in range(0, S, W):
+        n = min(W, S - t0)
+        ops += 4 * n * hd * hd + 5 * hd * n * (n - 1) // 2 + n * (n + 1) * hd + 5 * n * hd
+    return ops
+
+
+def phase_lm_kernels():
+    """flash_attention, rglru_scan and rwkv6_scan against their plain
+    versions at the serve path's shapes; returns each kernel's main row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (flash_attention, flash_attention_plain, rglru_scan,
+                                     rglru_scan_plain, rwkv6_scan, rwkv6_scan_plain)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    main = {}
+    B, H, KV, hd, win = 4, 16, 1, 256, 2048            # recurrentgemma-9b attention
+    # kernel and plain version both compute in f32 and round the output to
+    # the input type once: at most one bf16 step (2^-8 of the value) apart,
+    # twice that across a binade boundary
+    for what, S, window, is_main in (("recurrentgemma-9b prefill, P = 4096", 4096, win, True),
+                                     ("ragged S: the P + 1 prefill", 4097, win, False),
+                                     ("no window", 4096, 0, False)):
+        # the serve path hands the kernel (B, S, heads, hd) activations transposed
+        q = torch.randn((B, S, H, hd), generator=gen, device="cuda").bfloat16().transpose(1, 2)
+        k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").bfloat16().transpose(1, 2)
+        v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").bfloat16().transpose(1, 2)
+        got = flash_attention(q, k, v, window=window)
+        want = flash_attention_plain(q, k, v, window=window)
+        torch.cuda.synchronize()
+        err, ok = _within(got, want, 2.0 ** -7, 1e-5)
+        check(ok, f"flash_attention disagrees with its plain version [{what}]: {err}")
+        del got, want
+        ms = time_ms(lambda: flash_attention(q, k, v, window=window))
+        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, window=window),
+                           reps=5, warmup=1)
+        kx, vx = k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1)
+        if window:
+            idx = torch.arange(S, device="cuda")
+            mask = (idx[None, :] <= idx[:, None]) & (idx[None, :] > idx[:, None] - window)
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, kx, vx,
+                                                                        attn_mask=mask))
+            del mask
+        else:
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, kx, vx,
+                                                                        is_causal=True))
+        del kx, vx
+        nbytes = 2 * (2 * B * H * S * hd + 2 * B * KV * S * hd)
+        flops = 4 * B * H * hd * _visible_pairs(S, window)
+        row = _report("flash_attention", f"{what} B={B} H={H} KV={KV} S={S} hd={hd} "
+                      f"window={window} bf16", err, ms, plain_ms, library_ms,
+                      *bound(nbytes, flops, BF16_FLOPS_PER_S),
+                      note=" (<= 2^-7·|plain|; library: scaled_dot_product_attention, "
+                           "boolean window mask or is_causal, KV expanded)")
+        if is_main:
+            main["flash_attention"] = row
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    C = 4096                                            # recurrentgemma-9b rnn_width
+    for what, S, is_main in (("prefill, P = 4096", 4096, True), ("decode step", 1, False)):
+        a = torch.rand((B, S, C), generator=gen, device="cuda")
+        b = torch.randn((B, S, C), generator=gen, device="cuda")
+        h0 = torch.randn((B, C), generator=gen, device="cuda")
+        out, h = rglru_scan(a, b, h0)
+        want_o, want_h = rglru_scan_plain(a, b, h0)
+        torch.cuda.synchronize()
+        check(torch.equal(out, want_o) and torch.equal(h, want_h),
+              f"rglru_scan differs from its plain version [{what}]")
+        ms = time_ms(lambda: rglru_scan(a, b, h0))
+        plain_ms = time_ms(lambda: rglru_scan_plain(a, b, h0), reps=5, warmup=1)
+        row = _report("rglru_scan", f"{what} B={B} S={S} C={C} with h0", 0.0, ms, plain_ms,
+                      None, *bound(4 * (3 * B * S * C + 2 * B * C), 2 * B * S * C),
+                      note=" (bit for bit)")
+        if is_main:
+            main["rglru_scan"] = row
+        del a, b, h0, out, want_o
+        torch.cuda.empty_cache()
+
+    Hp, hd, W = 48, 64, 64                              # rwkv6-3b: 40 heads padded to 48
+    for what, S, with_s0, is_main in (("prefill, P = 4096", 4096, False, True),
+                                      ("prefill from a state", 4096, True, False),
+                                      ("decode step", 1, True, False)):
+        r, k, v = (torch.randn((B, S, Hp, hd), generator=gen, device="cuda").bfloat16()
+                   .transpose(1, 2) for _ in range(3))
+        logw = -torch.exp(0.5 * torch.randn((B, S, Hp, hd), generator=gen, device="cuda")
+                          ).transpose(1, 2)
+        u = 0.5 * torch.randn((Hp, hd), generator=gen, device="cuda")
+        s0 = torch.randn((B, Hp, hd, hd), generator=gen, device="cuda") if with_s0 else None
+        o, s = rwkv6_scan(r, k, v, logw, u, chunk=W, s0=s0)
+        want_o, want_s = rwkv6_scan_plain(r, k, v, logw, u, chunk=W, s0=s0)
+        torch.cuda.synchronize()
+        err_o, ok_o = _within(o, want_o, 2e-3, 2e-3)
+        err_s, ok_s = _within(s, want_s, 2e-3, 2e-3)
+        check(ok_o and ok_s, f"rwkv6_scan disagrees with its plain version [{what}]: "
+                             f"o {err_o}, state {err_s}")
+        del o, s, want_o, want_s
+        ms = time_ms(lambda: rwkv6_scan(r, k, v, logw, u, chunk=W, s0=s0))
+        plain_ms = time_ms(lambda: rwkv6_scan_plain(r, k, v, logw, u, chunk=W, s0=s0),
+                           reps=5, warmup=1)
+        nbytes = B * Hp * (S * hd * (3 * 2 + 4 + 4) + (2 if with_s0 else 1) * hd * hd * 4)
+        row = _report("rwkv6_scan", f"{what} B={B} H={Hp} S={S} hd={hd} W={W} bf16 "
+                      f"r/k/v{', from s0' if with_s0 else ''}", max(err_o, err_s), ms,
+                      plain_ms, None, *bound(nbytes, B * Hp * _rwkv_ops(S, hd, W)),
+                      note=" (<= 2e-3 + 2e-3·|plain|, o and state)")
+        if is_main:
+            main["rwkv6_scan"] = row
+        del r, k, v, logw
+        torch.cuda.empty_cache()
+    return main
+
+
+def _lm_counters():
+    from repro_torch.kernels import flash_attention, rglru_scan, rwkv6_scan
+    return {"flash_attention": flash_attention, "rglru_scan": rglru_scan,
+            "rwkv6_scan": rwkv6_scan}
+
+
+def _routing(cfg, gen: int):
+    """Launches of one serve run: each attention layer's prefill goes through
+    flash attention (decode attention is plain torch, as the reference's),
+    each RG-LRU and RWKV6 layer through its scan in prefill and every step."""
+    layers = list(cfg.block_pattern) * cfg.n_units + list(cfg.tail_pattern)
+    return {"flash_attention": layers.count("attn"),
+            "rglru_scan": layers.count("rglru") * (1 + gen),
+            "rwkv6_scan": layers.count("rwkv") * (1 + gen)}
+
+
+def phase_serve(device: str = "cuda", smoke: bool = False, **shape):
+    """The LM serving path at full width; returns launches by kernel."""
+    from repro_torch.launch import serve
+
+    shape = shape or SERVE
+    counters = _lm_counters()
+    totals = dict.fromkeys(counters, 0)
+    for arch in LM_ARCHS:
+        res = None
+        for run in ("cold", "warm"):
+            reuse = {} if res is None else dict(params=res["params"], prompt=res["prompt"])
+            res = None
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            res = serve.run(arch, smoke=smoke, seed=0, device=device, **shape, **reuse)
+            wall = time.perf_counter() - t0
+            counts = {k: fn.launches for k, fn in counters.items()}
+            cfg = res["cfg"]
+            want = _routing(cfg, shape["gen"])
+            B, P, gen = shape["batch"], shape["prompt_len"], shape["gen"]
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"serve {arch} {run}: prefill {B}x{P} {res['prefill_s']:.3f} s "
+                  f"({B * P / res['prefill_s']:.0f} tok/s), decode {gen} steps "
+                  f"{res['decode_s']:.3f} s ({1e3 * res['decode_s'] / gen:.2f} ms/step, "
+                  f"{B * gen / res['decode_s']:.1f} tok/s), wall with init {wall:.2f} s, "
+                  f"peak device memory {peak:.2f} GiB; launches {counts} (routing table "
+                  f"{want}); tokens[0] {res['tokens'][0, :8].tolist()}")
+            check(counts == want, f"serve {arch} {run}: launches {counts}, want {want}")
+            check(tuple(res["tokens"].shape) == (B, gen + 1)
+                  and int(res["tokens"].min()) >= 0
+                  and int(res["tokens"].max()) < cfg.vocab_size, f"serve {arch}: tokens")
+            for name in ("prefill_logits", "logits"):
+                lg = res[name]
+                check(tuple(lg.shape) == (B, cfg.vocab_size)
+                      and bool(torch.isfinite(lg.float()).all()),
+                      f"serve {arch} {run}: {name} not finite or misshapen")
+            for k in totals:
+                totals[k] += counts[k]
+        n_params = sum(t.numel() for t in _leaves(res["params"]))
+        print(f"serve {arch}: {n_params:,} parameters ({cfg.dtype}), d_model {cfg.d_model}, "
+              f"{cfg.n_layers} layers, vocab {cfg.vocab_size}")
+        # serving's own consistency: [prefill(P), decode(token P)] against the
+        # last logits of prefill(P + 1); both run through the kernels
+        params, prompt, cfg = res["params"], res["prompt"], res["cfg"]
+        nxt = res["tokens"][:, :1].to(prompt.device)
+        del res, reuse
+        torch.cuda.empty_cache()
+        _consistency(arch, params, prompt, nxt, cfg, 5e-2)
+        # the same weights in f32 (upcast leaf by leaf in place: 42 GB for
+        # recurrentgemma-9b): the two routes then differ only by f32
+        # rounding, which the network amplifies as it does bf16's
+        _upcast(params)
+        torch.cuda.empty_cache()
+        _consistency(arch + " upcast to f32", params, prompt, nxt,
+                     dataclasses.replace(cfg, dtype="float32"), 1e-4)
+        del params
+        torch.cuda.empty_cache()
+    return totals
+
+
+def _upcast(tree) -> None:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _upcast(v)
+        else:
+            tree[k] = v.float()
+
+
+def _consistency(tag, params, prompt, nxt, cfg, rel_tol):
+    """[prefill(P), decode(nxt)] against the last logits of prefill(P + 1),
+    held to ``rel_tol`` of the largest logit."""
+    from repro_torch.models import transformer
+    B, P = prompt.shape
+    _, cache = transformer.prefill(params, {"tokens": prompt}, cfg, P + 1)
+    step = {"tokens": nxt, "pos": torch.full((B, 1), P, dtype=torch.int32,
+                                             device=prompt.device)}
+    got, _ = transformer.decode_step(params, step, cache, cfg)
+    del cache
+    want, _ = transformer.prefill(params, {"tokens": torch.cat([prompt, nxt], 1)}, cfg, P + 1)
+    scale = float(want.float().abs().max())
+    diff = float((got.float() - want.float()).abs().max())
+    print(f"serve {tag}: decode(token {P}) after prefill({P}) vs prefill({P + 1}): "
+          f"max |diff| {diff:.4e} of max |logit| {scale:.4e} ({diff / scale:.2e}, held to "
+          f"{rel_tol:g}); argmax equal in {int((got.argmax(-1) == want.argmax(-1)).sum())}"
+          f"/{B} rows")
+    check(bool(torch.isfinite(got.float()).all()) and diff <= rel_tol * scale,
+          f"serve {tag}: decode vs prefill(P + 1) differ by {diff} (scale {scale})")
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def _lm_tree_close(a, b, tol, where):
+    for k in b:
+        if isinstance(b[k], dict):
+            _lm_tree_close(a[k], b[k], tol, f"{where}/{k}")
+            continue
+        if not b[k].is_floating_point():
+            check(torch.equal(a[k].cpu(), b[k].cpu()), f"{where}/{k} differs")
+            continue
+        err, ok = _within(a[k].cpu(), b[k].cpu(), tol, tol)
+        check(ok, f"{where}/{k}: card vs CPU {err} > {tol}")
+
+
+def phase_lm_parity(devices=("cuda", "cpu")) -> None:
+    """Reduced width, card against CPU: the same weights (made on the CPU)
+    and tokens, prefill then 3 teacher-forced decode steps; logits and
+    caches within 1e-4 (f32) or 0.08 (bf16, the reference's own bound)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    cases = (("recurrentgemma-9b", dict(n_layers=5, window=8), 16),
+             ("rwkv6-3b", dict(rwkv_chunk=8), 13),
+             ("qwen2-0.5b", dict(), 16))
+    for arch, kw, P in cases:
+        for dtype, tol in (("float32", 1e-4), ("bfloat16", 0.08)):
+            cfg = configs.get_smoke(arch, dtype=dtype, **kw)
+            p_cpu = transformer.init_params(cfg, torch.Generator().manual_seed(P),
+                                            device="cpu")
+            toks = torch.from_numpy(np.random.default_rng(P).integers(
+                0, cfg.vocab_size, (2, P + 3)))
+            runs = []
+            for dev in devices:
+                params = _to(p_cpu, dev)
+                logits, cache = transformer.prefill(params, {"tokens": toks[:, :P].to(dev)},
+                                                    cfg, P + 3)
+                out = [(logits.cpu(), _to(cache, "cpu"))]
+                for i in range(3):
+                    step = {"tokens": toks[:, P + i:P + i + 1].to(dev),
+                            "pos": torch.full((2, 1), P + i, dtype=torch.int32, device=dev)}
+                    logits, cache = transformer.decode_step(params, step, cache, cfg)
+                    out.append((logits.cpu(), _to(cache, "cpu")))
+                runs.append(out)
+            worst = 0.0
+            for i, ((la, ca), (lb, cb)) in enumerate(zip(*runs)):
+                err, ok = _within(la, lb, tol, tol)
+                worst = max(worst, err)
+                check(ok, f"lm parity {arch} {dtype} step {i}: logits differ by {err}")
+                _lm_tree_close(ca, cb, tol, f"lm parity {arch} {dtype} step {i} cache")
+            print(f"lm parity: {arch} reduced {kw} P={P} {dtype}, card vs CPU: prefill + 3 "
+                  f"decode steps, logits max |diff| {worst:.3e} (<= {tol} + {tol}·|CPU|), "
+                  "caches within the same bound")
+
+
+def _to(tree, dev):
+    """A copy of ``tree`` on ``dev`` (a copy also on the same device: the
+    decode steps update their cache in place)."""
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev, copy=True)
+            for k, v in tree.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -689,6 +1024,9 @@ def main() -> int:
     compressed = phase(phase_compressed_slice, classical_involved)
     compressed["agg_reduce"] += launches
     phase(phase_compressed_parity)
+    rows.update(phase(phase_lm_kernels))
+    launches = dict(compressed, **phase(phase_serve))
+    phase(phase_lm_parity)
     print(f"total {time.perf_counter() - t0:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     table = (("agg_reduce", csrc + "agg_reduce.cu", "src/repro/kernels/agg_reduce.py:60"),
@@ -696,12 +1034,16 @@ def main() -> int:
               "src/repro/kernels/agg_reduce.py:85"),
              ("quantize_rows", csrc + "quantize.cu", "src/repro/kernels/quantize.py:55"),
              ("dequantize_rows", csrc + "quantize.cu", "src/repro/kernels/quantize.py:92"),
-             ("topk_mask_rows", csrc + "quantize.cu", "src/repro/kernels/quantize.py:130"))
+             ("topk_mask_rows", csrc + "quantize.cu", "src/repro/kernels/quantize.py:130"),
+             ("flash_attention", csrc + "flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:78"),
+             ("rglru_scan", csrc + "rglru_scan.cu", "src/repro/kernels/rglru_scan.py:49"),
+             ("rwkv6_scan", csrc + "rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:79"))
     for name, _, _ in table:
-        check(compressed[name] > 0, f"{name} never launched on the main path")
+        check(launches[name] > 0, f"{name} never launched on the main path")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": compressed[name], **rows[name]}
+         "launches": launches[name], **rows[name]}
         for name, source, replaces in table]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

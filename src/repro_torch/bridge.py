@@ -6,10 +6,16 @@ leaf has the same layout in both, ``fc1_w`` included: the port flattens
 in the reference's (H, W, C) order (see ``models/femnist_cnn.py``).
 Arrays cross as numpy, so this module needs neither framework's runtime
 state; a 4-D leaf is a conv weight.
+
+The language models' trees (parameters and caches, nested dicts) have the
+same layout in both packages, so ``lm_params_from_jax`` and
+``lm_params_to_jax`` copy leaf by leaf. bfloat16 crosses as its bits:
+numpy holds it as ``ml_dtypes.bfloat16`` (JAX's own numpy type), which
+``lm_params_to_jax`` imports only when it meets a bfloat16 tensor.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -38,3 +44,32 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
             a = np.transpose(a, _OIHW_TO_HWIO)
         out[name] = np.ascontiguousarray(a)
     return out
+
+
+def _leaf_from_numpy(a) -> torch.Tensor:
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def lm_params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A nested dict of reference-layout numpy arrays (parameters or a
+    cache) -> the same tree of CPU tensors (copies, dtypes kept)."""
+    return {k: lm_params_from_jax(v) if isinstance(v, dict) else _leaf_from_numpy(v)
+            for k, v in tree.items()}
+
+
+def lm_params_to_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's nested dict of tensors (any device) -> numpy arrays in
+    the reference's layout (bfloat16 as ``ml_dtypes.bfloat16``)."""
+    return {k: lm_params_to_jax(v) if isinstance(v, dict) else _leaf_to_numpy(v)
+            for k, v in tree.items()}

@@ -22,9 +22,11 @@ def resolve(device: str | torch.device = "cuda") -> torch.device:
         raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', not {dev}")
     # The JAX reference computes in full f32, but cuDNN convolutions default
     # to TF32 (about three decimal digits) on this card; matmuls are pinned
-    # too so neither setting depends on the caller's process state.
+    # too so neither setting depends on the caller's process state. bf16
+    # products accumulate in f32 throughout, as XLA's do.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev
 
 

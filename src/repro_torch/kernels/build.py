@@ -20,7 +20,9 @@ from typing import Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = {"agg_reduce": "agg_reduce.cu", "quantize": "quantize.cu"}
+SOURCES = {"agg_reduce": "agg_reduce.cu", "quantize": "quantize.cu",
+           "flash_attention": "flash_attention.cu", "rglru_scan": "rglru_scan.cu",
+           "rwkv6_scan": "rwkv6_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,131 @@
+"""The chunked RWKV6 wkv recurrence — port of ``repro/kernels/rwkv6_scan.py``
+and of the chunk loop in ``repro/models/rwkv6.py::rwkv_time_mix``.
+
+    o_t = r_t · (S_{t-1} + (u ⊙ k_t) ⊗ v_t),   S_t = diag(e^{logw_t}) S_{t-1} + k_t ⊗ v_t
+
+``rwkv6_scan`` launches the hand-written CUDA kernel (``csrc/rwkv6_scan.cu``)
+for CUDA tensors and takes the plain PyTorch version beside it only for
+CPU tensors; any other device raises. Both take the chunkwise form of the
+reference model's ``_chunk_body`` in chunks of ``chunk`` tokens, a ragged
+last chunk included (the model would take one chunk of S tokens there:
+the same function up to rounding), from an optional initial state S0.
+
+r, k, v (f32 or bf16) and logw (f32, ≤ 0) are (B, H, S, hd) with hd
+contiguous and any other strides; u is (H, hd). Returns o (B, H, S, hd)
+f32, laid out in memory as (B, S, H, hd) (the model's layout), and
+S_final (B, H, hd, hd) f32.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+
+DEFAULT_CHUNK = 64
+MAX_CHUNK = MAX_HEAD_DIM = 64      # the kernel's shared-memory tiles
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 15
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+
+def _check(r, k, v, logw, u, s0):
+    if r.ndim != 4 or any(t.shape != r.shape for t in (k, v, logw)):
+        raise ValueError(f"want r, k, v, logw (B, H, S, hd); got {tuple(r.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}, {tuple(logw.shape)}")
+    B, H, S, hd = r.shape
+    if u.shape != (H, hd):
+        raise ValueError(f"u must be (H, hd) = {(H, hd)}, got {tuple(u.shape)}")
+    if s0 is not None and s0.shape != (B, H, hd, hd):
+        raise ValueError(f"s0 must be {(B, H, hd, hd)}, got {tuple(s0.shape)}")
+    return B, H, S, hd
+
+
+def _chunk_body(r, k, v, logw, u, S_in):
+    """One chunk, all heads, f32: r, k, v, logw (B, H, W, hd); S_in (B, H,
+    hd, hd) -> (o (B, H, W, hd), S_out). The reference model's _chunk_body
+    with heads ahead of time."""
+    W = r.shape[2]
+    c = torch.cumsum(logw, dim=2)                          # inclusive Σ log w
+    c_excl = c - logw
+    o = torch.einsum("bhwk,bhkv->bhwv", r * torch.exp(c_excl), S_in)
+    # intra-chunk pairs j < t; the exponent is ≤ 0 on the causal pairs and
+    # clamped at 0 so the masked ones cannot overflow
+    diff = c_excl[:, :, :, None] - c[:, :, None, :, :]      # (B, H, T, J, hd)
+    att = (r[:, :, :, None] * k[:, :, None] * torch.exp(diff.clamp_max(0.0))).sum(-1)
+    tri = torch.tril(torch.ones((W, W), dtype=torch.bool, device=r.device), diagonal=-1)
+    att = torch.where(tri, att, torch.zeros_like(att))
+    diag = (r * (u[None, :, None, :] * k)).sum(-1)         # (B, H, W)
+    o = o + torch.einsum("bhtj,bhjv->bhtv", att, v) + diag[..., None] * v
+    c_tot = c[:, :, -1]                                    # (B, H, hd)
+    k_dec = k * torch.exp(c_tot[:, :, None] - c)
+    S_out = S_in * torch.exp(c_tot)[..., None] + torch.einsum("bhjk,bhjv->bhkv", k_dec, v)
+    return o, S_out
+
+
+def rwkv6_scan_plain(r, k, v, logw, u, *, chunk: int = DEFAULT_CHUNK,
+                     s0: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: the chunk loop of the reference model."""
+    B, H, S, hd = _check(r, k, v, logw, u, s0)
+    rf, kf, vf, wf, uf = (t.float() for t in (r, k, v, logw, u))
+    St = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+          if s0 is None else s0.float())
+    o = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device).transpose(1, 2)
+    for t0 in range(0, S, chunk):
+        sl = slice(t0, min(S, t0 + chunk))
+        o[:, :, sl], St = _chunk_body(rf[:, :, sl], kf[:, :, sl], vf[:, :, sl],
+                                      wf[:, :, sl], uf, St)
+    return o, St
+
+
+def rwkv6_scan(r, k, v, logw, u, *, chunk: int = DEFAULT_CHUNK,
+               s0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r, k, v: (B, H, S, hd) f32/bf16; logw: (B, H, S, hd) f32; u: (H, hd);
+    s0: (B, H, hd, hd) f32 or None -> (o (B, H, S, hd) f32, S_final)."""
+    B, H, S, hd = _check(r, k, v, logw, u, s0)
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    if r.device.type == "cpu":
+        return rwkv6_scan_plain(r, k, v, logw, u, chunk=chunk, s0=s0)
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_scan runs on cuda or cpu, not {r.device}")
+    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"r, k, v must share float32 or bfloat16, got {r.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if logw.dtype != torch.float32:
+        raise TypeError(f"logw must be float32, got {logw.dtype}")
+    if any(t.device != r.device for t in (k, v, logw, u)) or (
+            s0 is not None and s0.device != r.device):
+        raise ValueError("all inputs must be on one device")
+    if any(t.stride(-1) != 1 for t in (r, k, v, logw)):
+        raise ValueError("r, k, v and logw need a contiguous head_dim")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes head_dim <= {MAX_HEAD_DIM}, got {hd}")
+    chunk = min(chunk, max(S, 1))
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"the kernel takes chunk <= {MAX_CHUNK}, got {chunk}")
+    u = u.float().contiguous()
+    if s0 is not None:
+        s0 = s0.float().contiguous()
+    o = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device).transpose(1, 2)
+    s_out = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    if B == 0 or H == 0 or hd == 0:
+        return o, s_out
+    fn = build.load("rwkv6_scan").rwkv6_scan_fwd
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    strides = [s for t in (r, k, v, logw, o) for s in t.stride()[:3]]
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    with torch.cuda.device(r.device):
+        err = fn(_DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 logw.data_ptr(), u.data_ptr(), None if s0 is None else s0.data_ptr(),
+                 o.data_ptr(), s_out.data_ptr(), *strides, B, H, S, hd, chunk, stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error {err}")
+    rwkv6_scan.launches += 1
+    return o, s_out
+
+
+rwkv6_scan.launches = 0   # kernel launches, for chip_smoke's path check

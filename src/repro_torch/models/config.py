@@ -1,9 +1,9 @@
 """Unified model configuration — a copy of ``repro.models.config.ModelConfig``.
 
 The port keeps its own copy (pure dataclasses, no framework code) so it
-imports nothing of the JAX package: every field and ``reduced()``; the
-language-model layer-plan properties join with the language models.
-``tests/test_torch_femnist_cnn.py`` holds the two copies field for field.
+imports nothing of the JAX package: every field, the language-model layer-plan properties and ``reduced()``.
+``tests/test_torch_femnist_cnn.py`` and ``tests/test_torch_lm.py`` hold
+the two copies field for field.
 """
 from __future__ import annotations
 
@@ -75,6 +75,56 @@ class ModelConfig:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         if self.rnn_width == 0:
             object.__setattr__(self, "rnn_width", self.d_model)
+
+    # ---- layer plan -------------------------------------------------------
+    @property
+    def n_units(self) -> int:
+        return self.n_layers // len(self.block_pattern)
+
+    @property
+    def tail_pattern(self) -> Tuple[str, ...]:
+        rem = self.n_layers % len(self.block_pattern)
+        return self.block_pattern[:rem]
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if decode cost per token is O(1) in history length.
+
+        Requires every layer kind to be recurrent or windowed attention.
+        """
+        for kind in set(self.block_pattern):
+            if kind in ("attn", "cross") and self.window == 0:
+                return False
+        return True
+
+    @property
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings included once)."""
+        d, ff, V = self.d_model, self.d_ff, self.vocab_size
+        hd = self.head_dim
+        n_attn = n_cross = n_rglru = n_rwkv = 0
+        full = list(self.block_pattern) * self.n_units + list(self.tail_pattern)
+        for k in full:
+            n_attn += k == "attn"
+            n_cross += k == "cross"
+            n_rglru += k == "rglru"
+            n_rwkv += k == "rwkv"
+        attn_p = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+        mlp_p = 3 * d * ff if self.mlp == "swiglu" else 2 * d * ff
+        if self.n_experts:
+            moe_p = self.n_experts * mlp_p + d * self.n_experts
+            mlp_total = moe_p + (mlp_p if self.dense_residual else 0)
+        else:
+            mlp_total = mlp_p
+        rg_w = self.rnn_width
+        rglru_p = d * rg_w * 3 + rg_w * d + rg_w * (self.conv_width + 4) + 2 * rg_w * rg_w
+        rwkv_p = 4 * d * d + d * self.rwkv_lora * 10 + 3 * d * ff // 2  # approx
+        total = V * d * (1 if self.tie_embeddings else 2)
+        total += n_attn * (attn_p + mlp_total)
+        total += n_cross * (attn_p + mlp_total)
+        total += n_rglru * (rglru_p + mlp_total)
+        total += n_rwkv * rwkv_p
+        return int(total)
 
     def reduced(self, **overrides) -> "ModelConfig":
         """A smoke-test-sized config of the same family (CPU-runnable)."""

@@ -1,0 +1,327 @@
+"""Decoder assembly for the ported language models — port of
+``repro/models/transformer.py``: init, forward, and serving (prefill +
+decode) for the ``attn``, ``rglru`` and ``rwkv`` sublayer kinds.
+
+A model is a repeating unit of sublayers (``cfg.block_pattern``) applied
+``cfg.n_units`` times, then a short tail. Parameters and caches keep the
+reference's nested-dict layout, unit leaves stacked ``(n_units, …)``; a
+Python loop over the units replaces ``lax.scan``. The reference's
+sharding rules have no single-card counterpart and are left out of every
+signature. MoE, cross-attention and the frame / patch frontends raise
+``NotImplementedError`` (ROADMAP.md Queue 1); so do training's
+``loss_fn`` and ``_xent``, which come with the training slice.
+
+The cache is mutable: ``decode_step`` writes the new token's K/V into the
+rings and the new recurrent states into the stacked buffers in place, and
+returns the same dict. Each attention cache's ``pos`` is an int32 tensor
+on the host (``(n_units,)`` for the unit, 0-d for the tail), read once per
+step. Where the prompt outruns a sliding window, ``prefill`` keeps the
+last ``window`` K/V rows so that position p sits in ring slot p % window,
+the layout ``_decode_attention`` reads; the reference keeps them in
+positional order, which agrees only when P % window == 0 (ROADMAP.md
+Queue 3).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
+from repro_torch.models import rwkv6 as W
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.param import ParamBuilder
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def _unported(what: str):
+    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md Queue 1")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _sublayer_params(pb: ParamBuilder, cfg: ModelConfig, kind: str, tp: int):
+    if kind == "attn":
+        if cfg.n_experts:
+            _unported("the MoE MLP")
+        L.norm_params(pb, "norm1", cfg.d_model, cfg.norm)
+        L.attn_params(pb, cfg, tp)
+        L.norm_params(pb, "norm2", cfg.d_model, cfg.norm)
+        L.mlp_params(pb, cfg)
+    elif kind == "rglru":
+        L.norm_params(pb, "norm1", cfg.d_model, cfg.norm)
+        R.rglru_params(pb, cfg)
+        L.norm_params(pb, "norm2", cfg.d_model, cfg.norm)
+        L.mlp_params(pb, cfg)
+    elif kind == "rwkv":
+        L.norm_params(pb, "norm1", cfg.d_model, cfg.norm)
+        W.rwkv_time_params(pb, cfg)
+        L.norm_params(pb, "norm2", cfg.d_model, cfg.norm)
+        W.rwkv_channel_params(pb, cfg)
+    elif kind == "cross":
+        _unported("cross-attention (the VLM family)")
+    else:
+        raise ValueError(kind)
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device: str | torch.device = "cuda", tp: int = 16) -> Dict[str, Any]:
+    """Random parameters in the reference's layout, made on ``device`` leaf
+    by leaf from ``generator`` (one on that device, seed 0 by default).
+
+    The unit's leaves are drawn stacked ``(n_units, …)`` the way the
+    reference re-draws them (see ``ParamBuilder``). The reference seeds
+    that re-draw from ``hash(cfg.name)``, which Python randomises per
+    process, so no port can repeat its numbers: the tests carry JAX's
+    parameters across with ``repro_torch.bridge`` instead.
+    """
+    dev = device_mod.resolve(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    return _build_params(cfg, generator, dev, tp)
+
+
+def _build_params(cfg: ModelConfig, generator, dev: torch.device, tp: int = 16):
+    """``init_params`` on any device (``meta`` gives the shapes alone)."""
+    if cfg.frontend != "tokens":
+        _unported(f"the {cfg.frontend!r} frontend")
+    pb = ParamBuilder(generator, _dtype(cfg), dev)
+    V, d = cfg.vocab_size, cfg.d_model
+    pb.param("embed", (V, d), scale=1.0)
+    unit = ParamBuilder(generator, _dtype(cfg), dev, stack=cfg.n_units)
+    pb.params["unit"] = unit.params
+    for i, kind in enumerate(cfg.block_pattern):
+        _sublayer_params(unit.sub(f"{i}_{kind}"), cfg, kind, tp)
+    tail = pb.sub("tail")
+    for i, kind in enumerate(cfg.tail_pattern):
+        _sublayer_params(tail.sub(f"{i}_{kind}"), cfg, kind, tp)
+    L.norm_params(pb, "final_norm", d, cfg.norm)
+    if not cfg.tie_embeddings:
+        pb.param("lm_head", (d, V))
+    return pb.build()
+
+
+def _index(tree, i: int):
+    """Unit ``i`` of a stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# sublayer application
+# ---------------------------------------------------------------------------
+
+def _apply_sublayer(x, p, cfg: ModelConfig, kind: str, positions, cache=None):
+    """Returns (x, new_cache, aux). With cache=None an attention sublayer
+    hands back its (k, v) for prefill's cache."""
+    if kind == "attn":
+        if cfg.n_experts:
+            _unported("the MoE MLP")
+        h = L.norm(x, p["norm1"], cfg.norm)
+        a, new_cache = L.self_attention(h, p["attn"], cfg, positions, window=cfg.window,
+                                        cache=cache)
+        x = x + a
+        h = L.norm(x, p["norm2"], cfg.norm)
+        x = x + L.mlp_block(h, p["mlp"], cfg)
+    elif kind == "rglru":
+        h = L.norm(x, p["norm1"], cfg.norm)
+        a, new_cache = R.rglru_block(h, p["rglru"], cfg, state=cache)
+        x = x + a
+        h = L.norm(x, p["norm2"], cfg.norm)
+        x = x + L.mlp_block(h, p["mlp"], cfg)
+    elif kind == "rwkv":
+        h = L.norm(x, p["norm1"], cfg.norm)
+        a, tstate = W.rwkv_time_mix(h, p["time"], cfg,
+                                    state=None if cache is None else cache["time"])
+        x = x + a
+        h = L.norm(x, p["norm2"], cfg.norm)
+        c, cstate = W.rwkv_channel_mix(h, p["channel"], cfg,
+                                       state=None if cache is None else cache["channel"])
+        x = x + c
+        new_cache = {"time": tstate, "channel": cstate}
+    elif kind == "cross":
+        _unported("cross-attention (the VLM family)")
+    else:
+        raise ValueError(kind)
+    return x, new_cache, 0.0
+
+
+def _apply_unit(x, unit_p, cfg: ModelConfig, positions, unit_cache=None):
+    new_cache = {}
+    aux_total = 0.0
+    for i, kind in enumerate(cfg.block_pattern):
+        key = f"{i}_{kind}"
+        c = None if unit_cache is None else unit_cache.get(key)
+        x, nc, aux = _apply_sublayer(x, unit_p[key], cfg, kind, positions, cache=c)
+        new_cache[key] = nc
+        aux_total = aux_total + aux
+    return x, new_cache, aux_total
+
+
+# ---------------------------------------------------------------------------
+# embedding / head
+# ---------------------------------------------------------------------------
+
+def _embed_tokens(params, tokens, cfg: ModelConfig):
+    x = params["embed"][tokens].to(_dtype(cfg))
+    # the reference multiplies by a weakly typed Python float: the factor is
+    # rounded to the activation type first
+    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+
+
+def embed_inputs(params, batch: Dict[str, Any], cfg: ModelConfig):
+    """Returns (x (B, S, d), media (None), labels (B, S), positions (B, S))."""
+    if cfg.frontend != "tokens":
+        _unported(f"the {cfg.frontend!r} frontend")
+    tokens = batch["tokens"]
+    x = _embed_tokens(params, tokens, cfg)
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    return x, None, labels, positions
+
+
+def unembed(params, x, cfg: ModelConfig):
+    x = L.norm(x, params["final_norm"], cfg.norm)
+    if cfg.tie_embeddings:
+        return torch.einsum("bsd,vd->bsv", x, params["embed"])
+    return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def forward(params, batch, cfg: ModelConfig):
+    """Full forward: returns (pre-head activations, labels, aux)."""
+    x, _, labels, positions = embed_inputs(params, batch, cfg)
+    aux_total = 0.0
+    for i in range(cfg.n_units):
+        x, _, aux = _apply_unit(x, _index(params["unit"], i), cfg, positions)
+        aux_total = aux_total + aux
+    for i, kind in enumerate(cfg.tail_pattern):
+        x, _, aux = _apply_sublayer(x, params["tail"][f"{i}_{kind}"], cfg, kind, positions)
+        aux_total = aux_total + aux
+    return x, labels, aux_total
+
+
+# ---------------------------------------------------------------------------
+# serve: prefill + decode
+# ---------------------------------------------------------------------------
+
+def _cache_len(cfg: ModelConfig, cache_len: int) -> int:
+    return min(cache_len, cfg.window) if cfg.window else cache_len
+
+
+def _cache_struct(cfg: ModelConfig, kind: str, batch: int, cache_len: int, dtype, device):
+    if kind == "attn":
+        kv = (batch, _cache_len(cfg, cache_len), cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(kv, dtype=dtype, device=device),
+                "v": torch.zeros(kv, dtype=dtype, device=device),
+                "pos": torch.zeros((), dtype=torch.int32)}
+    if kind == "rglru":
+        return R.rglru_init_state(cfg, batch, dtype, device)
+    if kind == "rwkv":
+        return W.rwkv_init_state(cfg, batch, dtype, device)
+    if kind == "cross":
+        _unported("cross-attention (the VLM family)")
+    raise ValueError(kind)
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device: str | torch.device = "cuda"):
+    """Cache tree: per unit sublayer stacked over n_units, plus the tail."""
+    dtype = _dtype(cfg)
+    unit = {f"{i}_{kind}": _stack([_cache_struct(cfg, kind, batch, cache_len, dtype, device)
+                                   for _ in range(cfg.n_units)])
+            for i, kind in enumerate(cfg.block_pattern)}
+    tail = {f"{i}_{kind}": _cache_struct(cfg, kind, batch, cache_len, dtype, device)
+            for i, kind in enumerate(cfg.tail_pattern)}
+    return {"unit": unit, "tail": tail}
+
+
+def _attn_prefill_cache(cfg: ModelConfig, kv, S: int, batch: int, cache_len: int):
+    """Prefill's (k, v) of one attention layer -> its decode cache. Past the
+    window, the last ``clen`` rows are rolled so position p is in slot p % clen."""
+    k, v = kv
+    clen = _cache_len(cfg, cache_len)
+    if clen < S:
+        k = torch.roll(k[:, S - clen:], shifts=S % clen, dims=1)
+        v = torch.roll(v[:, S - clen:], shifts=S % clen, dims=1)
+    else:
+        buf = _cache_struct(cfg, "attn", batch, cache_len, k.dtype, k.device)
+        buf["k"][:, :S], buf["v"][:, :S] = k, v
+        k, v = buf["k"], buf["v"]
+    return {"k": k, "v": v, "pos": torch.tensor(S, dtype=torch.int32)}
+
+
+def prefill(params, batch, cfg: ModelConfig, cache_len: int):
+    """Process a full prompt: returns (last-position logits (B, V), cache)."""
+    x, _, _, positions = embed_inputs(params, batch, cfg)
+    B, S = positions.shape
+
+    def run(x, p, kind):
+        x, nc, _ = _apply_sublayer(x, p, cfg, kind, positions)
+        if kind == "attn":
+            nc = _attn_prefill_cache(cfg, nc, S, B, cache_len)
+        return x, nc
+
+    units = []
+    for i in range(cfg.n_units):
+        unit_p, nc = _index(params["unit"], i), {}
+        for j, kind in enumerate(cfg.block_pattern):
+            x, nc[f"{j}_{kind}"] = run(x, unit_p[f"{j}_{kind}"], kind)
+        units.append(nc)
+    tail = {}
+    for j, kind in enumerate(cfg.tail_pattern):
+        x, tail[f"{j}_{kind}"] = run(x, params["tail"][f"{j}_{kind}"], kind)
+    logits = unembed(params, x[:, -1:], cfg)[:, -1]
+    return logits, {"unit": _stack(units) if units else {}, "tail": tail}
+
+
+def _write_back(dst, src):
+    """Store a sublayer's new cache into ``dst`` (views into the stacked
+    buffers, or the tail's own dict) in place."""
+    for k, new in src.items():
+        if isinstance(new, dict):
+            _write_back(dst[k], new)
+        elif isinstance(new, int):
+            dst[k].fill_(new)
+        elif new.data_ptr() != dst[k].data_ptr():
+            dst[k].copy_(new)
+
+
+def decode_step(params, batch, cache, cfg: ModelConfig):
+    """One-token decode: batch = {'tokens': (B, 1), 'pos': (B, 1)}.
+
+    Returns (logits (B, V), cache), the cache updated in place."""
+    x = _embed_tokens(params, batch["tokens"], cfg)
+    pos = batch["pos"]
+    for i in range(cfg.n_units):
+        unit_c = _index(cache["unit"], i)
+        x, nc, _ = _apply_unit(x, _index(params["unit"], i), cfg, pos, unit_cache=unit_c)
+        _write_back(unit_c, nc)
+    for j, kind in enumerate(cfg.tail_pattern):
+        key = f"{j}_{kind}"
+        x, nc, _ = _apply_sublayer(x, params["tail"][key], cfg, kind, pos,
+                                   cache=cache["tail"][key])
+        _write_back(cache["tail"][key], nc)
+    logits = unembed(params, x, cfg)[:, -1]
+    return logits, cache
