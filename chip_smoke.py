@@ -44,17 +44,28 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 9. lm kernels — flash attention, the RG-LRU scan and the RWKV6 scan
              against their plain versions at the shapes the serve path
              gives them (recurrentgemma-9b's windowed MQA prefill, its
-             ragged P + 1 prefill and a window-free case; the RG-LRU
-             prefill and decode shapes; the RWKV6 prefill with and
-             without an initial state and its decode step); times as in
-             phase 3, bounds at the card's bf16 tensor-core rate (989
-             TFLOP/s) for bf16 attention and its f32 rate otherwise,
-             ``scaled_dot_product_attention`` as flash's library call.
+             ragged P + 1 prefill and a window-free case on the bf16
+             tensor-core route, the windowed prefill in f32 on the
+             CUDA-core route; the RG-LRU prefill and decode shapes; the
+             RWKV6 prefill with and without an initial state on the
+             chunked route and its decode step on the decode route); times
+             as in phase 3, bounds at the card's bf16 tensor-core rate (989
+             TFLOP/s) for bf16 attention and its f32 rate for f32
+             attention; the RWKV6 bound is the bytes or the chunked form's
+             matrix products at the TF32 rate (495 TFLOP/s), whichever is
+             larger (the old algorithm's operations at the f32 rate are
+             printed beside it); ``scaled_dot_product_attention`` as
+             flash's library call; a torch.profiler breakdown of the RWKV6
+             prefill's three launches and of its decode step.
 10. serve  — ``repro_torch.launch.serve.run`` at full width for
              recurrentgemma-9b and rwkv6-3b: batch 4, a 4096-token prompt,
              32 greedy decode steps, twice (cold, then warm on the same
              weights and prompt); launch counts zeroed before each run and
-             checked against the routing table after it; every logit
+             checked against the routing table after it, route by route
+             (bf16 prefill attention on the tensor-core flash route, RWKV6
+             prefill on the chunked route and every decode step on the
+             decode route); a torch.profiler breakdown of one warm
+             prefill (device time by kernel, busy share); every logit
              finite; [prefill(P) then decode(token P)] against prefill(P + 1)
              within 5% of the largest logit, and within 1e-4 of it with the
              same weights upcast to f32 (rounding is all that differs).
@@ -84,6 +95,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device-memory rate
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
 # f32 sums in another order: the error scales with Σ|w·x| of each output,
 # not with the (possibly cancelled) sum itself; one dropped or doubled row
 # of 128 would be ~1e-2 of it
@@ -692,6 +704,34 @@ LM_ARCHS = ("recurrentgemma-9b", "rwkv6-3b")
 SERVE = dict(batch=4, prompt_len=4096, gen=32)
 
 
+def _kernel_name(key: str) -> str:
+    """A profiler key without its return type, namespace and arguments."""
+    key = key.replace("(anonymous namespace)::", "")
+    return (key[5:] if key.startswith("void ") else key).split("(")[0].strip()[:70]
+
+
+def _device_profile(label: str, fn, calls: int = 1, top: int = 6) -> None:
+    """Print the device time of ``calls`` calls of ``fn`` by kernel
+    (torch.profiler's CUDA activity) beside the host clock's wall time:
+    their ratio is the card's busy share over the calls."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / calls
+    rows = sorted(((e.self_device_time_total / 1e3 / calls, e.count // calls,
+                    _kernel_name(e.key)) for e in prof.key_averages()
+                   if e.self_device_time_total > 0), reverse=True)
+    device = sum(ms for ms, _, _ in rows)
+    check(device > 0, f"profile {label}: no device time recorded")
+    print(f"profile {label}: device {device:.4f} ms of wall {wall:.4f} ms a call "
+          f"({100 * device / wall:.1f}% busy); top kernels: "
+          + "; ".join(f"{name} {ms:.4f} ms x{n}" for ms, n, name in rows[:top]))
+
+
 def _within(got, want, rtol, atol):
     """(max |got − want|, all within atol + rtol·|want|), in f32."""
     d = (got.float() - want.float()).abs()
@@ -708,15 +748,28 @@ def _visible_pairs(S: int, window: int, causal: bool = True) -> int:
 
 
 def _rwkv_ops(S: int, hd: int, W: int) -> int:
-    """Operations of the chunked wkv per (batch, head), as the kernel does
-    them: per chunk of n tokens the cross-chunk and state products
-    (4·n·hd²), the pair matrix (5 per pair and channel), its product with v
-    and the elementwise decays."""
+    """Operations of the chunked wkv per (batch, head) as PR 13's CUDA-core
+    kernel did them: per chunk of n tokens the cross-chunk and state
+    products (4·n·hd²), the pair matrix (5 per pair and channel), its
+    product with v and the elementwise decays. Printed beside the bound
+    for comparison with that design."""
     ops = 0
     for t0 in range(0, S, W):
         n = min(W, S - t0)
         ops += 4 * n * hd * hd + 5 * hd * n * (n - 1) // 2 + n * (n + 1) * hd + 5 * n * hd
     return ops
+
+
+def _rwkv_matmul_flops(S: int, hd: int, W: int) -> int:
+    """Matrix-product flops of the chunked form per (batch, head), whatever
+    implements it: per chunk of n tokens the cross-chunk and state products
+    (2·n·hd² each) and the causal pair matrix with its product with v
+    (hd·n(n − 1) and hd·n(n + 1), the u-bonus on the diagonal)."""
+    flops = 0
+    for t0 in range(0, S, W):
+        n = min(W, S - t0)
+        flops += 4 * n * hd * hd + 2 * hd * n * n
+    return flops
 
 
 def phase_lm_kernels():
@@ -732,17 +785,26 @@ def phase_lm_kernels():
     # kernel and plain version both compute in f32 and round the output to
     # the input type once: at most one bf16 step (2^-8 of the value) apart,
     # twice that across a binade boundary
-    for what, S, window, is_main in (("recurrentgemma-9b prefill, P = 4096", 4096, win, True),
-                                     ("ragged S: the P + 1 prefill", 4097, win, False),
-                                     ("no window", 4096, 0, False)):
+    for what, S, window, dtype, is_main in (
+            ("recurrentgemma-9b prefill, P = 4096", 4096, win, torch.bfloat16, True),
+            ("ragged S: the P + 1 prefill", 4097, win, torch.bfloat16, False),
+            ("no window", 4096, 0, torch.bfloat16, False),
+            ("f32 route (the upcast model)", 4096, win, torch.float32, False)):
         # the serve path hands the kernel (B, S, heads, hd) activations transposed
-        q = torch.randn((B, S, H, hd), generator=gen, device="cuda").bfloat16().transpose(1, 2)
-        k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").bfloat16().transpose(1, 2)
-        v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").bfloat16().transpose(1, 2)
+        q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+        k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+        v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+        counter = "launches_tc" if dtype == torch.bfloat16 else "launches_f32"
+        before = getattr(flash_attention, counter)
         got = flash_attention(q, k, v, window=window)
         want = flash_attention_plain(q, k, v, window=window)
         torch.cuda.synchronize()
-        err, ok = _within(got, want, 2.0 ** -7, 1e-5)
+        check(getattr(flash_attention, counter) == before + 1,
+              f"flash_attention [{what}] did not take its {counter} route")
+        # bf16: both compute in f32 (the kernel's P in two bf16 halves) and
+        # round to bf16 once; f32: the sums' order alone differs
+        err, ok = (_within(got, want, 2.0 ** -7, 1e-5) if dtype == torch.bfloat16
+                   else _within(got, want, 2e-5, 2e-5))
         check(ok, f"flash_attention disagrees with its plain version [{what}]: {err}")
         del got, want
         ms = time_ms(lambda: flash_attention(q, k, v, window=window))
@@ -759,13 +821,16 @@ def phase_lm_kernels():
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, kx, vx,
                                                                         is_causal=True))
         del kx, vx
-        nbytes = 2 * (2 * B * H * S * hd + 2 * B * KV * S * hd)
+        nbytes = q.element_size() * (2 * B * H * S * hd + 2 * B * KV * S * hd)
         flops = 4 * B * H * hd * _visible_pairs(S, window)
+        rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
         row = _report("flash_attention", f"{what} B={B} H={H} KV={KV} S={S} hd={hd} "
-                      f"window={window} bf16", err, ms, plain_ms, library_ms,
-                      *bound(nbytes, flops, BF16_FLOPS_PER_S),
-                      note=" (<= 2^-7·|plain|; library: scaled_dot_product_attention, "
-                           "boolean window mask or is_causal, KV expanded)")
+                      f"window={window} {str(dtype).split('.')[-1]}, {counter[9:]} route",
+                      err, ms, plain_ms, library_ms, *bound(nbytes, flops, rate),
+                      note=(" (<= 2^-7·|plain|" if dtype == torch.bfloat16
+                            else " (<= 2e-5 + 2e-5·|plain|")
+                      + "; library: scaled_dot_product_attention, boolean window mask or "
+                        "is_causal, KV expanded)")
         if is_main:
             main["flash_attention"] = row
         del q, k, v
@@ -801,9 +866,13 @@ def phase_lm_kernels():
                           ).transpose(1, 2)
         u = 0.5 * torch.randn((Hp, hd), generator=gen, device="cuda")
         s0 = torch.randn((B, Hp, hd, hd), generator=gen, device="cuda") if with_s0 else None
+        counter = "launches_decode" if S == 1 else "launches_chunked"
+        before = getattr(rwkv6_scan, counter)
         o, s = rwkv6_scan(r, k, v, logw, u, chunk=W, s0=s0)
         want_o, want_s = rwkv6_scan_plain(r, k, v, logw, u, chunk=W, s0=s0)
         torch.cuda.synchronize()
+        check(getattr(rwkv6_scan, counter) == before + 1,
+              f"rwkv6_scan [{what}] did not take its {counter} route")
         err_o, ok_o = _within(o, want_o, 2e-3, 2e-3)
         err_s, ok_s = _within(s, want_s, 2e-3, 2e-3)
         check(ok_o and ok_s, f"rwkv6_scan disagrees with its plain version [{what}]: "
@@ -813,12 +882,20 @@ def phase_lm_kernels():
         plain_ms = time_ms(lambda: rwkv6_scan_plain(r, k, v, logw, u, chunk=W, s0=s0),
                            reps=5, warmup=1)
         nbytes = B * Hp * (S * hd * (3 * 2 + 4 + 4) + (2 if with_s0 else 1) * hd * hd * 4)
+        old_ms, _ = bound(nbytes, B * Hp * _rwkv_ops(S, hd, W))
         row = _report("rwkv6_scan", f"{what} B={B} H={Hp} S={S} hd={hd} W={W} bf16 "
-                      f"r/k/v{', from s0' if with_s0 else ''}", max(err_o, err_s), ms,
-                      plain_ms, None, *bound(nbytes, B * Hp * _rwkv_ops(S, hd, W)),
-                      note=" (<= 2e-3 + 2e-3·|plain|, o and state)")
+                      f"r/k/v{', from s0' if with_s0 else ''}, {counter[9:]} route",
+                      max(err_o, err_s), ms, plain_ms, None,
+                      *bound(nbytes, B * Hp * _rwkv_matmul_flops(S, hd, W), TF32_FLOPS_PER_S),
+                      note=f" (<= 2e-3 + 2e-3·|plain|, o and state; PR 13's bound, its "
+                           f"CUDA-core operations at the f32 rate: {old_ms:.4f} ms)")
         if is_main:
             main["rwkv6_scan"] = row
+            _device_profile("rwkv6_scan prefill (its three launches)",
+                            lambda: rwkv6_scan(r, k, v, logw, u, chunk=W, s0=s0), calls=3)
+        elif S == 1:   # the decode route: its device time apart from the host's
+            _device_profile("rwkv6_scan decode step",
+                            lambda: rwkv6_scan(r, k, v, logw, u, chunk=W, s0=s0), calls=20)
         del r, k, v, logw
         torch.cuda.empty_cache()
     return main
@@ -830,6 +907,18 @@ def _lm_counters():
             "rwkv6_scan": rwkv6_scan}
 
 
+def _zero_launches(fn) -> None:
+    """Zero a wrapper's launch count and its per-route counts."""
+    for name in vars(fn):
+        if name.startswith("launches"):
+            setattr(fn, name, 0)
+
+
+def _route_counts(fn) -> dict:
+    return {name: getattr(fn, name) for name in sorted(vars(fn))
+            if name.startswith("launches_")}
+
+
 def _routing(cfg, gen: int):
     """Launches of one serve run: each attention layer's prefill goes through
     flash attention (decode attention is plain torch, as the reference's),
@@ -838,6 +927,18 @@ def _routing(cfg, gen: int):
     return {"flash_attention": layers.count("attn"),
             "rglru_scan": layers.count("rglru") * (1 + gen),
             "rwkv6_scan": layers.count("rwkv") * (1 + gen)}
+
+
+def _route_table(cfg, gen: int):
+    """The same run by route: bf16 attention on the tensor-core route, the
+    RWKV6 prefill on the chunked route and each decode step on the decode
+    route."""
+    layers = list(cfg.block_pattern) * cfg.n_units + list(cfg.tail_pattern)
+    tc = cfg.dtype == "bfloat16"
+    return {"flash_attention": {"launches_f32": 0 if tc else layers.count("attn"),
+                                "launches_tc": layers.count("attn") if tc else 0},
+            "rwkv6_scan": {"launches_chunked": layers.count("rwkv"),
+                           "launches_decode": layers.count("rwkv") * gen}}
 
 
 def phase_serve(device: str = "cuda", smoke: bool = False, **shape):
@@ -854,13 +955,15 @@ def phase_serve(device: str = "cuda", smoke: bool = False, **shape):
             res = None
             torch.cuda.reset_peak_memory_stats()
             for fn in counters.values():
-                fn.launches = 0
+                _zero_launches(fn)
             t0 = time.perf_counter()
             res = serve.run(arch, smoke=smoke, seed=0, device=device, **shape, **reuse)
             wall = time.perf_counter() - t0
             counts = {k: fn.launches for k, fn in counters.items()}
+            routes = {k: _route_counts(counters[k]) for k in ("flash_attention", "rwkv6_scan")}
             cfg = res["cfg"]
             want = _routing(cfg, shape["gen"])
+            want_routes = _route_table(cfg, shape["gen"])
             B, P, gen = shape["batch"], shape["prompt_len"], shape["gen"]
             peak = torch.cuda.max_memory_allocated() / 2**30
             print(f"serve {arch} {run}: prefill {B}x{P} {res['prefill_s']:.3f} s "
@@ -868,8 +971,10 @@ def phase_serve(device: str = "cuda", smoke: bool = False, **shape):
                   f"{res['decode_s']:.3f} s ({1e3 * res['decode_s'] / gen:.2f} ms/step, "
                   f"{B * gen / res['decode_s']:.1f} tok/s), wall with init {wall:.2f} s, "
                   f"peak device memory {peak:.2f} GiB; launches {counts} (routing table "
-                  f"{want}); tokens[0] {res['tokens'][0, :8].tolist()}")
+                  f"{want}); by route {routes}; tokens[0] {res['tokens'][0, :8].tolist()}")
             check(counts == want, f"serve {arch} {run}: launches {counts}, want {want}")
+            check(routes == want_routes,
+                  f"serve {arch} {run}: launches by route {routes}, want {want_routes}")
             check(tuple(res["tokens"].shape) == (B, gen + 1)
                   and int(res["tokens"].min()) >= 0
                   and int(res["tokens"].max()) < cfg.vocab_size, f"serve {arch}: tokens")
@@ -889,6 +994,11 @@ def phase_serve(device: str = "cuda", smoke: bool = False, **shape):
         nxt = res["tokens"][:, :1].to(prompt.device)
         del res, reuse
         torch.cuda.empty_cache()
+        if device == "cuda":
+            from repro_torch.models import transformer
+            _device_profile(f"serve {arch} warm prefill {tuple(prompt.shape)}",
+                            lambda: transformer.prefill(params, {"tokens": prompt}, cfg,
+                                                        prompt.shape[1] + 1))
         _consistency(arch, params, prompt, nxt, cfg, 5e-2)
         # the same weights in f32 (upcast leaf by leaf in place: 42 GB for
         # recurrentgemma-9b): the two routes then differ only by f32
@@ -1035,15 +1145,20 @@ def main() -> int:
              ("quantize_rows", csrc + "quantize.cu", "src/repro/kernels/quantize.py:55"),
              ("dequantize_rows", csrc + "quantize.cu", "src/repro/kernels/quantize.py:92"),
              ("topk_mask_rows", csrc + "quantize.cu", "src/repro/kernels/quantize.py:130"),
-             ("flash_attention", csrc + "flash_attention.cu",
+             ("flash_attention", csrc + "flash_attention_wgmma.cu",
               "src/repro/kernels/flash_attention.py:78"),
              ("rglru_scan", csrc + "rglru_scan.cu", "src/repro/kernels/rglru_scan.py:49"),
              ("rwkv6_scan", csrc + "rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:79"))
+    # the design of each route ("route" itself stays "cuda", the build route)
+    designs = {"flash_attention": "wgmma, TMA-fed K/V ring (bf16); CUDA-core FMAs (f32: "
+                                  + csrc + "flash_attention.cu)",
+               "rwkv6_scan": "chunk-parallel, mma.sync 3xTF32; decode route for S = 1"}
     for name, _, _ in table:
         check(launches[name] > 0, f"{name} never launched on the main path")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[name], **rows[name]}
+         "launches": launches[name], **rows[name],
+         **({"design": designs[name]} if name in designs else {})}
         for name, source, replaces in table]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,8 @@ from typing import Dict, Iterable, Optional, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {"agg_reduce": "agg_reduce.cu", "quantize": "quantize.cu",
-           "flash_attention": "flash_attention.cu", "rglru_scan": "rglru_scan.cu",
+           "flash_attention": "flash_attention.cu",
+           "flash_attention_wgmma": "flash_attention_wgmma.cu", "rglru_scan": "rglru_scan.cu",
            "rwkv6_scan": "rwkv6_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -78,6 +79,14 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Tuple[float, s
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return results
+
+
+def on_device(device, call):
+    """``call(stream)`` with CUDA ``device`` current, given its current
+    stream as an int: how a wrapper launches a kernel of a loaded library."""
+    import torch
+    with torch.cuda.device(device):
+        return call(torch.cuda.current_stream(device).cuda_stream)
 
 
 def load(name: str) -> ctypes.CDLL:

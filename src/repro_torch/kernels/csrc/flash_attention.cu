@@ -1,11 +1,13 @@
-// flash_attention.cu — causal GQA flash attention (forward) on Hopper (sm_90a).
+// flash_attention.cu — causal GQA flash attention (forward) on Hopper (sm_90a),
+// the f32 route: CUDA-core FMAs. bf16 inputs go to the tensor-core kernel in
+// flash_attention_wgmma.cu.
 //
 //     o[b, h, t] = Σ_s softmax_s(scale · q[b, h, t] · k[b, h // g, s]) · v[b, h // g, s]
 //                  over the keys s ≤ t (causal) with s > t − window (window > 0)
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention: the same function — scores, running max and running sum
-// in f32, masked scores at −1e30, the output cast to q's type — with the
+// in f32, masked scores at −1e30, the output in f32 — with the
 // same skip of key tiles that lie wholly outside every row's causal window.
 // Unlike the TPU kernel any S is allowed: the ragged last tile of queries
 // and keys is masked here (rows past S are neither read nor written).
@@ -16,9 +18,8 @@
 // hd = 256, window 2048) a head needs 1,584 of the 4,096 tile pairs.
 //
 // Design: one thread block owns a (batch, head, 64-row query tile). Its Q
-// tile stays in shared memory as f32; it walks the key tiles its rows can
-// see in order, staging each K and V tile (converted to f32) in shared
-// memory. 256 threads as a 16 × 16 grid: thread (ty, tx) computes the
+// tile stays in shared memory; it walks the key tiles its rows can see in
+// order, staging each K and V tile in shared memory. 256 threads as a 16 × 16 grid: thread (ty, tx) computes the
 // scores of rows 4ty..4ty+3 against keys tx + 16j (j < 4) — a 4 × 4
 // register tile fed by float4 reads along hd, so a thread makes 8
 // shared-memory reads per 64 FMAs — then the online-softmax update of its
@@ -29,10 +30,11 @@
 // transposed, so a thread reads its four rows' weights of one key as one
 // float4. Q and K rows are padded by four floats, so the eight lanes of a
 // quarter-warp read eight different 16-byte bank groups. The loops are
-// bound by shared-memory bandwidth and the FMA rate alike: CUDA-core f32
-// FMAs, the tensor cores (mma / wgmma in bf16) are later work. At hd = 256
-// the tiles take 211 KB of dynamic shared memory (set with
-// cudaFuncSetAttribute), so one block runs per SM.
+// bound by shared-memory bandwidth and the FMA rate alike. At hd = 256 the
+// tiles take 211 KB of dynamic shared memory (set with
+// cudaFuncSetAttribute), so one block runs per SM. f32 products are not
+// exact on the tensor cores, so this route keeps the CUDA cores: it serves
+// the models run in f32 and the card-against-CPU parity checks.
 //
 // GQA: query head h reads KV head h / g, where g = H / KV, as the TPU
 // kernel's index map does. The caller runs it on the real heads only (the
@@ -46,7 +48,6 @@
 // given stream, does not synchronise, allocates nothing and returns
 // cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -59,11 +60,6 @@ constexpr int kThreads = 256;  // 16 × 16
 constexpr int kPLD = kBQ + 4;  // row stride of the transposed P tile
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
 struct Strides {
   long long b, h, s;
 };
@@ -73,19 +69,19 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t(2) * kBQ * (HD + 4) + size_t(kBK) * HD + size_t(kBK) * kPLD);
 }
 
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* __restrict__ src,
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* __restrict__ src,
                                           long long s_stride, int row0, int S) {
   for (int i = threadIdx.x; i < kBK * HD; i += kThreads) {
     const int r = i / HD, d = i % HD;
-    dst[r * ld + d] = (row0 + r < S) ? to_f32(src[(long long)(row0 + r) * s_stride + d]) : 0.f;
+    dst[r * ld + d] = (row0 + r < S) ? src[(long long)(row0 + r) * s_stride + d] : 0.f;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so, int group,
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+          float* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so, int group,
           int S, int causal, int window, float scale, float softcap) {
   constexpr int LD = HD + 4;    // padded row stride of the Q and K tiles
   constexpr int CPT = HD / 16;  // output columns per thread
@@ -100,10 +96,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / group;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + kvh * sk.h;
-  const T* vb = v + b * sv.b + kvh * sv.h;
-  load_tile<T, HD>(sQ, LD, qb, sq.s, q0, S);
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + kvh * sk.h;
+  const float* vb = v + b * sv.b + kvh * sv.h;
+  load_tile<HD>(sQ, LD, qb, sq.s, q0, S);
 
   float m[4], l[4], acc[4][CPT];
 #pragma unroll
@@ -123,8 +119,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's K, V and P are no longer read
-    load_tile<T, HD>(sK, LD, kb, sk.s, k0, S);
-    load_tile<T, HD>(sV, HD, vb, sv.s, k0, S);
+    load_tile<HD>(sK, LD, kb, sk.s, k0, S);
+    load_tile<HD>(sV, HD, vb, sv.s, k0, S);
     __syncthreads();
 
     float s[4][4];
@@ -215,7 +211,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     }
   }
 
-  T* ob = o + b * so.b + h * so.h;
+  float* ob = o + b * so.b + h * so.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
@@ -224,61 +220,46 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int col = kVecV ? 4 * tx + 64 * (c / 4) + c % 4 : tx + 16 * c;
-      store(&ob[row * so.s + col], acc[i][c] * inv);
+      ob[row * so.s + col] = acc[i][c] * inv;
     }
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk,
+template <int HD>
+int launch(const float* q, const float* k, const float* v, float* o, Strides sq, Strides sk,
            Strides sv, Strides so, int B, int H, int KV, int S, int causal, int window,
            float scale, float softcap, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, HD>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_fwd<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, sk, sv, so, H / KV, S, causal, window, scale, softcap);
+  flash_fwd<HD><<<grid, kThreads, smem, stream>>>(q, k, v, o, sq, sk, sv, so, H / KV, S, causal,
+                                                  window, scale, softcap);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, Strides sq,
-                Strides sk, Strides sv, Strides so, int B, int H, int KV, int S, int causal,
-                int window, float scale, float softcap, cudaStream_t st) {
-  switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
-    case 32: return launch<T, 32>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
-    case 64: return launch<T, 64>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
-    case 128: return launch<T, 128>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
-    case 256: return launch<T, 256>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike). Strides are in
-// elements: (batch, head, sequence) of q, k, v and o in that order.
-extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                                   void* o, long long qb, long long qh, long long qs,
-                                   long long kb, long long kh, long long ks, long long vb,
-                                   long long vh, long long vs, long long ob, long long oh,
-                                   long long os, int B, int H, int KV, int S, int hd,
-                                   int causal, int window, float scale, float softcap,
-                                   void* stream) {
+// q, k, v and o float32. Strides are in elements: (batch, head, sequence)
+// of q, k, v and o in that order.
+extern "C" int flash_attention_fwd(const float* q, const float* k, const float* v, float* o,
+                                   long long qb, long long qh, long long qs, long long kb,
+                                   long long kh, long long ks, long long vb, long long vh,
+                                   long long vs, long long ob, long long oh, long long os, int B,
+                                   int H, int KV, int S, int hd, int causal, int window,
+                                   float scale, float softcap, void* stream) {
   const Strides sq{qb, qh, qs}, sk{kb, kh, ks}, sv{vb, vh, vs}, so{ob, oh, os};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || H == 0 || S == 0) return 0;
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window,
-                              scale, softcap, st);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal,
-                                      window, scale, softcap, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 16: return launch<16>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
+    case 32: return launch<32>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
+    case 64: return launch<64>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
+    case 128: return launch<128>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
+    case 256: return launch<256>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -3,9 +3,18 @@ and of the chunk loop in ``repro/models/rwkv6.py::rwkv_time_mix``.
 
     o_t = r_t · (S_{t-1} + (u ⊙ k_t) ⊗ v_t),   S_t = diag(e^{logw_t}) S_{t-1} + k_t ⊗ v_t
 
-``rwkv6_scan`` launches the hand-written CUDA kernel (``csrc/rwkv6_scan.cu``)
+``rwkv6_scan`` launches the hand-written CUDA kernels (``csrc/rwkv6_scan.cu``)
 for CUDA tensors and takes the plain PyTorch version beside it only for
-CPU tensors; any other device raises. Both take the chunkwise form of the
+CPU tensors; any other device raises. It routes by S, explicitly:
+
+- S > 1 -> the chunked route: chunk states in parallel over (batch,
+  head, chunk), a scan of the states down the chunks, then the outputs in
+  parallel, the products on the tensor cores (3 × TF32); counted in
+  ``rwkv6_scan.launches_chunked``;
+- S = 1 (a decode step) -> the decode route, one small launch that reads
+  and writes the state once; counted in ``rwkv6_scan.launches_decode``.
+
+``rwkv6_scan.launches`` is their sum. Both take the chunkwise form of the
 reference model's ``_chunk_body`` in chunks of ``chunk`` tokens, a ragged
 last chunk included (the model would take one chunk of S tokens there:
 the same function up to rounding), from an optional initial state S0.
@@ -27,8 +36,15 @@ from repro_torch.kernels import build
 DEFAULT_CHUNK = 64
 MAX_CHUNK = MAX_HEAD_DIM = 64      # the kernel's shared-memory tiles
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 15
-             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+# route: (entry point, argument types, launch counter)
+ROUTES = {
+    "chunked": ("rwkv6_scan_fwd", [ctypes.c_int] + [ctypes.c_void_p] * 10
+                + [ctypes.c_longlong] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+                "launches_chunked"),
+    "decode": ("rwkv6_decode_fwd", [ctypes.c_int] + [ctypes.c_void_p] * 8
+               + [ctypes.c_longlong] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+               "launches_decode"),
+}
 
 
 def _check(r, k, v, logw, u, s0):
@@ -81,6 +97,45 @@ def rwkv6_scan_plain(r, k, v, logw, u, *, chunk: int = DEFAULT_CHUNK,
     return o, St
 
 
+def route(S: int) -> str:
+    """The kernel route of a call with S tokens."""
+    return "decode" if S == 1 else "chunked"
+
+
+def _launch(r, k, v, logw, u, chunk: int, s0):
+    """The kernel of S's route on checked tensors; returns (o, S_final)."""
+    B, H, S, hd = r.shape
+    which = route(S)
+    entry, argtypes, counter = ROUTES[which]
+    u = u.float().contiguous()
+    if s0 is not None:
+        s0 = s0.float().contiguous()
+    o = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device).transpose(1, 2)
+    s_out = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    if B == 0 or H == 0 or hd == 0:
+        return o, s_out
+    if S == 0:   # no token: the state passes through
+        return o, (s_out.zero_() if s0 is None else s_out.copy_(s0))
+    ptrs = [r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
+            None if s0 is None else s0.data_ptr(), o.data_ptr(), s_out.data_ptr()]
+    if which == "decode":
+        args = ptrs + [s for t in (r, k, v, logw, o) for s in t.stride()[:2]] + [B, H, hd]
+    else:
+        chunks = -(-S // chunk)
+        scratch = torch.empty((B, H, chunks, hd, hd), dtype=torch.float32, device=r.device)
+        dec = torch.empty((B, H, chunks, hd), dtype=torch.float32, device=r.device)
+        args = (ptrs + [scratch.data_ptr(), dec.data_ptr()]
+                + [s for t in (r, k, v, logw, o) for s in t.stride()[:3]] + [B, H, S, hd, chunk])
+    fn = getattr(build.load("rwkv6_scan"), entry)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    err = build.on_device(r.device, lambda stream: fn(_DTYPES[r.dtype], *args, stream))
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
+    setattr(rwkv6_scan, counter, getattr(rwkv6_scan, counter) + 1)
+    rwkv6_scan.launches += 1
+    return o, s_out
+
+
 def rwkv6_scan(r, k, v, logw, u, *, chunk: int = DEFAULT_CHUNK,
                s0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """r, k, v: (B, H, S, hd) f32/bf16; logw: (B, H, S, hd) f32; u: (H, hd);
@@ -107,25 +162,8 @@ def rwkv6_scan(r, k, v, logw, u, *, chunk: int = DEFAULT_CHUNK,
     chunk = min(chunk, max(S, 1))
     if chunk > MAX_CHUNK:
         raise ValueError(f"the kernel takes chunk <= {MAX_CHUNK}, got {chunk}")
-    u = u.float().contiguous()
-    if s0 is not None:
-        s0 = s0.float().contiguous()
-    o = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device).transpose(1, 2)
-    s_out = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
-    if B == 0 or H == 0 or hd == 0:
-        return o, s_out
-    fn = build.load("rwkv6_scan").rwkv6_scan_fwd
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    strides = [s for t in (r, k, v, logw, o) for s in t.stride()[:3]]
-    stream = torch.cuda.current_stream(r.device).cuda_stream
-    with torch.cuda.device(r.device):
-        err = fn(_DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 logw.data_ptr(), u.data_ptr(), None if s0 is None else s0.data_ptr(),
-                 o.data_ptr(), s_out.data_ptr(), *strides, B, H, S, hd, chunk, stream)
-    if err != 0:
-        raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error {err}")
-    rwkv6_scan.launches += 1
-    return o, s_out
+    return _launch(r, k, v, logw, u, chunk, s0)
 
 
-rwkv6_scan.launches = 0   # kernel launches, for chip_smoke's path check
+# kernel launches, for chip_smoke's path check: by route, and their sum
+rwkv6_scan.launches = rwkv6_scan.launches_chunked = rwkv6_scan.launches_decode = 0

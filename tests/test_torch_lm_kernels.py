@@ -11,6 +11,7 @@ JAX comes in through the ``jx`` fixture, so the ``cuda`` tests also run on
 a machine that has a card but no JAX:
 ``python -m pytest -q -m cuda tests/test_torch_lm_kernels.py``.
 """
+import math
 import types
 
 import numpy as np
@@ -238,6 +239,276 @@ def test_rwkv6_wrapper_rejects_bad_inputs_and_other_devices():
         rwkv6_scan(m, m, m, m, torch.ones((2, 8), device="meta"))
 
 
+# ------------------------------------- models of the redesigned kernels
+
+def _within(got, want, rtol, atol):
+    """chip_smoke.py's check: |got − want| <= atol + rtol·|want|, in f32."""
+    got, want = (torch.as_tensor(np.array(x, np.float32)) if not torch.is_tensor(x)
+                 else x.float() for x in (got, want))
+    d = (got - want).abs()
+    assert bool((d <= atol + rtol * want.abs()).all()), float(d.max())
+
+
+FLASH_RTOL, FLASH_ATOL = 2.0 ** -7, 1e-5       # chip_smoke's bf16 flash bound
+RWKV_TOL = 2e-3                                # chip_smoke's rwkv6 bound
+
+
+def _flash_wgmma_model(q, k, v, *, causal=True, window=0, scale=None, softcap=0.0):
+    """The bf16 tensor-core kernel's arithmetic in plain torch.
+
+    Query groups of 64 rows (one consumer warpgroup each) walk the 64-key
+    tiles their rows can see, as the kernel skips them; QKᵀ of bf16
+    operands (exact products) summed in f32; scores masked at −1e30 and
+    scaled to log2 units; online softmax with exp2; P split into bf16 hi
+    and lo halves, each multiplied by V (exact in bf16) and summed in f32.
+    """
+    B, H, S, hd = q.shape
+    g = H // k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    kf = k.float().repeat_interleave(g, 1)
+    vf = v.float().repeat_interleave(g, 1)
+    out = torch.empty_like(q)
+    for r0 in range(0, S, 64):
+        r1 = min(S, r0 + 64)
+        hi_t = (r1 - 1) // 64 if causal else (S - 1) // 64
+        lo_t = (r0 - window + 1) // 64 if window and r0 - window + 1 > 0 else 0
+        rows = torch.arange(r0, r1)[:, None]
+        qf = q[:, :, r0:r1].float()
+        m = torch.full((B, H, r1 - r0), -1e30)
+        l = torch.zeros((B, H, r1 - r0))
+        acc = torch.zeros((B, H, r1 - r0, hd))
+        for kt in range(lo_t, hi_t + 1):
+            k0, k1 = 64 * kt, min(S, 64 * kt + 64)
+            x = qf @ kf[:, :, k0:k1].transpose(-1, -2) * scale
+            if softcap:
+                x = torch.tanh(x / softcap) * softcap
+            cols = torch.arange(k0, k1)[None, :]
+            ok = torch.ones((r1 - r0, k1 - k0), dtype=torch.bool)
+            if causal:
+                ok &= cols <= rows
+            if window:
+                ok &= cols > rows - window
+            x = torch.where(ok, x * (1 / math.log(2)), torch.tensor(-1e30))
+            m_new = torch.maximum(m, x.amax(-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            p_hi = p.bfloat16().float()
+            p_lo = (p - p_hi).bfloat16().float()
+            acc = acc * corr[..., None] + p_hi @ vf[:, :, k0:k1] + p_lo @ vf[:, :, k0:k1]
+            m = m_new
+        out[:, :, r0:r1] = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+    return out
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,win,softcap", [
+    (1, 2, 1, 100, 16, 0, 0.0),
+    (1, 4, 2, 130, 32, 48, 0.0),      # GQA H/KV = 2, window, ragged S
+    (1, 2, 2, 200, 64, 0, 30.0),      # soft-cap
+    (1, 16, 1, 150, 128, 64, 0.0),    # GQA H/KV = 16
+    (1, 16, 1, 300, 256, 128, 0.0),   # recurrentgemma: MQA, window, hd 256
+])
+def test_flash_wgmma_model_matches_plain_version(B, H, KV, S, hd, win, softcap):
+    """The tensor-core design's arithmetic (tiles, online softmax in base 2,
+    P as bf16 hi + lo) stays within chip_smoke's bound of the plain version."""
+    _, (q, k, v) = _qkv(B, H, KV, S, hd, "bfloat16", seed=S + hd)
+    got = _flash_wgmma_model(q, k, v, window=win, softcap=softcap)
+    want = flash_attention_plain(q, k, v, window=win, softcap=softcap)
+    assert got.dtype == torch.bfloat16
+    _within(got, want, FLASH_RTOL, FLASH_ATOL)
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,win", [
+    (1, 4, 2, 128, 64, 0), (1, 16, 1, 256, 256, 64), (2, 2, 1, 192, 32, 100),
+])
+def test_flash_wgmma_model_matches_pallas(jx, B, H, KV, S, hd, win):
+    """… and of the TPU kernel (interpret mode), which multiplies P by V in f32."""
+    arrs, (q, k, v) = _qkv(B, H, KV, S, hd, "bfloat16", seed=hd)
+    got = _flash_wgmma_model(q, k, v, window=win)
+    pallas = jx.flash(*_jax_arrays(jx, arrs, "bfloat16"), causal=True, window=win, bq=64,
+                      bk=64, interpret=True)
+    _within(got, np.asarray(pallas.astype(jx.jnp.float32)), FLASH_RTOL, FLASH_ATOL)
+
+
+def _rwkv6_chunked_model(r, k, v, logw, u, *, chunk=64, s0=None):
+    """The chunk-parallel kernel's arithmetic in plain torch, f32 products
+    (the kernel's 3 × TF32 split carries about 21 bits of each operand).
+
+    Chunks of W tokens zero-padded to 64 rows (logw = 0, k = 0), cumulative
+    decays in log2 units; pass 1: every chunk's state U and decay e^{c_W};
+    pass 2: the scan S_in(n + 1) = e^{c_W} ⊙ S_in(n) + U(n); pass 3: the
+    outputs with 16-token sub-chunks, off-diagonal blocks of the pair
+    matrix as (r̂_i ⊙ g_ij)·k̂_jᵀ with every exponent ≤ 0, diagonal blocks
+    per pair (clamped at 0), and the u-bonus on the diagonal.
+    """
+    B, H, S, hd = r.shape
+    W = min(chunk, S)
+    nc = -(-S // W)
+    pad = lambda t: torch.nn.functional.pad(t.float(), (0, 0, 0, nc * W - S)).reshape(
+        B, H, nc, W, hd)
+    rows = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 64 - W))
+    rc, kc, vc = (rows(pad(t)) for t in (r, k, v))
+    c = torch.cumsum(rows(pad(logw)) / math.log(2), dim=-2)       # (B, H, nc, 64, hd)
+    # pass 1
+    U = (kc * torch.exp2(c[..., -1:, :] - c)).transpose(-1, -2) @ vc
+    dec = torch.exp2(c[..., -1, :])
+    # pass 2
+    st = torch.zeros((B, H, hd, hd)) if s0 is None else s0.float()
+    s_in = []
+    for n in range(nc):
+        s_in.append(st)
+        st = dec[:, :, n, :, None] * st + U[:, :, n]
+    s_in = torch.stack(s_in, 2)
+    # pass 3
+    c_excl = torch.nn.functional.pad(c[..., :-1, :], (0, 0, 1, 0))
+    b0 = (torch.arange(64) // 16) * 16
+    r_hat = rc * torch.exp2(c_excl - c_excl[..., b0, :])
+    k_hat = kc * torch.exp2(c[..., b0 + 15, :] - c)
+    A = torch.zeros(c.shape[:-2] + (64, 64))
+    for i in range(4):
+        ri = slice(16 * i, 16 * i + 16)
+        for j in range(i):
+            rj = slice(16 * j, 16 * j + 16)
+            g = torch.exp2(c_excl[..., 16 * i, :] - c[..., 16 * j + 15, :])
+            A[..., ri, rj] = (r_hat[..., ri, :] * g[..., None, :]) @ k_hat[..., rj, :].transpose(
+                -1, -2)
+        d = c_excl[..., ri, None, :] - c[..., None, ri, :]         # (…, 16, 16, hd)
+        pair = (rc[..., ri, None, :] * kc[..., None, ri, :] * torch.exp2(d.clamp_max(0))).sum(-1)
+        A[..., ri, ri] = torch.tril(pair, -1) + torch.diag_embed(
+            (rc[..., ri, :] * u.float()[:, None, None, :] * kc[..., ri, :]).sum(-1))
+    h = torch.exp2(c_excl[..., b0, :])
+    o = (r_hat * h) @ s_in + A @ vc
+    o = o[..., :W, :].reshape(B, H, nc * W, hd)[:, :, :S]
+    return o, st
+
+
+def _strong_rkvwu(B, H, S, hd, seed):
+    """Decays as the model clamps them: logw = −exp(x), x in [−8, 3], so
+    down to −20 per step (w ≈ 2e-9)."""
+    r, k, v, _, u = _rkvwu(B, H, S, hd, seed=seed)
+    x = np.random.default_rng(seed + 1).uniform(-8.0, 3.0, size=(B, H, S, hd))
+    return r, k, v, (-np.exp(x)).astype(np.float32), u
+
+
+@pytest.mark.parametrize("B,H,S,hd,chunk,strong,with_s0", [
+    (1, 2, 128, 32, 64, False, False),
+    (2, 2, 100, 16, 64, True, True),      # strong decays, ragged last chunk, s0
+    (1, 3, 77, 64, 64, True, False),
+    (1, 2, 45, 16, 8, False, True),       # the reduced configs' chunk of 8
+    (1, 1, 50, 32, 16, True, True),
+])
+def test_rwkv6_chunked_model_matches_plain_version(B, H, S, hd, chunk, strong, with_s0):
+    """The chunk-parallel design (sub-chunk factorisation, state scan)
+    stays within chip_smoke's bound of the plain chunk loop, strong decays
+    and a ragged chunk from s0 included: nothing overflows or drifts."""
+    arrs = (_strong_rkvwu if strong else _rkvwu)(B, H, S, hd, seed=S)
+    ts = [torch.from_numpy(x) for x in arrs]
+    s0 = (torch.from_numpy(np.random.default_rng(7).normal(size=(B, H, hd, hd))
+                           .astype(np.float32)) if with_s0 else None)
+    o, st = _rwkv6_chunked_model(*ts, chunk=chunk, s0=s0)
+    want_o, want_s = rwkv6_scan_plain(*ts, chunk=chunk, s0=s0)
+    assert bool(torch.isfinite(o).all() and torch.isfinite(st).all())
+    _within(o, want_o, RWKV_TOL, RWKV_TOL)
+    _within(st, want_s, RWKV_TOL, RWKV_TOL)
+
+
+@pytest.mark.parametrize("B,H,S,hd,chunk,strong", [
+    (1, 2, 128, 32, 64, False), (2, 1, 128, 64, 64, True), (1, 2, 64, 16, 16, True),
+])
+def test_rwkv6_chunked_model_matches_ref_and_pallas(jx, B, H, S, hd, chunk, strong):
+    arrs = (_strong_rkvwu if strong else _rkvwu)(B, H, S, hd, seed=hd)
+    o, st = _rwkv6_chunked_model(*(torch.from_numpy(x) for x in arrs), chunk=chunk)
+    ja = [jx.jnp.asarray(x) for x in arrs]
+    for want_o, want_s in (jx.ref.rwkv6_ref(*ja), jx.rwkv6(*ja, chunk=chunk, interpret=True)):
+        _within(o, want_o, RWKV_TOL, RWKV_TOL)
+        _within(st, want_s, RWKV_TOL, RWKV_TOL)
+
+
+def test_rwkv6_chunked_model_chains_decode_steps():
+    """One prefill then S = 1 steps from its state (the decode route's
+    shape) equal one longer call of the plain version."""
+    arrs = _strong_rkvwu(1, 2, 40, 16, seed=3)
+    ts = [torch.from_numpy(x) for x in arrs]
+    o, st = _rwkv6_chunked_model(*(t[:, :, :36] for t in ts[:4]), ts[4], chunk=16)
+    outs = [o]
+    for t in range(36, 40):
+        o, st = _rwkv6_chunked_model(*(x[:, :, t:t + 1] for x in ts[:4]), ts[4], s0=st)
+        outs.append(o)
+    want_o, want_s = rwkv6_scan_plain(*ts, chunk=16)
+    _within(torch.cat(outs, 2), want_o, RWKV_TOL, RWKV_TOL)
+    _within(st, want_s, RWKV_TOL, RWKV_TOL)
+
+
+class _FakeLibrary:
+    """Stands in for a built kernel library: records each entry point's
+    call and checks its argument count against the argtypes set."""
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __getattr__(self, entry):
+        calls = self.calls
+
+        class Entry:
+            def __call__(self, *args):
+                assert len(args) == len(self.argtypes), (entry, len(args))
+                calls.append(entry)
+                return 0
+        fn = Entry()
+        self.__dict__[entry] = fn
+        return fn
+
+
+def test_kernel_routes_by_type_and_length(monkeypatch):
+    """bf16 attention goes to the tensor-core kernel and f32 to the CUDA-core
+    one; an RWKV6 call with S = 1 to the decode route, longer ones to the
+    chunked route; each bumps its own counter and the sum. Nothing launches:
+    the libraries are stand-ins and the tensors stay on the CPU."""
+    import importlib
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    rw = importlib.import_module("repro_torch.kernels.rwkv6_scan")
+    libs = {}
+    monkeypatch.setattr(fa.build, "load", lambda name: libs.setdefault(name, _FakeLibrary([])))
+    monkeypatch.setattr(fa.build, "on_device", lambda device, call: call(0))
+    for name in ("launches", "launches_tc", "launches_f32"):
+        monkeypatch.setattr(flash_attention, name, 0)
+    for name in ("launches", "launches_chunked", "launches_decode"):
+        monkeypatch.setattr(rwkv6_scan, name, 0)
+
+    q, k = torch.zeros((1, 4, 8, 64)), torch.zeros((1, 2, 8, 64))
+    fa._launch(q.bfloat16(), k.bfloat16(), k.bfloat16(), True, 0, 0.125, 0.0)
+    fa._launch(q, k, k, True, 0, 0.125, 0.0)
+    fa._launch(q.bfloat16(), k.bfloat16(), k.bfloat16(), True, 4, 0.125, 30.0)
+    assert libs["flash_attention_wgmma"].calls == ["flash_attention_wgmma_fwd"] * 2
+    assert libs["flash_attention"].calls == ["flash_attention_fwd"]
+    assert (flash_attention.launches_tc, flash_attention.launches_f32,
+            flash_attention.launches) == (2, 1, 3)
+
+    r, u = torch.zeros((2, 3, 9, 16)), torch.zeros((3, 16))
+    one = r[:, :, :1]
+    rw._launch(r, r, r, r, u, 4, None)
+    rw._launch(one, one, one, one, u, 4, torch.zeros((2, 3, 16, 16)))
+    rw._launch(one.bfloat16(), one.bfloat16(), one.bfloat16(), one, u, 4, None)
+    assert libs["rwkv6_scan"].calls == ["rwkv6_scan_fwd", "rwkv6_decode_fwd",
+                                        "rwkv6_decode_fwd"]
+    assert (rwkv6_scan.launches_chunked, rwkv6_scan.launches_decode,
+            rwkv6_scan.launches) == (1, 2, 3)
+    assert [rw.route(S) for S in (1, 2, 4096)] == ["decode", "chunked", "chunked"]
+
+
+def test_flash_bf16_route_rejects_a_stride_tma_cannot_take(monkeypatch):
+    """A bf16 stride that is not a multiple of 16 bytes raises: no copy."""
+    import importlib
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    monkeypatch.setattr(fa.build, "load", lambda name: _FakeLibrary([]))
+    monkeypatch.setattr(fa.build, "on_device", lambda device, call: call(0))
+    q = torch.zeros((1, 2, 8, 20), dtype=torch.bfloat16)[..., :16]   # row stride 20
+    k = torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa._launch(q, k, k, True, 0, 0.25, 0.0)
+    fa._launch(q.contiguous(), k, k, True, 0, 0.25, 0.0)   # the same tensor, copied by the caller
+
+
 # ------------------------------------------------- the kernels on the card
 
 @pytest.mark.cuda
@@ -300,3 +571,82 @@ def test_cuda_rwkv6_matches_plain_version(card):
         want_o, want_s = rwkv6_scan_plain(r, k, v, logw, u, chunk=chunk, s0=s0)
         torch.testing.assert_close(o, want_o, rtol=2e-3, atol=2e-3)
         torch.testing.assert_close(s, want_s, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_tensor_core_route_matches_plain_version(card):
+    """The bf16 route at every head_dim the wrapper takes: ragged S, window
+    and none, soft-cap, GQA at H/KV = 2 and 16, the model's strided
+    (B, S, heads, hd) views; held at chip_smoke's 2^-7·|plain| + 1e-5."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = [(1, 4, 2, 200, hd, win, 0.0) for hd in HEAD_DIMS for win in (0, 64)]
+    cases += [(2, 16, 1, 333, 128, 100, 0.0), (1, 16, 1, 130, 256, 0, 0.0),
+              (1, 2, 2, 190, 64, 0, 30.0), (1, 4, 4, 1, 32, 0, 0.0)]
+    for B, H, KV, S, hd, win, softcap in cases:
+        q, k, v = (torch.randn((B, S, n, hd), generator=gen, device="cuda").bfloat16()
+                   .transpose(1, 2) for n in (H, KV, KV))
+        before = (flash_attention.launches_tc, flash_attention.launches_f32)
+        got = flash_attention(q, k, v, window=win, softcap=softcap)
+        torch.cuda.synchronize()
+        assert (flash_attention.launches_tc, flash_attention.launches_f32) == (
+            before[0] + 1, before[1])
+        want = flash_attention_plain(q, k, v, window=win, softcap=softcap)
+        _within(got, want, FLASH_RTOL, FLASH_ATOL)
+    # contiguous (B, heads, S, hd) inputs go in as they are; causal and not
+    q = torch.randn((1, 4, 150, 64), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((1, 2, 150, 64), generator=gen, device="cuda").bfloat16()
+    for causal, win in ((True, 50), (False, 0), (False, 40)):
+        _within(flash_attention(q, k, k, causal=causal, window=win),
+                     flash_attention_plain(q, k, k, causal=causal, window=win),
+                     FLASH_RTOL, FLASH_ATOL)
+    # a row stride of 40 bytes is not a TMA stride: the wrapper raises, no copy
+    q = torch.randn((1, 2, 8, 20), generator=gen, device="cuda").bfloat16()[..., :16]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv6_routes_match_plain_version(card):
+    """The chunked route (prefill, from s0, a ragged chunk, strong decays)
+    and the decode route (S = 1), and decode steps chained after one
+    prefill against one call of the plain version over the whole sequence."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def inputs(B, H, S, hd, dtype, strong=False):
+        r, k, v = (torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+                   .transpose(1, 2) for _ in range(3))
+        x = (torch.rand((B, S, H, hd), generator=gen, device="cuda") * 11 - 8 if strong
+             else 0.5 * torch.randn((B, S, H, hd), generator=gen, device="cuda"))
+        return r, k, v, -torch.exp(x).transpose(1, 2)
+
+    for B, H, S, hd, chunk, dtype, with_s0, strong in (
+            (2, 4, 300, 64, 64, torch.bfloat16, False, False),
+            (2, 4, 300, 64, 64, torch.bfloat16, True, True),
+            (1, 3, 77, 32, 16, torch.float32, True, True),
+            (1, 2, 45, 16, 8, torch.float32, False, False),
+            (4, 48, 1, 64, 64, torch.bfloat16, True, False),
+            (2, 3, 1, 32, 64, torch.float32, False, True)):
+        r, k, v, logw = inputs(B, H, S, hd, dtype, strong)
+        u = 0.5 * torch.randn((H, hd), generator=gen, device="cuda")
+        s0 = torch.randn((B, H, hd, hd), generator=gen, device="cuda") if with_s0 else None
+        counter = "launches_decode" if S == 1 else "launches_chunked"
+        before = getattr(rwkv6_scan, counter)
+        o, s = rwkv6_scan(r, k, v, logw, u, chunk=chunk, s0=s0)
+        torch.cuda.synchronize()
+        assert getattr(rwkv6_scan, counter) == before + 1
+        want_o, want_s = rwkv6_scan_plain(r, k, v, logw, u, chunk=chunk, s0=s0)
+        _within(o, want_o, RWKV_TOL, RWKV_TOL)
+        _within(s, want_s, RWKV_TOL, RWKV_TOL)
+
+    r, k, v, logw = inputs(2, 4, 68, 64, torch.bfloat16, strong=True)
+    u = 0.5 * torch.randn((4, 64), generator=gen, device="cuda")
+    o, s = rwkv6_scan(r[:, :, :64], k[:, :, :64], v[:, :, :64], logw[:, :, :64], u)
+    outs = [o]
+    for t in range(64, 68):
+        o, s = rwkv6_scan(r[:, :, t:t + 1], k[:, :, t:t + 1], v[:, :, t:t + 1],
+                          logw[:, :, t:t + 1], u, s0=s)
+        outs.append(o)
+    want_o, want_s = rwkv6_scan_plain(r, k, v, logw, u)
+    _within(torch.cat(outs, 2), want_o, RWKV_TOL, RWKV_TOL)
+    _within(s, want_s, RWKV_TOL, RWKV_TOL)
