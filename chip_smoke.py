@@ -12,7 +12,11 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              the shapes the main path gives it; kernel, plain-version and
              library-call times (CUDA events, median of 20 after warm-up)
              beside the bound (bytes moved at 3.35 TB/s, f32 flops at
-             67 TFLOP/s; the H100 SXM data-sheet peaks).
+             67 TFLOP/s; the H100 SXM data-sheet peaks); each result
+             repeats bit for bit; at the fc1_w leaf (SFL and classical)
+             the call's device time apart from its host work (``queued_ms``:
+             CUDA events around 20 calls queued behind a spin of the card),
+             and the library call's the same way.
    conv    — one vmapped SGD step of 16 full-width clients with the
              port's convolution (unfold + f32 matmul) and with cuDNN's
              ``F.conv2d``: gradient error against float64 on the CPU, times.
@@ -29,7 +33,8 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              forms) bit for bit against their plain versions, the fused
              aggregate + quantize (its θ bit for bit segment_agg_reduce's,
              its q within one level of the plain version), at the shapes
-             the compressed rounds give them; times as in phase 3, and
+             the compressed rounds give them; times as in phase 3, the
+             fused form's device time by ``queued_ms``, and
              torch.topk's threshold time on its own line.
 7. compressed slice — launch.run at full width, 3 rounds each of
              sfl_two_step int8 (the fused route), sfl_two_step int4 with
@@ -56,7 +61,9 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              larger (the old algorithm's operations at the f32 rate are
              printed beside it); ``scaled_dot_product_attention`` as
              flash's library call; a torch.profiler breakdown of the RWKV6
-             prefill's three launches and of its decode step.
+             prefill's three launches and of its decode step, the RG-LRU
+             scan's device time (``queued_ms``) at both shapes and its
+             decode call's wall time on the host clock.
 10. serve  — ``repro_torch.launch.serve.run`` at full width for
              recurrentgemma-9b and rwkv6-3b: batch 4, a 4096-token prompt,
              32 greedy decode steps, twice (cold, then warm on the same
@@ -76,6 +83,10 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 Phases 4, 7 and 10 are the main paths (the FEMNIST round uncompressed and
 compressed, LM serving). The last lines are the ``kernels`` JSON object
 and then ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+
+A ``device_ms`` in the kernels line is always ``queued_ms``'s; the
+torch.profiler breakdowns (phases 9 and 10) only print, and fail the run
+if they miss a launch of the port's kernels.
 """
 from __future__ import annotations
 
@@ -128,6 +139,50 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, calls: int = 1000) -> float:
+    """Host-clock time of one call over ``calls`` back-to-back calls, the
+    card synchronised at both ends: the wall time of a call whose host work
+    outlasts its device work (a decode step's)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / calls
+
+
+def queued_ms(fn, calls: int = 20) -> float:
+    """Device time of one call: CUDA events around ``calls`` back-to-back
+    calls queued behind a ~50 ms spin of the card, so the host's work to
+    enqueue them stays out of the window; fails if the card finished the
+    spin before the host had queued them all."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    check(not start.query(), "queued_ms: the host queued the calls slower than the spin")
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+QUEUED = "CUDA events around 20 calls queued behind a spin of the card"
+
+
+def _device_ms(row: dict, label: str, fn) -> None:
+    """Add ``fn``'s device time a call (``queued_ms``) to its kernels-line
+    row, and print it beside the call's time."""
+    row["device_ms"], row["device_ms_by"] = queued_ms(fn), QUEUED
+    print(f"device {label}: {row['device_ms']:.4f} ms a call of {row['ms']:.4f} ({QUEUED})")
+
+
 def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
     """Least time for work that moves ``nbytes`` and does ``flops``
     operations at ``flops_per_s`` (f32 by default): (ms, what bounds it)."""
@@ -174,17 +229,17 @@ def phase_kernels():
     # On the main path SFL aggregates ~126 involved clients padded to 128
     # rows (client_chunk = 16) over 16 ONUs; classical ~8 involved clients
     # padded to 16 rows, one segment. The last three cases are off the path.
-    cases = [  # (what, C, N, n_seg, dtype)
-        ("fc1_w, SFL step 1 (16 ONUs)", 128, n_fc1, 16, torch.float32),
-        ("fc2_b, SFL step 1, scalar path", 128, 62, 16, torch.float32),
-        ("fc1_w, classical (16 rows, 1 segment)", 16, n_fc1, 1, torch.float32),
-        ("fc2_b, classical, scalar path", 16, 62, 1, torch.float32),
-        ("off path: fc1_w, 128 rows, 1 segment", 128, n_fc1, 1, torch.float32),
-        ("off path: fc1_w, bf16 input", 128, n_fc1, 16, torch.bfloat16),
-        ("off path: odd N, scalar path", 128, 100_003, 16, torch.float32),
+    cases = [  # (what, C, N, n_seg, dtype, split: device time apart, rows 1 and 1′)
+        ("fc1_w, SFL step 1 (16 ONUs)", 128, n_fc1, 16, torch.float32, True),
+        ("fc2_b, SFL step 1, scalar path", 128, 62, 16, torch.float32, False),
+        ("fc1_w, classical (16 rows, 1 segment)", 16, n_fc1, 1, torch.float32, True),
+        ("fc2_b, classical, scalar path", 16, 62, 1, torch.float32, False),
+        ("off path: fc1_w, 128 rows, 1 segment", 128, n_fc1, 1, torch.float32, False),
+        ("off path: fc1_w, bf16 input", 128, n_fc1, 16, torch.bfloat16, False),
+        ("off path: odd N, scalar path", 128, 100_003, 16, torch.float32, False),
     ]
     main = None
-    for what, C, N, n_seg, dtype in cases:
+    for what, C, N, n_seg, dtype, split in cases:
         x = torch.randn((C, N), generator=gen, device="cuda", dtype=dtype)
         keep = (torch.rand(C, generator=gen, device="cuda") > 0.2).float()
         wm = (torch.rand(C, generator=gen, device="cuda") * 400 * keep).contiguous()
@@ -198,14 +253,15 @@ def phase_kernels():
         del abs_sum
         ms = time_ms(lambda: segment_agg_reduce(x, wm, seg, n_seg))
         plain_ms = time_ms(lambda: segment_agg_reduce_plain(x, wm, seg, n_seg))
-        library_ms = None
+        library_ms = library_call = None
         if dtype == torch.float32:
             if n_seg == 1:
-                library_ms = time_ms(lambda: torch.mv(x.t(), wm))
+                library_call = lambda: torch.mv(x.t(), wm)   # noqa: E731
             else:
                 S = torch.zeros((n_seg, C), device="cuda")
                 S[torch.as_tensor(seg, device="cuda"), torch.arange(C, device="cuda")] = wm
-                library_ms = time_ms(lambda: torch.mm(S, x))
+                library_call = lambda: torch.mm(S, x)   # noqa: E731
+            library_ms = time_ms(library_call)
         bound_ms, bound_by = agg_bound(C, N, n_seg, x.element_size())
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
         print(f"kernel agg_reduce [{what}] C={C} N={N} n_seg={n_seg} "
@@ -214,10 +270,17 @@ def phase_kernels():
               f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib} "
               f"bound_ms {bound_ms:.4f} ({bound_by}, {100 * bound_ms / ms:.1f}% of bound)")
         check(ok, f"agg_reduce disagrees with its plain version [{what}]: {err}")
+        check(torch.equal(got, segment_agg_reduce(x, wm, seg, n_seg)),
+              f"agg_reduce does not repeat bit for bit [{what}]")
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms)
+        if split:   # the call's device time apart from its host work, and
+            # the library call's the same way
+            _device_ms(row, f"agg_reduce [{what}]", lambda: segment_agg_reduce(x, wm, seg, n_seg))
+            print(f"device library [{what}]: {queued_ms(library_call):.4f} ms a call "
+                  f"of {library_ms:.4f} ({QUEUED})")
         if main is None:
-            main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bound_by=bound_by,
-                        library_ms=library_ms)
+            main = row
         del x, got, want
         torch.cuda.empty_cache()
     for C, N in ((0, 1000), (128, 0)):        # the zero-length guards
@@ -510,7 +573,10 @@ def phase_compression_kernels():
         row = _report("agg_reduce_quant", f"{what} C={C} N={N} n_seg={n_seg} int8",
                       float(lvl), ms, plain_ms, None, *bound(nbytes, 2 * C * N + 6 * n_seg * N),
                       note=f" levels (θ bit for bit; scales rel {srel:.1e})")
-        main.setdefault("agg_reduce_quant", row)
+        if "agg_reduce_quant" not in main:
+            _device_ms(row, f"agg_reduce_quant [{what}]",
+                       lambda: segment_agg_reduce_quant(x, wm, seg, n_seg, u, 8))
+            main["agg_reduce_quant"] = row
         del x, u, q
         torch.cuda.empty_cache()
     return main
@@ -710,11 +776,17 @@ def _kernel_name(key: str) -> str:
     return (key[5:] if key.startswith("void ") else key).split("(")[0].strip()[:70]
 
 
-def _device_profile(label: str, fn, calls: int = 1, top: int = 6) -> None:
+def _device_profile(label: str, fn, kernels, calls: int = 1, top: int = 6) -> None:
     """Print the device time of ``calls`` calls of ``fn`` by kernel
     (torch.profiler's CUDA activity) beside the host clock's wall time:
-    their ratio is the card's busy share over the calls."""
+    their ratio is the card's busy share over the calls. ``kernels`` lists
+    the port's kernels as (names, wrapper, counter): the profiler must
+    record one launch of the named kernels for each step of the wrapper's
+    counter over the calls, or the run fails, since a session that misses
+    launches reads too little device time (later sessions in one process
+    have missed some, on the H100)."""
     from torch.profiler import ProfilerActivity, profile
+    before = [getattr(wrapper, counter) for _, wrapper, counter in kernels]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -722,14 +794,22 @@ def _device_profile(label: str, fn, calls: int = 1, top: int = 6) -> None:
             fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0) / calls
-    rows = sorted(((e.self_device_time_total / 1e3 / calls, e.count // calls,
-                    _kernel_name(e.key)) for e in prof.key_averages()
-                   if e.self_device_time_total > 0), reverse=True)
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    made = 0
+    for (names, wrapper, counter), was in zip(kernels, before):
+        want = getattr(wrapper, counter) - was
+        seen = sum(e.count for e in events
+                   if _kernel_name(e.key).split("<")[0] in names)
+        check(seen == want, f"profile {label}: {seen} launches of {'/'.join(names)} "
+                            f"recorded, {want} made")
+        made += want
+    check(made > 0, f"profile {label}: none of the port's kernels launched")
+    rows = sorted(((e.self_device_time_total / 1e3 / calls, e.count / calls,
+                    _kernel_name(e.key)) for e in events), reverse=True)
     device = sum(ms for ms, _, _ in rows)
-    check(device > 0, f"profile {label}: no device time recorded")
     print(f"profile {label}: device {device:.4f} ms of wall {wall:.4f} ms a call "
           f"({100 * device / wall:.1f}% busy); top kernels: "
-          + "; ".join(f"{name} {ms:.4f} ms x{n}" for ms, n, name in rows[:top]))
+          + "; ".join(f"{name} {ms:.4f} ms x{n:g}" for ms, n, name in rows[:top]))
 
 
 def _within(got, want, rtol, atol):
@@ -851,6 +931,11 @@ def phase_lm_kernels():
         row = _report("rglru_scan", f"{what} B={B} S={S} C={C} with h0", 0.0, ms, plain_ms,
                       None, *bound(4 * (3 * B * S * C + 2 * B * C), 2 * B * S * C),
                       note=" (bit for bit)")
+        # the call's device time apart from its host work
+        _device_ms(row, f"rglru_scan {what}", lambda: rglru_scan(a, b, h0))
+        if S == 1:
+            print(f"rglru_scan decode step: call wall "
+                  f"{host_ms(lambda: rglru_scan(a, b, h0)):.4f} ms (host clock, 1000 calls)")
         if is_main:
             main["rglru_scan"] = row
         del a, b, h0, out, want_o
@@ -892,10 +977,12 @@ def phase_lm_kernels():
         if is_main:
             main["rwkv6_scan"] = row
             _device_profile("rwkv6_scan prefill (its three launches)",
-                            lambda: rwkv6_scan(r, k, v, logw, u, chunk=W, s0=s0), calls=3)
+                            lambda: rwkv6_scan(r, k, v, logw, u, chunk=W, s0=s0),
+                            _lm_kernels(), calls=3)
         elif S == 1:   # the decode route: its device time apart from the host's
             _device_profile("rwkv6_scan decode step",
-                            lambda: rwkv6_scan(r, k, v, logw, u, chunk=W, s0=s0), calls=20)
+                            lambda: rwkv6_scan(r, k, v, logw, u, chunk=W, s0=s0),
+                            _lm_kernels(), calls=20)
         del r, k, v, logw
         torch.cuda.empty_cache()
     return main
@@ -905,6 +992,19 @@ def _lm_counters():
     from repro_torch.kernels import flash_attention, rglru_scan, rwkv6_scan
     return {"flash_attention": flash_attention, "rglru_scan": rglru_scan,
             "rwkv6_scan": rwkv6_scan}
+
+
+def _lm_kernels():
+    """The LM kernels for ``_device_profile``: (kernel names, wrapper,
+    counter), one launch of a named kernel for each step of the counter."""
+    c = _lm_counters()
+    rwkv = c["rwkv6_scan"]
+    return [(("flash_wgmma", "flash_fwd"), c["flash_attention"], "launches"),
+            (("rglru_ring", "rglru_scalar"), c["rglru_scan"], "launches"),
+            (("rwkv6_states",), rwkv, "launches_chunked"),
+            (("rwkv6_state_scan",), rwkv, "launches_chunked"),
+            (("rwkv6_outputs",), rwkv, "launches_chunked"),
+            (("rwkv6_decode",), rwkv, "launches_decode")]
 
 
 def _zero_launches(fn) -> None:
@@ -998,7 +1098,7 @@ def phase_serve(device: str = "cuda", smoke: bool = False, **shape):
             from repro_torch.models import transformer
             _device_profile(f"serve {arch} warm prefill {tuple(prompt.shape)}",
                             lambda: transformer.prefill(params, {"tokens": prompt}, cfg,
-                                                        prompt.shape[1] + 1))
+                                                        prompt.shape[1] + 1), _lm_kernels())
         _consistency(arch, params, prompt, nxt, cfg, 5e-2)
         # the same weights in f32 (upcast leaf by leaf in place: 42 GB for
         # recurrentgemma-9b): the two routes then differ only by f32
@@ -1150,8 +1250,12 @@ def main() -> int:
              ("rglru_scan", csrc + "rglru_scan.cu", "src/repro/kernels/rglru_scan.py:49"),
              ("rwkv6_scan", csrc + "rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:79"))
     # the design of each route ("route" itself stays "cuda", the build route)
-    designs = {"flash_attention": "wgmma, TMA-fed K/V ring (bf16); CUDA-core FMAs (f32: "
+    designs = {"agg_reduce": "no CSR for one segment, else a CSR copied from pinned memory "
+                             "without blocking the host; 4 row loads a batch",
+               "flash_attention": "wgmma, TMA-fed K/V ring (bf16); CUDA-core FMAs (f32: "
                                   + csrc + "flash_attention.cu)",
+               "rglru_scan": "one-warp blocks of 32 channels, a 4-stage cp.async ring of "
+                             "32 time steps feeding the in-order chain",
                "rwkv6_scan": "chunk-parallel, mma.sync 3xTF32; decode route for S = 1"}
     for name, _, _ in table:
         check(launches[name] > 0, f"{name} never launched on the main path")

@@ -17,7 +17,10 @@ segment; pass B is the quantize kernel of ``kernels/quantize.py``.
 Segment ids arrive unsorted, in selection order; the wrapper turns them
 into a stable row permutation plus segment offsets (a CSR) on the host,
 so each segment sums its rows in a fixed order and results repeat
-bit for bit.
+bit for bit. The CSR goes to the card through pinned memory, copied on
+the current stream without blocking the host. One segment (classical
+FedAvg, ``agg_reduce``) needs no CSR: the kernel takes its rows in order,
+so such a call builds and copies no table.
 """
 from __future__ import annotations
 
@@ -31,14 +34,17 @@ from repro_torch.kernels import build
 from repro_torch.kernels.quantize import (launch_quantize, qmax_of,
                                           quantize_rows_plain)
 
-MAX_ROWS = 4096        # the kernel stages the CSR in 48 KB of shared memory
+MAX_ROWS = 4096        # the kernel stages the CSR in shared memory
 MAX_SEGMENTS = 2048
 _DTYPES = {torch.float32: "segment_agg_reduce_f32",
            torch.bfloat16: "segment_agg_reduce_bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_longlong, ctypes.c_void_p,
-                                     ctypes.c_void_p]
+# x, wm, csr, C, n_seg, N, out, stream
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong,
+                                                          ctypes.c_void_p, ctypes.c_void_p]
 _ABSMAX_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+_ENTRIES = {**{name: _ARGTYPES for name in _DTYPES.values()},
+            **{name.replace("reduce", "reduce_absmax"): _ABSMAX_ARGTYPES
+               for name in _DTYPES.values()}}
 # pass A's grid, fixed up front so the (n_seg, blocks) absmax buffer is
 # known: one block per 1024 columns (256 threads × 4), at most 16,384
 ABSMAX_COLS_PER_BLOCK, ABSMAX_MAX_BLOCKS = 1024, 1 << 14
@@ -50,9 +56,10 @@ def _segments(seg_ids, n_rows: int, n_seg: int) -> np.ndarray:
     if seg.shape != (n_rows,) or (n_rows and seg.dtype.kind not in "iu"):
         raise ValueError(f"seg_ids must be ({n_rows},) integers, got "
                          f"{seg.shape} {seg.dtype}")
-    if n_rows and (seg.min() < 0 or seg.max() >= n_seg):
+    # one segment: every id is 0 (one reduction where the range takes two)
+    if n_rows and (seg.any() if n_seg == 1 else seg.min() < 0 or seg.max() >= n_seg):
         raise ValueError(f"seg_ids must lie in [0, {n_seg})")
-    return seg.astype(np.int64)
+    return seg.astype(np.int64, copy=False)
 
 
 def segment_agg_reduce_plain(x: torch.Tensor, wm: torch.Tensor, seg_ids,
@@ -83,40 +90,49 @@ def _on_card(name: str, x: torch.Tensor, wm: torch.Tensor) -> bool:
     if x.ndim != 2 or wm.shape != (x.shape[0],):
         raise ValueError(f"want x (C, N) and wm (C,), got {tuple(x.shape)} "
                          f"and {tuple(wm.shape)}")
-    if x.device.type == "cpu":
+    kind = x.device.type
+    if kind == "cpu":
         return False
-    if x.device.type != "cuda":
+    if kind != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
     return True
+
+
+def _upload(table: np.ndarray, device) -> torch.Tensor:
+    """``table`` on ``device``, copied on the current stream from pinned
+    memory without blocking the host; the caching host allocator keeps the
+    pinned block until the copy has run."""
+    return torch.from_numpy(table).pin_memory().to(device, non_blocking=True)
+
+
+def _csr(seg: np.ndarray, n_seg: int) -> np.ndarray:
+    """[rows (C,), offsets (n_seg + 1,)] int32: the stable row permutation
+    grouped by segment and each segment's offsets into it."""
+    offsets = np.zeros(n_seg + 1, np.int64)
+    np.cumsum(np.bincount(seg, minlength=n_seg), out=offsets[1:])
+    return np.concatenate([np.argsort(seg, kind="stable"), offsets]).astype(np.int32)
 
 
 def _launch(x: torch.Tensor, wm: torch.Tensor, seg: np.ndarray, n_seg: int,
             amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of the segmented kernel (with the absmax buffer when
-    ``amax`` is given) on validated, non-empty CUDA inputs -> θ."""
+    ``amax`` is given) on validated, non-empty CUDA inputs -> θ. One
+    segment passes no table: the kernel's rows are then the identity."""
     C, N = x.shape
-    rows = np.argsort(seg, kind="stable")
-    offsets = np.zeros(n_seg + 1, np.int64)
-    np.cumsum(np.bincount(seg, minlength=n_seg), out=offsets[1:])
-    # copied and read on the current stream: when ``table`` is freed, the
-    # caching allocator hands its block only to work queued after the kernel
-    table = torch.from_numpy(np.concatenate([rows, offsets]).astype(np.int32)
-                             ).to(x.device)
+    csr = None
+    if n_seg > 1:
+        # read on the current stream: when ``table`` is freed, the caching
+        # allocator hands its block only to work queued after the kernel
+        table = _upload(_csr(seg, n_seg), x.device)
+        csr = table.data_ptr()
     out = torch.empty((n_seg, N), dtype=torch.float32, device=x.device)
-    lib = build.load("agg_reduce")
-    args = [x.data_ptr(), wm.data_ptr(), table.data_ptr(),
-            table.data_ptr() + 4 * C, C, n_seg, N, out.data_ptr()]
-    if amax is None:
-        fn = getattr(lib, _DTYPES[x.dtype])
-        fn.argtypes = _ARGTYPES
-    else:
-        fn = getattr(lib, _DTYPES[x.dtype].replace("reduce", "reduce_absmax"))
-        fn.argtypes = _ABSMAX_ARGTYPES
+    entry = _DTYPES[x.dtype]
+    args = [x.data_ptr(), wm.data_ptr(), csr, C, n_seg, N, out.data_ptr()]
+    if amax is not None:
+        entry = entry.replace("reduce", "reduce_absmax")
         args += [amax.data_ptr(), amax.shape[1]]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = fn(*args, stream)
+    fn = getattr(build.load("agg_reduce", _ENTRIES), entry)
+    err = build.on_device(x.device, lambda stream: fn(*args, stream))
     if err != 0:
         raise RuntimeError(f"agg_reduce kernel launch failed: CUDA error {err}")
     return out

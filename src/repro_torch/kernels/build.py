@@ -18,6 +18,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {"agg_reduce": "agg_reduce.cu", "quantize": "quantize.cu",
@@ -83,15 +85,28 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Tuple[float, s
 
 def on_device(device, call):
     """``call(stream)`` with CUDA ``device`` current, given its current
-    stream as an int: how a wrapper launches a kernel of a loaded library."""
-    import torch
-    with torch.cuda.device(device):
-        return call(torch.cuda.current_stream(device).cuda_stream)
+    stream as an int: how a wrapper launches a kernel of a loaded library.
+    The raw stream handle, and a device switch only where one is needed,
+    keep the host's part of a launch to a few microseconds."""
+    current = torch.cuda.current_device()
+    if device.index is None or device.index == current:
+        return call(torch._C._cuda_getCurrentRawStream(current))
+    with torch.cuda.device(device.index):
+        return call(torch._C._cuda_getCurrentRawStream(device.index))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for kernel source ``name`` (built if missing)."""
+def load(name: str, entries: Dict[str, list]) -> ctypes.CDLL:
+    """The loaded library for kernel source ``name`` (built if missing).
+
+    ``entries`` maps each entry point to its argument types; they are bound
+    once, when the library loads, each returning a C int (the cudaError_t
+    of its launch). Each library has one wrapper module, which passes its
+    own table on every call."""
     if name not in _loaded:
         build_all([name])
-        _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
+        for entry, argtypes in entries.items():
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _loaded[name] = lib
     return _loaded[name]

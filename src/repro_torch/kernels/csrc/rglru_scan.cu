@@ -11,16 +11,24 @@
 // 12 bytes. At recurrentgemma-9b's prefill (B = 4, S = 4096, C = 4096, f32)
 // that is 805 MB per call, 0.24 ms at 3.35 TB/s.
 //
-// Design: one thread owns four neighbouring channels of one batch row
-// (16-byte loads and stores) and walks time in order with the state in
-// registers — the TPU's sequential grid axis becomes the loop, the
-// channel-parallel vector ops become threads. The recurrence is a chain of
-// dependent multiply-adds (unfused, two roundings each, as the plain
-// version computes them, so the two agree bit for bit), but the loads of
-// later steps are not: each thread loads kUnroll steps of a and b ahead
-// before it runs them, so many loads are in flight per thread. Blocks are one warp each, so B·C/128 blocks spread
-// over the SMs (128 blocks at the prefill shape). A scalar variant takes a
-// C that is not a multiple of four or a misaligned pointer.
+// Design: the recurrence is a chain of dependent multiply-adds per channel
+// (unfused, two roundings each, as the plain version computes them, so the
+// two agree bit for bit), walked in time order by one owner per channel;
+// the loads of later steps do not depend on it. So the loads are taken off
+// the chain: each block owns a tile of kTile = 32 channels of one batch row
+// (one warp, one channel a lane) and keeps a ring of kStages shared-memory
+// stages, each holding kSteps = 32 time steps of the tile's a and b. The
+// lanes fill the stages with 16-byte cp.async copies (coalesced: 8 lanes
+// a 128-byte time-step row) in commit groups, kStages - 1 stages ahead of
+// the stage the lanes are running the chain on, so 24 KB of each block's
+// loads are in flight while it computes. At the prefill shape the grid is
+// 128 × 4 = 512 one-warp blocks, about four per SM, so every SM streams
+// about 96 KB at once, enough to cover the device memory's latency at its
+// full rate. Each step's h goes out as one 128-byte coalesced store per
+// warp. A partial last stage (S % kSteps) and a partial last tile (C % 32)
+// are masked; S = 1 (a decode step) is one partial stage. A scalar kernel
+// (one thread a channel, direct loads) takes a C that is not a multiple of
+// four or a pointer not 16-byte aligned, which the copies cannot.
 //
 // Interface: plain C, loaded with ctypes. Launches on the given stream,
 // does not synchronise, allocates nothing, returns cudaGetLastError().
@@ -31,8 +39,10 @@
 
 namespace {
 
-constexpr int kThreads = 32;
-constexpr int kUnroll = 8;
+constexpr int kTile = 32;     // channels of a block: one warp, a channel a lane
+constexpr int kSteps = 32;    // time steps a stage holds
+constexpr int kStages = 4;    // ring depth: kStages - 1 stages in flight
+constexpr int kChunks = kTile / 4;   // 16-byte copies per time-step row of a tile
 
 // a·h + b with two roundings and no FMA contraction, as the plain version
 // computes it, so the two agree bit for bit
@@ -40,51 +50,88 @@ __device__ __forceinline__ float step(float a, float h, float b) {
   return __fadd_rn(__fmul_rn(a, h), b);
 }
 
-__device__ __forceinline__ float4 step4(float4 a, float4 h, float4 b) {
-  return make_float4(step(a.x, h.x, b.x), step(a.y, h.y, b.y), step(a.z, h.z, b.z),
-                     step(a.w, h.w, b.w));
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem)
+               : "memory");
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
-rglru_vec4(const float* __restrict__ a, const float* __restrict__ b,
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+struct Ring {
+  float a[kStages][kSteps][kTile];
+  float b[kStages][kSteps][kTile];
+};   // 32 KB
+
+__global__ void __launch_bounds__(kTile)
+rglru_ring(const float* __restrict__ a, const float* __restrict__ b,
            const float* __restrict__ h0, float* __restrict__ out, float* __restrict__ hlast,
-           int B, int S, int C) {
-  const int C4 = C / 4;
-  const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (g >= (long long)B * C4) return;
-  const int bi = static_cast<int>(g / C4), c = static_cast<int>(g % C4) * 4;
-  float4 h = h0 ? ld4(h0 + (long long)bi * C + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-  const long long base = (long long)bi * S * C + c;
-  int t = 0;
-  for (; t + kUnroll <= S; t += kUnroll) {
-    float4 av[kUnroll], bv[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      av[u] = ld4(a + base + (long long)(t + u) * C);
-      bv[u] = ld4(b + base + (long long)(t + u) * C);
+           int S, int C) {
+  __shared__ __align__(16) Ring ring;
+  const int lane = threadIdx.x, c0 = blockIdx.x * kTile, bi = blockIdx.y;
+  const bool live = c0 + lane < C;
+  const int chunks = min(kTile, C - c0) / 4;           // C % 4 == 0 here
+  const int n_stages = (S + kSteps - 1) / kSteps;
+  const int64_t base = static_cast<int64_t>(bi) * S * C + c0;
+
+  // Issue stage st's copies into its slot; every lane commits one group per
+  // call, empty past the end, so the group count stays kStages - 1 ahead.
+  auto fill = [&](int st) {
+    if (st < n_stages) {
+      const int t0 = st * kSteps, slot = st % kStages, n_t = min(kSteps, S - t0);
+      for (int k = lane; k < n_t * kChunks; k += kTile) {
+        const int t = k / kChunks, q = k % kChunks;
+        if (q < chunks) {
+          const int64_t g = base + static_cast<int64_t>(t0 + t) * C + 4 * q;
+          cp_async16(&ring.a[slot][t][4 * q], a + g);
+          cp_async16(&ring.b[slot][t][4 * q], b + g);
+        }
+      }
     }
+    cp_async_commit();
+  };
+
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      h = step4(av[u], h, bv[u]);
-      *reinterpret_cast<float4*>(out + base + (long long)(t + u) * C) = h;
+  for (int st = 0; st < kStages - 1; ++st) fill(st);
+  float h = (h0 != nullptr && live) ? h0[static_cast<int64_t>(bi) * C + c0 + lane] : 0.f;
+  float* o = out + base + lane;
+  for (int st = 0; st < n_stages; ++st) {
+    cp_async_wait<kStages - 2>();   // this lane's copies of stage st have landed,
+    __syncwarp();                   // every lane's too; all have left stage st - 1
+    fill(st + kStages - 1);         // into stage st - 1's slot
+    const int slot = st % kStages, t0 = st * kSteps, n_t = min(kSteps, S - t0);
+    const float* as = ring.a[slot][0] + lane;
+    const float* bs = ring.b[slot][0] + lane;
+    float* ot = o + static_cast<int64_t>(t0) * C;
+    if (live && n_t == kSteps) {
+#pragma unroll
+      for (int t = 0; t < kSteps; ++t) {
+        h = step(as[t * kTile], h, bs[t * kTile]);
+        ot[static_cast<int64_t>(t) * C] = h;
+      }
+    } else if (live) {
+      for (int t = 0; t < n_t; ++t) {
+        h = step(as[t * kTile], h, bs[t * kTile]);
+        ot[static_cast<int64_t>(t) * C] = h;
+      }
     }
   }
-  for (; t < S; ++t) {
-    h = step4(ld4(a + base + (long long)t * C), h, ld4(b + base + (long long)t * C));
-    *reinterpret_cast<float4*>(out + base + (long long)t * C) = h;
-  }
-  *reinterpret_cast<float4*>(hlast + (long long)bi * C + c) = h;
+  cp_async_wait<0>();
+  if (live) hlast[static_cast<int64_t>(bi) * C + c0 + lane] = h;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTile)
 rglru_scalar(const float* __restrict__ a, const float* __restrict__ b,
              const float* __restrict__ h0, float* __restrict__ out, float* __restrict__ hlast,
              int B, int S, int C) {
-  const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long g = (long long)blockIdx.x * kTile + threadIdx.x;
   if (g >= (long long)B * C) return;
   const int bi = static_cast<int>(g / C), c = static_cast<int>(g % C);
   float h = h0 ? h0[(long long)bi * C + c] : 0.f;
@@ -106,13 +153,15 @@ extern "C" int rglru_scan_f32(const float* a, const float* b, const float* h0, f
                               float* hlast, int B, int S, int C, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || C == 0) return 0;
-  const bool vec = C % 4 == 0 && aligned16(a) && aligned16(b) && aligned16(out) &&
-                   aligned16(hlast) && (h0 == nullptr || aligned16(h0));
-  const long long threads = (long long)B * (vec ? C / 4 : C);
-  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  if (vec)
-    rglru_vec4<<<blocks, kThreads, 0, st>>>(a, b, h0, out, hlast, B, S, C);
-  else
-    rglru_scalar<<<blocks, kThreads, 0, st>>>(a, b, h0, out, hlast, B, S, C);
+  const bool ring = C % 4 == 0 && aligned16(a) && aligned16(b);
+  if (ring) {
+    if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);   // grid.y
+    const dim3 grid((C + kTile - 1) / kTile, B);
+    rglru_ring<<<grid, kTile, 0, st>>>(a, b, h0, out, hlast, S, C);
+  } else {
+    const long long threads = (long long)B * C;
+    rglru_scalar<<<static_cast<unsigned>((threads + kTile - 1) / kTile), kTile, 0, st>>>(
+        a, b, h0, out, hlast, B, S, C);
+  }
   return static_cast<int>(cudaGetLastError());
 }

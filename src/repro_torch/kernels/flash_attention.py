@@ -126,8 +126,7 @@ def _launch(q, k, v, causal: bool, window: int, scale: float, softcap: float) ->
     else:
         strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     strides += out.stride()[:3]
-    fn = getattr(build.load(lib), entry)
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = getattr(build.load(lib, {entry: _ARGTYPES}), entry)
     err = build.on_device(q.device, lambda stream: fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides, B, H, KV, S, hd,
         int(causal), int(window), scale, float(softcap), stream))

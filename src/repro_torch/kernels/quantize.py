@@ -68,11 +68,16 @@ def _check_rows(name: str, x: torch.Tensor, dtypes, *row_args) -> None:
                              f"{a.dtype} on {a.device}")
 
 
-def _call(lib: str, fn_name: str, argtypes, *args, device) -> None:
-    fn = getattr(build.load(lib), fn_name)
-    fn.argtypes, fn.restype = argtypes + [_P], ctypes.c_int
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+_ROWS_ARGTYPES = [_P, _P, _P, _I, _L, _P, _P]   # x, per-row, mask, R, N, out, stream
+_ENTRIES = {**{f"quantize_rows_{sfx}": [_P, _P, _P, _F, _I, _L, _P, _P]
+               for sfx in _SUFFIX.values()},
+            **{f"topk_mask_rows_{sfx}": _ROWS_ARGTYPES for sfx in _SUFFIX.values()},
+            "dequantize_rows_i8": _ROWS_ARGTYPES}
+
+
+def _call(fn_name: str, *args, device) -> None:
+    fn = getattr(build.load("quantize", _ENTRIES), fn_name)
+    err = build.on_device(device, lambda stream: fn(*args, stream))
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
 
@@ -99,10 +104,8 @@ def launch_quantize(x: torch.Tensor, noise: torch.Tensor, scales: torch.Tensor,
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     if x.numel():
         R, N = x.shape
-        _call("quantize", f"quantize_rows_{_SUFFIX[x.dtype]}",
-              [_P, _P, _P, _F, _I, _L, _P],
-              x.data_ptr(), noise.data_ptr(), scales.data_ptr(), qmax, R, N,
-              q.data_ptr(), device=x.device)
+        _call(f"quantize_rows_{_SUFFIX[x.dtype]}", x.data_ptr(), noise.data_ptr(),
+              scales.data_ptr(), qmax, R, N, q.data_ptr(), device=x.device)
     return q
 
 
@@ -152,9 +155,8 @@ def dequantize_rows(q: torch.Tensor, scales: torch.Tensor,
     if q.numel() == 0:
         return out
     R, N = q.shape
-    _call("quantize", "dequantize_rows_i8", [_P, _P, _P, _I, _L, _P],
-          q.data_ptr(), scales.data_ptr(), _ptr(row_mask), R, N, out.data_ptr(),
-          device=q.device)
+    _call("dequantize_rows_i8", q.data_ptr(), scales.data_ptr(), _ptr(row_mask), R, N,
+          out.data_ptr(), device=q.device)
     dequantize_rows.launches += 1
     return out
 
@@ -198,9 +200,8 @@ def topk_mask_rows(x: torch.Tensor, thresh: torch.Tensor,
     if x.numel() == 0:
         return out
     R, N = x.shape
-    _call("quantize", f"topk_mask_rows_{_SUFFIX[x.dtype]}", [_P, _P, _P, _I, _L, _P],
-          x.data_ptr(), thresh.data_ptr(), _ptr(row_mask), R, N, out.data_ptr(),
-          device=x.device)
+    _call(f"topk_mask_rows_{_SUFFIX[x.dtype]}", x.data_ptr(), thresh.data_ptr(),
+          _ptr(row_mask), R, N, out.data_ptr(), device=x.device)
     topk_mask_rows.launches += 1
     return out
 

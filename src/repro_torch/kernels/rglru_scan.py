@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.kernels import build
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ENTRIES = {"rglru_scan_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
 
 
 def _check(a, b, h0):
@@ -43,6 +43,31 @@ def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor
     return out, h.clone()
 
 
+def _launch(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on checked (B, S, C) tensors -> (out, h_last). A decode
+    step (S = 1) makes one allocation, h_last a view beside out: the model
+    only reads both. A longer scan allocates h_last apart, so a cache that
+    keeps h_last does not keep the whole of out alive."""
+    B, S, C = a.shape
+    if S == 1:
+        both = torch.empty((2, B, C), dtype=torch.float32, device=a.device)
+        out, h_last = both[0].unsqueeze(1), both[1]
+    else:
+        out = torch.empty((B, S, C), dtype=torch.float32, device=a.device)
+        h_last = torch.empty((B, C), dtype=torch.float32, device=a.device)
+    if B == 0 or C == 0:
+        return out, h_last
+    fn = build.load("rglru_scan", _ENTRIES).rglru_scan_f32
+    args = (a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
+            out.data_ptr(), h_last.data_ptr(), B, S, C)
+    err = build.on_device(a.device, lambda stream: fn(*args, stream))
+    if err != 0:
+        raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error {err}")
+    rglru_scan.launches += 1
+    return out, h_last
+
+
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """a, b: (B, S, C) f32; h0: (B, C) f32 or None -> (out (B, S, C), h_last
@@ -56,21 +81,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = No
     if any(t.dtype != torch.float32 or t.device != a.device or not t.is_contiguous()
            for t in ins):
         raise TypeError("a, b and h0 must be contiguous float32 on one device")
-    B, S, C = a.shape
-    out = torch.empty((B, S, C), dtype=torch.float32, device=a.device)
-    h_last = torch.empty((B, C), dtype=torch.float32, device=a.device)
-    if B == 0 or C == 0:
-        return out, h_last
-    fn = build.load("rglru_scan").rglru_scan_f32
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
-                 out.data_ptr(), h_last.data_ptr(), B, S, C, stream)
-    if err != 0:
-        raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error {err}")
-    rglru_scan.launches += 1
-    return out, h_last
+    return _launch(a, b, h0)
 
 
 rglru_scan.launches = 0   # kernel launches, for chip_smoke's path check

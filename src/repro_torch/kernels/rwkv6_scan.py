@@ -47,6 +47,9 @@ ROUTES = {
 }
 
 
+_ENTRIES = {entry: argtypes for entry, argtypes, _ in ROUTES.values()}
+
+
 def _check(r, k, v, logw, u, s0):
     if r.ndim != 4 or any(t.shape != r.shape for t in (k, v, logw)):
         raise ValueError(f"want r, k, v, logw (B, H, S, hd); got {tuple(r.shape)}, "
@@ -106,7 +109,7 @@ def _launch(r, k, v, logw, u, chunk: int, s0):
     """The kernel of S's route on checked tensors; returns (o, S_final)."""
     B, H, S, hd = r.shape
     which = route(S)
-    entry, argtypes, counter = ROUTES[which]
+    entry, _, counter = ROUTES[which]
     u = u.float().contiguous()
     if s0 is not None:
         s0 = s0.float().contiguous()
@@ -126,8 +129,7 @@ def _launch(r, k, v, logw, u, chunk: int, s0):
         dec = torch.empty((B, H, chunks, hd), dtype=torch.float32, device=r.device)
         args = (ptrs + [scratch.data_ptr(), dec.data_ptr()]
                 + [s for t in (r, k, v, logw, o) for s in t.stride()[:3]] + [B, H, S, hd, chunk])
-    fn = getattr(build.load("rwkv6_scan"), entry)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    fn = getattr(build.load("rwkv6_scan", _ENTRIES), entry)
     err = build.on_device(r.device, lambda stream: fn(_DTYPES[r.dtype], *args, stream))
     if err != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {err}")

@@ -9,12 +9,15 @@ JAX comes in through the ``jx`` fixture, so the ``cuda`` tests also run on
 a machine that has a card but no JAX:
 ``python -m pytest -q -m cuda tests/test_torch_kernels.py``.
 """
+import importlib
 import types
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from test_torch_stub_library import stub_libraries  # noqa: E402
 
 from repro_torch.core import aggregation  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
@@ -33,6 +36,9 @@ from repro_torch.kernels import (  # noqa: E402
 )
 from repro_torch.kernels import quantize as kq  # noqa: E402
 from repro_torch.kernels.agg_reduce import segment_agg_reduce_absmax  # noqa: E402
+
+# the module (the package exports its function of the same name)
+ka = importlib.import_module("repro_torch.kernels.agg_reduce")
 
 
 @pytest.fixture(scope="module")
@@ -167,6 +173,87 @@ def test_wrapper_rejects_bad_inputs_and_other_devices():
                            np.zeros(4, np.int64), 1)
 
 
+# ------------------------------- the launch path, through a stand-in library
+
+def _no_upload(table, device):
+    raise AssertionError("a one-segment launch copied a table to the device")
+
+
+@pytest.mark.parametrize("absmax", [False, True])
+def test_one_segment_launch_hands_the_kernel_no_table(monkeypatch, absmax):
+    """One segment (classical FedAvg): no CSR, no host-to-device copy, one
+    allocation; the kernel is told so by a null table."""
+    libs = stub_libraries(monkeypatch)
+    monkeypatch.setattr(ka, "_upload", _no_upload)
+    empties = []
+    real_empty = torch.empty
+    monkeypatch.setattr(ka.torch, "empty", lambda *a, **k: empties.append(a) or real_empty(*a, **k))
+    x, wm = torch.zeros((16, 64)), torch.ones(16)
+    amax = real_empty((1, 3)) if absmax else None
+    out = ka._launch(x, wm, np.zeros(16, np.int64), 1, amax)
+    entry = "segment_agg_reduce_absmax_f32" if absmax else "segment_agg_reduce_f32"
+    assert libs["agg_reduce"].calls == [entry] and len(empties) == 1
+    args = libs["agg_reduce"].args[0]
+    assert args[:7] == (x.data_ptr(), wm.data_ptr(), None, 16, 1, 64, out.data_ptr())
+    assert args[7:-1] == ((amax.data_ptr(), 3) if absmax else ())
+    assert out.shape == (1, 64)
+
+
+def _stable_csr(seg, n_seg):
+    rows = sorted(range(len(seg)), key=lambda r: (seg[r], r))
+    return rows + [sum(1 for s in seg if s < k) for k in range(n_seg + 1)]
+
+
+@pytest.mark.parametrize("C,n_seg", [(7, 5), (128, 16), (129, 3), (40, 129)])
+def test_segmented_launch_hands_the_kernel_the_stable_csr(monkeypatch, C, n_seg):
+    """Unsorted segment ids: the kernel gets their stable row permutation
+    and the segment offsets, copied once to the device."""
+    libs = stub_libraries(monkeypatch)
+    tables, uploads = [], []
+    real_csr = ka._csr
+    monkeypatch.setattr(ka, "_csr", lambda seg, n: tables.append(real_csr(seg, n)) or tables[-1])
+
+    def upload(table, device):
+        uploads.append(torch.from_numpy(table))
+        return uploads[-1]
+    monkeypatch.setattr(ka, "_upload", upload)
+    seg = (np.arange(C) * 7 + 3) % n_seg
+    x, wm = torch.zeros((C, 12)), torch.ones(C)
+    for dtype, entry in ((torch.float32, "segment_agg_reduce_f32"),
+                         (torch.bfloat16, "segment_agg_reduce_bf16")):
+        ka._launch(x.to(dtype), wm, seg, n_seg)
+        table = tables[-1]
+        assert table.dtype == np.int32 and table.tolist() == _stable_csr(seg.tolist(), n_seg)
+        assert libs["agg_reduce"].calls[-1] == entry
+        args = libs["agg_reduce"].args[-1]
+        assert args[2] == uploads[-1].data_ptr() and len(uploads) == len(tables)
+        assert uploads[-1].tolist() == table.tolist()
+        assert args[3:6] == (C, n_seg, 12)
+
+
+def test_kernel_entries_bound_once(monkeypatch):
+    """Each ctypes entry's argument types are set once, when its library
+    loads, however many launches follow."""
+    libs = stub_libraries(monkeypatch)
+    monkeypatch.setattr(ka, "_upload", lambda table, device: torch.from_numpy(table))
+    x, wm, u = torch.zeros((4, 8)), torch.ones(4), torch.zeros((4, 8))
+    s, m = torch.ones(4), torch.ones(4)
+    for _ in range(2):
+        for xx in (x, x.bfloat16()):
+            for n_seg in (1, 3):   # no table, a table
+                ka._launch(xx, wm, np.arange(4) % n_seg, n_seg)
+                ka._launch(xx, wm, np.arange(4) % n_seg, n_seg, torch.empty((n_seg, 1)))
+            kq.launch_quantize(xx, u, s, 127.0)
+            for row_mask in (None, m):
+                kq._call(f"topk_mask_rows_{kq._SUFFIX[xx.dtype]}", xx.data_ptr(),
+                         s.data_ptr(), kq._ptr(row_mask), 4, 8, u.data_ptr(), device=x.device)
+        kq._call("dequantize_rows_i8", x.data_ptr(), s.data_ptr(), None, 4, 8, u.data_ptr(),
+                 device=x.device)
+    assert libs["agg_reduce"].bound == {name: 1 for name in ka._ENTRIES}
+    assert libs["quantize"].bound == {name: 1 for name in kq._ENTRIES}
+    assert len(libs["agg_reduce"].calls) == 16 and len(libs["quantize"].calls) == 14
+
+
 @pytest.mark.cuda
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
 def test_cuda_kernel_matches_plain_version():
@@ -188,6 +275,56 @@ def test_cuda_kernel_matches_plain_version():
         assert bool(((got - want).abs() <= 1e-3 + 1e-4 * abs_sum).all())
         # fixed sum order, no atomics: a second launch repeats bit for bit
         assert torch.equal(got, segment_agg_reduce(x, wm, seg, n_seg))
+
+
+@pytest.mark.cuda
+def test_cuda_segmented_csr(card):
+    """Segmented launches, at the main path's 128 rows over 16 segments and
+    with more rows or segments than that: within the plain version's
+    Σ|w·x| bound, repeatable bit for bit, pass A's θ equal."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for C, n_seg in ((128, 16), (128, 128), (129, 16), (64, 129), (300, 7)):
+        for N, dtype in ((65_536, torch.float32), (100_003, torch.float32),
+                         (65_536, torch.bfloat16)):
+            x = torch.randn((C, N), generator=gen, device="cuda").to(dtype)
+            wm = torch.rand(C, generator=gen, device="cuda") * 50
+            seg = np.random.default_rng(C + n_seg).integers(0, n_seg, C)
+            got = segment_agg_reduce(x, wm, seg, n_seg)
+            want = segment_agg_reduce_plain(x, wm, seg, n_seg)
+            abs_sum = segment_agg_reduce_plain(x.abs(), wm, seg, n_seg)
+            what = (C, n_seg, N, dtype)
+            assert bool(((got - want).abs() <= 1e-3 + 1e-4 * abs_sum).all()), what
+            assert torch.equal(got, segment_agg_reduce(x, wm, seg, n_seg)), what
+            assert torch.equal(segment_agg_reduce_absmax(x, wm, seg, n_seg)[0], got), what
+
+
+@pytest.mark.cuda
+def test_cuda_one_segment_sweep(card):
+    """One segment (the identity rows, no table) at row counts around
+    multiples of the kernel's 4-row load batch and at the main path's N,
+    in both input types and from a misaligned base (the scalar path):
+    within the plain version's Σ|w·x| bound, repeatable bit for bit, and
+    pass A's θ equal to segment_agg_reduce's."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for C in (1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 33, 128):
+        for N in (4, 62, 100_003, 3136 * 2048):
+            for dtype in (torch.float32, torch.bfloat16):
+                for offset in (0, 1):
+                    flat = torch.randn(C * N + offset, generator=gen, device="cuda")
+                    x = flat.to(dtype)[offset:].view(C, N)
+                    wm = torch.rand(C, generator=gen, device="cuda") * 50
+                    seg = np.zeros(C, np.int64)
+                    got = segment_agg_reduce(x, wm, seg, 1)
+                    want = segment_agg_reduce_plain(x, wm, seg, 1)
+                    abs_sum = segment_agg_reduce_plain(x.abs(), wm, seg, 1)
+                    what = (C, N, dtype, offset)
+                    assert bool(((got - want).abs() <= 1e-3 + 1e-4 * abs_sum).all()), what
+                    assert torch.equal(got, segment_agg_reduce(x, wm, seg, 1)), what
+                    theta, _ = segment_agg_reduce_absmax(x, wm, seg, 1)
+                    assert torch.equal(theta, got), what
+                    torch.testing.assert_close(agg_reduce(x, wm, torch.ones_like(wm)),
+                                               got[0], rtol=0, atol=0)
+                    del flat, x, got, want, abs_sum, theta
 
 
 # ---------------------------------------------------------------------------

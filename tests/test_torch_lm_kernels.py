@@ -19,6 +19,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_stub_library import stub_libraries  # noqa: E402
+
 from repro_torch.kernels import (  # noqa: E402
     flash_attention,
     flash_attention_plain,
@@ -439,26 +441,6 @@ def test_rwkv6_chunked_model_chains_decode_steps():
     _within(st, want_s, RWKV_TOL, RWKV_TOL)
 
 
-class _FakeLibrary:
-    """Stands in for a built kernel library: records each entry point's
-    call and checks its argument count against the argtypes set."""
-
-    def __init__(self, calls):
-        self.calls = calls
-
-    def __getattr__(self, entry):
-        calls = self.calls
-
-        class Entry:
-            def __call__(self, *args):
-                assert len(args) == len(self.argtypes), (entry, len(args))
-                calls.append(entry)
-                return 0
-        fn = Entry()
-        self.__dict__[entry] = fn
-        return fn
-
-
 def test_kernel_routes_by_type_and_length(monkeypatch):
     """bf16 attention goes to the tensor-core kernel and f32 to the CUDA-core
     one; an RWKV6 call with S = 1 to the decode route, longer ones to the
@@ -467,9 +449,7 @@ def test_kernel_routes_by_type_and_length(monkeypatch):
     import importlib
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     rw = importlib.import_module("repro_torch.kernels.rwkv6_scan")
-    libs = {}
-    monkeypatch.setattr(fa.build, "load", lambda name: libs.setdefault(name, _FakeLibrary([])))
-    monkeypatch.setattr(fa.build, "on_device", lambda device, call: call(0))
+    libs = stub_libraries(monkeypatch)
     for name in ("launches", "launches_tc", "launches_f32"):
         monkeypatch.setattr(flash_attention, name, 0)
     for name in ("launches", "launches_chunked", "launches_decode"):
@@ -494,14 +474,41 @@ def test_kernel_routes_by_type_and_length(monkeypatch):
     assert (rwkv6_scan.launches_chunked, rwkv6_scan.launches_decode,
             rwkv6_scan.launches) == (1, 2, 3)
     assert [rw.route(S) for S in (1, 2, 4096)] == ["decode", "chunked", "chunked"]
+    # each entry's argument types were set once, when its library loaded
+    assert all(set(lib.bound.values()) == {1} for lib in libs.values())
+    assert set(libs["rwkv6_scan"].bound) == {"rwkv6_scan_fwd", "rwkv6_decode_fwd"}
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_launch_reaches_its_entry_at_every_length(monkeypatch, with_h0):
+    """S = 1 (a decode step) and S > 1 (prefill) both reach rglru_scan_f32
+    with (B, S, C) and bump the count once each; the decode step makes one
+    allocation, h_last a view beside out; the entry is bound once."""
+    import importlib
+    rg = importlib.import_module("repro_torch.kernels.rglru_scan")
+    libs = stub_libraries(monkeypatch)
+    monkeypatch.setattr(rglru_scan, "launches", 0)
+    B, C = 2, 12
+    h0 = torch.zeros((B, C)) if with_h0 else None
+    for S in (1, 5, 1, 33):
+        a = torch.zeros((B, S, C))
+        out, h_last = rg._launch(a, a, h0)
+        args = libs["rglru_scan"].args[-1]
+        assert args[2] == (None if h0 is None else h0.data_ptr())
+        assert args[3:8] == (out.data_ptr(), h_last.data_ptr(), B, S, C)
+        assert out.shape == (B, S, C) and h_last.shape == (B, C)
+        shared = out.untyped_storage().data_ptr() == h_last.untyped_storage().data_ptr()
+        assert shared == (S == 1)
+    assert libs["rglru_scan"].calls == ["rglru_scan_f32"] * 4
+    assert rglru_scan.launches == 4
+    assert libs["rglru_scan"].bound == {"rglru_scan_f32": 1}
 
 
 def test_flash_bf16_route_rejects_a_stride_tma_cannot_take(monkeypatch):
     """A bf16 stride that is not a multiple of 16 bytes raises: no copy."""
     import importlib
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    monkeypatch.setattr(fa.build, "load", lambda name: _FakeLibrary([]))
-    monkeypatch.setattr(fa.build, "on_device", lambda device, call: call(0))
+    stub_libraries(monkeypatch)
     q = torch.zeros((1, 2, 8, 20), dtype=torch.bfloat16)[..., :16]   # row stride 20
     k = torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiples of 8"):
@@ -550,6 +557,25 @@ def test_cuda_rglru_matches_plain_version_bit_for_bit(card):
         assert rglru_scan.launches == before + 1
         want_o, want_h = rglru_scan_plain(a, b, h0)
         assert torch.equal(out, want_o) and torch.equal(h, want_h)
+
+
+@pytest.mark.cuda
+def test_cuda_rglru_ring_sweep_bit_for_bit(card):
+    """Lengths around the ring's 32-step stages (S = 1 is a decode step),
+    a tile-aligned and a ragged channel count, one and four batch rows,
+    with and without h0; then a base 4 bytes off 16-byte alignment (the
+    scalar kernel). Every case equal to the plain version bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [(B, S, C, with_h0, 0) for S in (1, 7, 31, 32, 33, 4096) for C in (4096, 100)
+             for B in (1, 4) for with_h0 in (False, True)]
+    for B, S, C, with_h0, offset in cases + [(2, 45, 64, True, 1)]:
+        flat = torch.rand(2 * B * S * C + offset, generator=gen, device="cuda")
+        a = flat[offset:offset + B * S * C].view(B, S, C)
+        b = flat[offset + B * S * C:].view(B, S, C) - 0.5
+        h0 = torch.randn((B, C), generator=gen, device="cuda") if with_h0 else None
+        out, h = rglru_scan(a, b, h0)
+        want_o, want_h = rglru_scan_plain(a, b, h0)
+        assert torch.equal(out, want_o) and torch.equal(h, want_h), (B, S, C, with_h0, offset)
 
 
 @pytest.mark.cuda
