@@ -80,13 +80,41 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              tokens: prefill logits and caches and 3 teacher-forced decode
              steps, f32 within 1e-4 and bf16 within 0.08.
 
-Phases 4, 7 and 10 are the main paths (the FEMNIST round uncompressed and
-compressed, LM serving). The last lines are the ``kernels`` JSON object
-and then ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+12. train kernels — the forward kernels' per-row log-sum-exp on both
+             routes against the plain version's (torch.logsumexp of its
+             masked scores), and flash attention's backward kernel against
+             autograd of the plain version and against its plain version at
+             qwen2-0.5b's and olmo-1b's train shapes (8 × 2048 tokens),
+             recurrentgemma-9b's windowed MQA shape, a ragged S and an f32
+             case; times as in phase 3, the bound at the bf16 tensor-core
+             rate (10·hd flops a visible pair) or the bytes, the backward of
+             ``scaled_dot_product_attention`` as the library call; the
+             forward's time at qwen2-0.5b's train shape with and without
+             the log-sum-exp.
+13. train  — ``repro_torch.launch.train.run`` at full width as a user
+             calls it: qwen2-0.5b (adamw, lr 3e-4, batch 8, seq 2048) 4
+             steps with --micro 1, checkpointing every 2 steps; a second
+             run resumes at step 2 (its losses printed beside the first
+             run's, held within 1e-2 relative: nothing makes the card's sums
+             repeat their order between runs); 4 steps with --micro
+             2; olmo-1b 3 steps. Launch counts zeroed before each run and
+             checked after it against the routing table (flash forward once
+             a layer and micro-batch and once more in remat's recompute, the
+             backward's three launches, no scan); every loss and gradient
+             norm finite; step s cold and warm, tokens/s, peak memory; a
+             torch.profiler breakdown of one warm step of two of the runs.
+14. train parity — reduced width, card against CPU: one train step (sgd
+             and adamw) from the same weights and tokens, loss and every
+             parameter within 1e-4 in f32 and 0.08 in bf16.
+
+Phases 4, 7, 10 and 13 are the main paths (the FEMNIST round uncompressed
+and compressed, LM serving, LM training). The last lines are the
+``kernels`` JSON object and then ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX.
 
 A ``device_ms`` in the kernels line is always ``queued_ms``'s; the
-torch.profiler breakdowns (phases 9 and 10) only print, and fail the run
-if they miss a launch of the port's kernels.
+torch.profiler breakdowns (phases 9, 10 and 13) only print, and fail the
+run if they miss a launch of the port's kernels.
 """
 from __future__ import annotations
 
@@ -1000,6 +1028,8 @@ def _lm_kernels():
     c = _lm_counters()
     rwkv = c["rwkv6_scan"]
     return [(("flash_wgmma", "flash_fwd"), c["flash_attention"], "launches"),
+            (("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_tc",
+              "flash_bwd_dq_tc"), c["flash_attention"], "launches_bwd"),
             (("rglru_ring", "rglru_scalar"), c["rglru_scan"], "launches"),
             (("rwkv6_states",), rwkv, "launches_chunked"),
             (("rwkv6_state_scan",), rwkv, "launches_chunked"),
@@ -1035,7 +1065,8 @@ def _route_table(cfg, gen: int):
     route."""
     layers = list(cfg.block_pattern) * cfg.n_units + list(cfg.tail_pattern)
     tc = cfg.dtype == "bfloat16"
-    return {"flash_attention": {"launches_f32": 0 if tc else layers.count("attn"),
+    return {"flash_attention": {"launches_bwd": 0, "launches_bwd_fma": 0, "launches_bwd_tc": 0,
+                                "launches_f32": 0 if tc else layers.count("attn"),
                                 "launches_tc": layers.count("attn") if tc else 0},
             "rwkv6_scan": {"launches_chunked": layers.count("rwkv"),
                            "launches_decode": layers.count("rwkv") * gen}}
@@ -1205,6 +1236,258 @@ def _to(tree, dev):
             for k, v in tree.items()}
 
 
+TRAIN = dict(batch=8, seq=2048, lr=3e-4, opt="adamw")
+# (arch, micro-batches, steps): the train runs of phase 13
+TRAIN_RUNS = (("qwen2-0.5b", 1, 4), ("qwen2-0.5b", 2, 4), ("olmo-1b", 1, 3))
+
+
+def _bwd_bound(B, H, KV, S, hd, window, itemsize, flops_per_s):
+    """Least time of the attention gradient: q, k, v, o, dO and the rows'
+    log-sum-exp read once, dq, dk, dv written once; 10·hd flops a visible
+    pair (QKᵀ, dO·Vᵀ, Pᵀ·dO, dS·K, dSᵀ·Q)."""
+    nbytes = itemsize * 4 * B * (H + KV) * S * hd + 4 * B * H * S
+    return bound(nbytes, 10 * hd * B * H * _visible_pairs(S, window), flops_per_s)
+
+
+def phase_train_kernels():
+    """The forward kernels' log-sum-exp on both routes, and the backward
+    kernel against autograd of the plain version and against its plain
+    version, at the train path's shapes; returns the backward's row at
+    qwen2-0.5b's shape and the forward's time there."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, flash_attention_bwd_plain, \
+        flash_attention_plain
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {}
+    for what, B, H, KV, S, hd, window, dtype, main in (
+            ("qwen2-0.5b train, GQA 14 -> 2", 8, 14, 2, 2048, 64, 0, torch.bfloat16, True),
+            ("olmo-1b train, MHA", 8, 16, 16, 2048, 128, 0, torch.bfloat16, False),
+            ("recurrentgemma-9b shape: MQA, hd 256, window 2048", 1, 16, 1, 4096, 256, 2048,
+             torch.bfloat16, False),
+            ("ragged S", 4, 14, 2, 1999, 64, 0, torch.bfloat16, False),
+            ("f32, the CUDA-core forward route", 2, 4, 2, 300, 64, 0, torch.float32, False)):
+        q, k, v, do = (torch.randn((B, S, n, hd), generator=gen, device="cuda").to(dtype)
+                       .transpose(1, 2) for n in (H, KV, KV, H))
+        scale = 1.0 / math.sqrt(hd)
+        counter = "launches_tc" if dtype == torch.bfloat16 else "launches_f32"
+        before = getattr(flash_attention, counter)
+        o, lse = fa._forward(q, k, v, True, window, scale, 0.0, with_lse=True)
+        po, plse = flash_attention_plain(q, k, v, window=window, return_lse=True)
+        torch.cuda.synchronize()
+        check(getattr(flash_attention, counter) == before + 1,
+              f"flash forward [{what}] did not take its {counter} route")
+        # the plain version's lse is torch.logsumexp of its masked f32 scores
+        err_l, ok_l = _within(lse, plse, 1e-5, 1e-5)
+        err_o, ok_o = (_within(o, po, 2.0 ** -7, 1e-5) if dtype == torch.bfloat16
+                       else _within(o, po, 2e-5, 2e-5))
+        check(ok_l and ok_o, f"flash forward with lse [{what}]: o {err_o}, lse {err_l}")
+        del po, plse
+        bwd_counter = ("launches_bwd_tc" if dtype == torch.bfloat16 and hd <= 128
+                       else "launches_bwd_fma")
+        before = getattr(flash_attention, bwd_counter)
+        got = fa._backward(q, k, v, o, lse, do, True, window, scale, 0.0)
+        torch.cuda.synchronize()
+        check(getattr(flash_attention, bwd_counter) == before + 3,
+              f"flash backward [{what}] did not take its {bwd_counter} route")
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, window=window)
+        qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
+        auto = torch.autograd.grad(flash_attention_plain(qa, ka, va, window=window),
+                                   (qa, ka, va), do)
+        del qa, ka, va
+        # bf16: one rounding of an f32 result apart from the plain version;
+        # from autograd, also D = rowsum(dO ∘ O) read from the rounded o
+        tol = ((2.0 ** -7, 1e-4, 2.0 ** -6, 1e-2) if dtype == torch.bfloat16
+               else (1e-4, 1e-4, 1e-4, 1e-4))
+        errs = []
+        for name, g, w, a in zip(("dq", "dk", "dv"), got, want, auto):
+            m = float(w.float().abs().max())
+            err_p, ok_p = _within(g, w, tol[0], tol[1] * m)
+            err_a, ok_a = _within(g, a, tol[2], tol[3] * m)
+            check(ok_p and ok_a, f"flash backward [{what}] {name}: {err_p} from the plain "
+                                 f"version, {err_a} from autograd (max |grad| {m})")
+            errs.append((name, err_p, err_a, m))
+        del got, want, auto
+        torch.cuda.empty_cache()
+        print(f"flash backward [{what}]: " + "; ".join(
+            f"{n} max_abs_err {p:.3e} vs plain, {a:.3e} vs autograd (max {m:.3e})"
+            for n, p, a, m in errs)
+            + f" (<= {tol[0]:g}·|plain| + {tol[1]:g}·max, autograd {tol[2]:g}·|a| + "
+              f"{tol[3]:g}·max); lse max_abs_err {err_l:.3e}")
+        ms = time_ms(lambda: fa._backward(q, k, v, o, lse, do, True, window, scale, 0.0))
+        plain_ms = time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                              window=window), reps=5, warmup=1)
+        qx = q.detach().requires_grad_()
+        kx, vx = (t.repeat_interleave(H // KV, 1).detach().requires_grad_() for t in (k, v))
+        if window:
+            idx = torch.arange(S, device="cuda")
+            mask = (idx[None, :] <= idx[:, None]) & (idx[None, :] > idx[:, None] - window)
+            out = F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask)
+        else:
+            out = F.scaled_dot_product_attention(qx, kx, vx, is_causal=True)
+        library_ms = time_ms(lambda: torch.autograd.grad(out, (qx, kx, vx), do,
+                                                         retain_graph=True))
+        del out, qx, kx, vx
+        rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+        row = _report("flash_attention_bwd", f"{what} B={B} H={H} KV={KV} S={S} hd={hd} "
+                      f"window={window} {str(dtype).split('.')[-1]}, {bwd_counter[13:]} route",
+                      max(e[1] for e in errs), ms, plain_ms, library_ms,
+                      *_bwd_bound(B, H, KV, S, hd, window, q.element_size(), rate),
+                      note=" (vs the plain version; library: the backward of "
+                           "scaled_dot_product_attention, is_causal or the boolean window "
+                           "mask, KV expanded)")
+        if main:
+            rows["flash_attention_bwd"] = row
+            fwd_lse = time_ms(lambda: fa._forward(q, k, v, True, 0, scale, 0.0, True))
+            fwd = time_ms(lambda: fa._forward(q, k, v, True, 0, scale, 0.0, False))
+            print(f"flash forward [{what}]: with lse {fwd_lse:.4f} ms, without {fwd:.4f} ms "
+                  f"(bound {_fwd_bound(B, H, KV, S, hd):.4f} ms)")
+            rows["forward_train_ms"] = fwd_lse
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _fwd_bound(B, H, KV, S, hd):
+    nbytes = 2 * (2 * B * H * S * hd + 2 * B * KV * S * hd)
+    return bound(nbytes, 4 * B * H * hd * _visible_pairs(S, 0), BF16_FLOPS_PER_S)[0]
+
+
+def _train_routing(cfg, steps: int, micro: int):
+    """Launches of a train run: each attention layer's flash forward once
+    per micro-batch and once more in the backward's recompute (remat),
+    all on the tensor-core route (bf16), and the backward's three launches;
+    no scan."""
+    n = cfg.n_layers * steps * micro
+    return {"flash_attention": {"launches": 2 * n, "launches_tc": 2 * n, "launches_f32": 0,
+                                "launches_bwd": 3 * n, "launches_bwd_tc": 3 * n,
+                                "launches_bwd_fma": 0},
+            "rglru_scan": {"launches": 0},
+            "rwkv6_scan": {"launches": 0, "launches_chunked": 0, "launches_decode": 0}}
+
+
+def _train_counts():
+    return {k: {"launches": fn.launches, **_route_counts(fn)}
+            for k, fn in _lm_counters().items()}
+
+
+def phase_train(device: str = "cuda", smoke: bool = False, **shape):
+    """The LM gradient regime at full width through launch.train.run;
+    returns launches by kernel (bwd apart)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.data import lm as lm_data
+    from repro_torch.launch import train
+
+    shape = shape or TRAIN
+    totals = {"flash_attention": 0, "flash_attention_bwd": 0}
+    uninterrupted = None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckdir:
+        # the first run checkpoints, the second resumes from its step 2
+        runs = [(arch, micro, steps, "ckpt" if i == 0 else None)
+                for i, (arch, micro, steps) in enumerate(TRAIN_RUNS)]
+        runs.insert(1, ("qwen2-0.5b", 1, 4, "resume"))
+        for arch, micro, steps, role in runs:
+            for fn in _lm_counters().values():
+                _zero_launches(fn)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = train.run(arch, smoke=smoke, steps=steps, micro=micro, seed=0, log_every=1,
+                            ckpt=ckdir if role else "", ckpt_every=2, device=device, **shape)
+            wall = time.perf_counter() - t0
+            counts = _train_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            hist, cfg = list(res["history"]), res["cfg"]
+            ran = len(hist)
+            want = _train_routing(cfg, ran, micro)
+            dts = [r["dt"] for r in hist]
+            warm = statistics.median(dts[1:]) if ran > 1 else dts[0]
+            tokens = shape["batch"] * shape["seq"]
+            label = f"{arch} micro {micro}" + (" resumed at step 2" if role == "resume" else "")
+            print(f"train {label}: {ran} steps from step {res['start_step']}, step s cold "
+                  f"{dts[0]:.3f} warm {warm:.3f} ({tokens / warm:.0f} tokens/s); wall with init "
+                  f"{wall:.2f} s; peak device memory {peak:.2f} GiB; losses "
+                  f"{[round(r['loss'], 5) for r in hist]}; grad norms "
+                  f"{[round(r['grad_norm'], 4) for r in hist]}; launches {counts}")
+            check(counts == want, f"train {label}: launches {counts}, want {want}")
+            check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                      for r in hist), f"train {label}: a loss or gradient norm is not finite")
+            totals["flash_attention"] += counts["flash_attention"]["launches"]
+            totals["flash_attention_bwd"] += counts["flash_attention"]["launches_bwd"]
+            backend = res["backend"]
+            if role == "ckpt":
+                uninterrupted = hist
+                n_params = sum(t.numel() for t in _leaves(backend.params))
+                print(f"train {arch}: {n_params:,} parameters ({cfg.dtype}), checkpoints "
+                      f"{sorted(os.listdir(ckdir))}")
+                shutil.rmtree(os.path.join(ckdir, "step_4"))
+            elif role == "resume":
+                check(res["start_step"] == 2 and ran == 2, f"train {label}: did not resume")
+                for r, u in zip(hist, uninterrupted[2:]):
+                    rel = abs(r["loss"] - u["loss"]) / abs(u["loss"])
+                    print(f"train resume: step {r['round']} loss {r['loss']:.6f}, "
+                          f"uninterrupted {u['loss']:.6f} (rel {rel:.2e}, held to 1e-2)")
+                    check(r["involved"] == u["involved"] and rel <= 1e-2,
+                          f"train resume: step {r['round']} differs")
+            if device == "cuda" and not role:
+                # one warm step of the same backend, traced
+                toks = next(lm_data.lm_batches(99, 1, shape["batch"], shape["seq"],
+                                               cfg.vocab_size))["tokens"]
+                batch = {"tokens": torch.from_numpy(toks).to(device),
+                         "client_weight": torch.ones(shape["batch"], device=device)}
+
+                def step():
+                    backend.params, backend.opt_state, _ = backend.train_step(
+                        backend.params, backend.opt_state, batch)
+                _device_profile(f"train {label} warm step", step, _lm_kernels(), top=8)
+            del res, backend
+    return totals
+
+
+def phase_train_parity(devices=("cuda", "cpu")) -> None:
+    """Reduced width, card against CPU: one train step from the same weights
+    (made on the CPU) and tokens, a client_weight with zero rows; loss and
+    every updated parameter within 1e-4 (f32) or 0.08 (bf16)."""
+    from repro_torch import configs
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer
+    from repro_torch.optim import make_optimizer
+
+    toks = torch.from_numpy(np.random.default_rng(14).integers(0, 256, (4, 32)))
+    w = torch.tensor([120.0, 0.0, 37.0, 250.0])
+    for arch in ("qwen2-0.5b", "olmo-1b"):
+        for dtype, tol in (("float32", 1e-4), ("bfloat16", 0.08)):
+            cfg = configs.get_smoke(arch, dtype=dtype)
+            p_cpu = transformer.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+            for opt_name, lr in (("sgd", 0.5), ("adamw", 3e-4)):
+                out = []
+                for dev in devices:
+                    before = _lm_counters()["flash_attention"].launches_bwd
+                    params = _to(p_cpu, dev)
+                    step = specs.make_train_step(cfg, opt_name, lr)
+                    new, state, loss = step(params, make_optimizer(opt_name).init(params),
+                                            {"tokens": toks.to(dev), "client_weight": w.to(dev)})
+                    out.append((float(loss), _to(new, "cpu")))
+                    if dev == "cuda":
+                        check(_lm_counters()["flash_attention"].launches_bwd
+                              == before + 3 * cfg.n_layers,
+                              f"train parity {arch}: the backward kernel did not run")
+                (la, pa), (lb, pb) = out
+                check(abs(la - lb) <= tol + tol * abs(lb),
+                      f"train parity {arch} {dtype} {opt_name}: loss {la} vs {lb}")
+                worst = max(_within(a, b, tol, tol)[0] for a, b in
+                            zip(_leaves(pa), _leaves(pb)))
+                _lm_tree_close(pa, pb, tol, f"train parity {arch} {dtype} {opt_name}")
+                print(f"train parity: {arch} reduced {dtype} {opt_name} lr {lr}, card vs CPU: "
+                      f"loss {la:.6f} vs {lb:.6f}, parameters max |diff| {worst:.3e} "
+                      f"(<= {tol} + {tol}·|CPU|)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1237,6 +1520,13 @@ def main() -> int:
     rows.update(phase(phase_lm_kernels))
     launches = dict(compressed, **phase(phase_serve))
     phase(phase_lm_parity)
+    train_rows = phase(phase_train_kernels)
+    rows["flash_attention_bwd"] = train_rows["flash_attention_bwd"]
+    rows["flash_attention"]["train_forward_ms"] = train_rows["forward_train_ms"]
+    trained = phase(phase_train)
+    launches["flash_attention"] += trained["flash_attention"]
+    launches["flash_attention_bwd"] = trained["flash_attention_bwd"]
+    phase(phase_train_parity)
     print(f"total {time.perf_counter() - t0:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     table = (("agg_reduce", csrc + "agg_reduce.cu", "src/repro/kernels/agg_reduce.py:60"),
@@ -1247,6 +1537,8 @@ def main() -> int:
              ("topk_mask_rows", csrc + "quantize.cu", "src/repro/kernels/quantize.py:130"),
              ("flash_attention", csrc + "flash_attention_wgmma.cu",
               "src/repro/kernels/flash_attention.py:78"),
+             ("flash_attention_bwd", csrc + "flash_attention_bwd.cu",
+              "src/repro/kernels/flash_attention.py:78"),
              ("rglru_scan", csrc + "rglru_scan.cu", "src/repro/kernels/rglru_scan.py:49"),
              ("rwkv6_scan", csrc + "rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:79"))
     # the design of each route ("route" itself stays "cuda", the build route)
@@ -1254,6 +1546,11 @@ def main() -> int:
                              "without blocking the host; 4 row loads a batch",
                "flash_attention": "wgmma, TMA-fed K/V ring (bf16); CUDA-core FMAs (f32: "
                                   + csrc + "flash_attention.cu)",
+               "flash_attention_bwd": "the gradient of the row above, which the TPU kernel "
+                                      "lacks (the reference differentiates its jnp "
+                                      "attention): dK/dV by key tile over the GQA group, "
+                                      "then dQ by query tile; bf16 at hd <= 128 on mma.sync "
+                                      "(P, dS as bf16 hi + lo), else CUDA-core f32 FMAs",
                "rglru_scan": "one-warp blocks of 32 channels, a 4-stage cp.async ring of "
                              "32 time steps feeding the in-order chain",
                "rwkv6_scan": "chunk-parallel, mma.sync 3xTF32; decode route for S = 1"}

@@ -7,9 +7,10 @@ in the reference's (H, W, C) order (see ``models/femnist_cnn.py``).
 Arrays cross as numpy, so this module needs neither framework's runtime
 state; a 4-D leaf is a conv weight.
 
-The language models' trees (parameters and caches, nested dicts) have the
-same layout in both packages, so ``lm_params_from_jax`` and
-``lm_params_to_jax`` copy leaf by leaf. bfloat16 crosses as its bits:
+The language models' trees (parameters, caches and optimizer states,
+nested dicts) have the same layout in both packages, so
+``lm_params_from_jax`` and ``lm_params_to_jax`` copy leaf by leaf, 0-d
+leaves such as AdamW's int32 step included. bfloat16 crosses as its bits:
 numpy holds it as ``ml_dtypes.bfloat16`` (JAX's own numpy type), which
 ``lm_params_to_jax`` imports only when it meets a bfloat16 tensor.
 """
@@ -47,10 +48,10 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 
 def _leaf_from_numpy(a) -> torch.Tensor:
-    a = np.ascontiguousarray(np.asarray(a))
+    a = np.asarray(a).copy(order="C")   # keeps a 0-d leaf (an optimizer's step) 0-d
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(a.copy())
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -1,10 +1,14 @@
 """Architecture registry of the port: ``get(name)`` returns a ModelConfig,
 ``get_smoke(name)`` its reduced same-family config (CPU-sized).
 
-Ported so far: the paper's FEMNIST CNN and the language models whose
+Ported so far: the paper's FEMNIST CNN, the language models whose
 serving path runs through the port's kernels — recurrentgemma-9b (flash
-attention + RG-LRU), rwkv6-3b (RWKV6) — plus qwen2-0.5b, used at reduced
-width to pin the GQA head map, the QKV bias and tied embeddings. Each
+attention + RG-LRU), rwkv6-3b (RWKV6) — and the dense models of the LM
+gradient regime: qwen2-0.5b and olmo-1b (trained at full width on one
+card), olmo-100m (the training example's model), and qwen1.5-110b and
+deepseek-coder-33b, which need no new model code but do not fit one card
+(their fields and parameter shapes are held against the reference; they
+run once the collectives are ported, ROADMAP.md Queue 1 item 1b). Each
 entry is a copy of ``repro.configs.<name>.CONFIG``; the names and aliases
 are the reference's.
 """
@@ -47,10 +51,54 @@ def qwen2_0_5b() -> ModelConfig:
     )
 
 
+def olmo_1b() -> ModelConfig:
+    """[arXiv:2402.00838; hf] 16L d_model=2048 16H (kv=16, MHA) d_ff=8192
+    vocab=50304; non-parametric LayerNorm, tied embeddings."""
+    return ModelConfig(
+        name="olmo-1b", family="dense",
+        n_layers=16, d_model=2048, n_heads=16, n_kv_heads=16, d_ff=8192,
+        vocab_size=50304, norm="nonparam", tie_embeddings=True,
+    )
+
+
+def olmo_100m() -> ModelConfig:
+    """~100M-parameter olmo-family model of the training example
+    (``examples/train_lm.py``)."""
+    return ModelConfig(
+        name="olmo-100m", family="dense",
+        n_layers=8, d_model=512, n_heads=8, n_kv_heads=8, head_dim=64,
+        d_ff=2048, vocab_size=50304, norm="nonparam", tie_embeddings=True,
+        q_chunk=128, loss_chunks=1,
+    )
+
+
+def qwen1_5_110b() -> ModelConfig:
+    """[hf:Qwen/Qwen1.5-110B family] 80L d_model=8192 64H (GQA kv=8)
+    d_ff=49152 vocab=152064, QKV bias."""
+    return ModelConfig(
+        name="qwen1.5-110b", family="dense",
+        n_layers=80, d_model=8192, n_heads=64, n_kv_heads=8, d_ff=49152,
+        vocab_size=152064, qkv_bias=True, rope_theta=1e6,
+    )
+
+
+def deepseek_coder_33b() -> ModelConfig:
+    """[arXiv:2401.14196; hf] 62L d_model=7168 56H (GQA kv=8) d_ff=19200
+    vocab=32256; llama architecture."""
+    return ModelConfig(
+        name="deepseek-coder-33b", family="dense",
+        n_layers=62, d_model=7168, n_heads=56, n_kv_heads=8, d_ff=19200,
+        vocab_size=32256, rope_theta=1e5,
+    )
+
+
 _REGISTRY = {"femnist_cnn": femnist_config, "recurrentgemma_9b": recurrentgemma_9b,
-             "rwkv6_3b": rwkv6_3b, "qwen2_0_5b": qwen2_0_5b}
+             "rwkv6_3b": rwkv6_3b, "qwen2_0_5b": qwen2_0_5b, "olmo_1b": olmo_1b,
+             "olmo_100m": olmo_100m, "qwen1_5_110b": qwen1_5_110b,
+             "deepseek_coder_33b": deepseek_coder_33b}
 _ALIASES = {"recurrentgemma-9b": "recurrentgemma_9b", "rwkv6-3b": "rwkv6_3b",
-            "qwen2-0.5b": "qwen2_0_5b"}
+            "qwen2-0.5b": "qwen2_0_5b", "olmo-1b": "olmo_1b",
+            "qwen1.5-110b": "qwen1_5_110b", "deepseek-coder-33b": "deepseek_coder_33b"}
 
 
 def canonical(name: str) -> str:

@@ -164,16 +164,18 @@ def aggregate(deltas: Params, weights, mask, onu_ids: np.ndarray,
                  "involved": float(mask_np.sum())}
 
 
-def server_apply(global_params: Params, agg: Params) -> Params:
-    """FedAvg's server step: the global model plus the mean delta."""
-    return {k: global_params[k] + agg[k] for k in global_params}
+def server_apply(global_params: Params, agg: Params, server_lr: float = 1.0) -> Params:
+    """FedAvg's server step: the global model plus ``server_lr`` times the
+    mean delta, in f32, cast back to each leaf's type."""
+    return {k: (w.float() + server_lr * agg[k]).to(w.dtype)
+            for k, w in global_params.items()}
 
 
 def apply_round(global_params: Params, deltas: Params, weights, mask,
-                onu_ids: np.ndarray, n_onus: int, mode: str):
+                onu_ids: np.ndarray, n_onus: int, mode: str, server_lr: float = 1.0):
     """Aggregate client deltas and update the global model -> (params, stats)."""
     agg, stats = aggregate(deltas, weights, mask, onu_ids, n_onus, mode)
-    return server_apply(global_params, agg), stats
+    return server_apply(global_params, agg, server_lr), stats
 
 
 def evaluate(params: Params, eval_batch, loss_fn: Callable) -> Dict[str, torch.Tensor]:

@@ -1,5 +1,6 @@
-"""RoundLoop backend of the paper regime — port of
-``repro.fl.backends.ClientStackedBackend``.
+"""RoundLoop backends — port of ``repro.fl.backends``'s
+``ClientStackedBackend`` (the paper regime) and ``GradientBackend`` (the
+LM gradient regime, on one card).
 
 A backend owns model state and the learning side of a round; the RoundLoop
 owns selection, failures and PON transport. Contract:
@@ -8,8 +9,9 @@ owns selection, failures and PON transport. Contract:
     backend.sample_counts   — (n_clients,) k_ij
     backend.onu_ids         — (n_clients,) int
     backend.run_round(rnd, selected, mask, rt, rng) -> metrics dict
-    backend.replay_round(rnd, selected, mask, rt, rng)
-        — consume exactly run_round's RNG draws without training (resume)
+    backend.replay_round(rnd, selected, mask, rt, rng)   (optional)
+        — consume exactly run_round's RNG draws without training (resume);
+          a backend whose rounds draw nothing from ``rng`` has none
 """
 from __future__ import annotations
 
@@ -124,3 +126,73 @@ class ClientStackedBackend:
         for c in padded:
             self.minibatch_fn(rng, self.clients[c], self.fl.local_steps,
                               self.fl.local_batch)
+
+
+class GradientBackend:
+    """One global model; the round's (k_ij · mask) folds into the batch's
+    ``client_weight``, so one gradient step is the K-normalised aggregate.
+
+    Port of ``repro.fl.backends.GradientBackend`` without the mesh and the
+    sharding rules: one card, so the aggregation's collective form (two-step
+    or flat, by ``strategy.transport``) has nothing to reduce across
+    (ROADMAP.md Queue 1, item 1b). Owns the parameters (random, from
+    ``seed``, or ``params``) and the optimizer's state, both on ``device``.
+    Its rounds draw nothing from the loop's RNG: each round's tokens are
+    ``lm_batches(seed * 1000 + rnd, ...)``.
+    """
+
+    def __init__(self, model_cfg, strategy: Strategy, opt_name: str = "adamw",
+                 lr: float = 3e-4, batch: int = 8, seq: int = 128, microbatches: int = 1,
+                 seed: int = 0, sample_counts: Optional[np.ndarray] = None,
+                 onu_ids: Optional[np.ndarray] = None, n_clients: Optional[int] = None,
+                 device: str | torch.device = "cuda", params=None):
+        # lazy: `import repro_torch.fl` stays light for the client-stacked path
+        from repro_torch import device as device_mod
+        from repro_torch.launch import specs
+        from repro_torch.models import transformer
+        from repro_torch.optim import make_optimizer
+
+        self.device = device_mod.resolve(device)
+        self.cfg = model_cfg
+        self.strategy = strategy
+        self.batch = batch
+        self.seq = seq
+        self.seed = seed
+        n = n_clients if n_clients is not None else batch
+        rng = np.random.default_rng(seed)
+        self.sample_counts = (sample_counts if sample_counts is not None
+                              else rng.integers(50, 400, n).astype(np.float32))
+        self.onu_ids = (onu_ids if onu_ids is not None
+                        else np.zeros(len(self.sample_counts), np.int64))
+        self.params = (transformer.init_params(
+            model_cfg, torch.Generator(device=self.device).manual_seed(seed), self.device)
+            if params is None else params)
+        self.opt = make_optimizer(opt_name)
+        self.opt_state = self.opt.init(self.params)
+        self.train_step = specs.make_train_step(model_cfg, opt_name, lr, microbatches)
+
+    def round_weights(self, selected: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        """The batch rows' client weights, k_ij · mask, ``batch`` of them."""
+        weights = (self.sample_counts[selected] * mask).astype(np.float32)
+        if len(weights) > self.batch:
+            # over-selection: more clients than batch rows — involved
+            # clients (selection order) fill the rows first, so backups
+            # replace deadline stragglers instead of starving the round
+            order = np.concatenate([np.where(mask > 0)[0], np.where(mask <= 0)[0]])
+            weights = weights[order[:self.batch]]
+        elif len(weights) < self.batch:
+            weights = np.concatenate([weights, np.zeros(self.batch - len(weights), np.float32)])
+        return weights
+
+    def run_round(self, rnd: int, selected: np.ndarray, mask: np.ndarray,
+                  rt: Dict[str, Any], rng: np.random.Generator) -> Dict[str, float]:
+        from repro_torch.data import lm as lm_data
+        tokens = next(lm_data.lm_batches(self.seed * 1000 + rnd, 1, self.batch, self.seq,
+                                         self.cfg.vocab_size))["tokens"]
+        batch = {"tokens": torch.from_numpy(tokens).to(self.device),
+                 "client_weight": torch.from_numpy(self.round_weights(selected, mask)
+                                                   ).to(self.device)}
+        (self.params, self.opt_state, loss), dt = timed(
+            self.train_step, self.params, self.opt_state, batch)
+        return {"loss": float(loss), "dt": dt,
+                "grad_norm": float(self.train_step.grad_norm)}

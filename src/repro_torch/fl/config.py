@@ -23,6 +23,10 @@ class ExperimentConfig:
     n_rounds: int = 30                    # repro: noqa(REPRO501) driver-owned
     seed: int = 0
 
+    def with_fl(self, **kw) -> "ExperimentConfig":
+        """Replace fields of the nested FLConfig."""
+        return dataclasses.replace(self, fl=dataclasses.replace(self.fl, **kw))
+
     def make_failure_model(self) -> Optional[FailureModel]:
         if self.p_crash <= 0.0 and self.p_transient <= 0.0:
             return None

@@ -16,7 +16,7 @@ failure is billed but masked out of the aggregate.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -111,21 +111,29 @@ def sync_round(cfg: ExperimentConfig, backend, failures,
 
 def replay_sync_round(cfg: ExperimentConfig, backend, failures,
                       rng: np.random.Generator, rnd: int) -> None:
-    """Consume exactly :func:`sync_round`'s RNG draws without training."""
+    """Consume exactly :func:`sync_round`'s RNG draws without training (the
+    backend's part through its optional ``replay_round``)."""
     sel, mask, rt = _transport_stage(cfg, backend, failures, rng, rnd)
-    backend.replay_round(rnd, sel, mask, rt, rng)
+    replay = getattr(backend, "replay_round", None)
+    if replay is not None:
+        replay(rnd, sel, mask, rt, rng)
+
+
+Callback = Callable[["RoundLoop", Dict[str, Any]], None]
 
 
 class RoundLoop:
     """Drives rounds of ``cfg`` against a backend; collects a History.
 
     Each row also carries ``wall_s``, the round's host time with the card
-    synchronised at both ends.
+    synchronised at both ends. Each callback is called with ``(loop, rec)``
+    after each round, in order.
     """
 
-    def __init__(self, cfg: ExperimentConfig, backend):
+    def __init__(self, cfg: ExperimentConfig, backend, callbacks: Iterable[Callback] = ()):
         self.cfg = cfg
         self.backend = backend
+        self.callbacks: List[Callback] = list(callbacks)
         self.rng = np.random.default_rng(cfg.seed)
         self.failures = cfg.make_failure_model()
         self.history = History()
@@ -143,6 +151,8 @@ class RoundLoop:
         rec["wall_s"] = wall_s
         self.rounds_consumed += 1
         self.history.append(rec)
+        for cb in self.callbacks:
+            cb(self, rec)
         return rec
 
     def run(self, n_rounds: Optional[int] = None, start_round: int = 0

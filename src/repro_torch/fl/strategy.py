@@ -28,7 +28,8 @@ Stats = Dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class Strategy:
     """Base strategy: FedAvg local SGD, aggregation by ``transport``, and
-    the plain server step (global model + mean delta).
+    the server step at ``server_lr`` (global model + server_lr · mean
+    delta, in f32, cast back to each leaf's type).
 
     Every strategy also carries the wire-compression axis (``compress`` /
     ``topk_frac`` / ``error_feedback``): what crosses the upstream is
@@ -41,6 +42,7 @@ class Strategy:
     name: ClassVar[str] = "base"
     transport: ClassVar[str] = "sfl"   # what crosses the PON upstream
 
+    server_lr: float = 1.0
     compress: str = "none"             # none | int8 | int4 | topk
     topk_frac: float = 0.01
     error_feedback: bool = False
@@ -63,7 +65,7 @@ class Strategy:
                                 self.transport, comp=comp, client_ids=client_ids)
 
     def server_update(self, params, agg, state) -> Tuple[Any, Any]:
-        return fedavg.server_apply(params, agg), state
+        return fedavg.server_apply(params, agg, self.server_lr), state
 
 
 @dataclasses.dataclass(frozen=True)

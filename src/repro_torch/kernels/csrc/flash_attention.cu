@@ -44,6 +44,10 @@
 // strides for the batch, head and sequence axes, passed in elements, so
 // the model's (B, S, heads, hd) activations go in without a copy.
 //
+// Training: with a non-null lse the kernel also writes each query row's
+// log-sum-exp, lse = m + log(l) in f32, (B, H, S) contiguous: what the
+// backward (flash_attention_bwd.cu) needs to recompute P. Serving passes null.
+//
 // Interface: plain C, loaded with ctypes. The entry point launches on the
 // given stream, does not synchronise, allocates nothing and returns
 // cudaGetLastError().
@@ -81,8 +85,8 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const float* __res
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-          float* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so, int group,
-          int S, int causal, int window, float scale, float softcap) {
+          float* __restrict__ o, float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
+          Strides so, int group, int S, int causal, int window, float scale, float softcap) {
   constexpr int LD = HD + 4;    // padded row stride of the Q and K tiles
   constexpr int CPT = HD / 16;  // output columns per thread
   constexpr bool kVecV = HD >= 64;  // float4 reads of V: columns 4tx + 64m
@@ -217,6 +221,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float*
     const int row = q0 + ty * 4 + i;
     if (row >= S) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * gridDim.y + h) * S + row] = m[i] + logf(fmaxf(l[i], 1e-30f));
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int col = kVecV ? 4 * tx + 64 * (c / 4) + c % 4 : tx + 16 * c;
@@ -226,27 +232,27 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float*
 }
 
 template <int HD>
-int launch(const float* q, const float* k, const float* v, float* o, Strides sq, Strides sk,
-           Strides sv, Strides so, int B, int H, int KV, int S, int causal, int window,
-           float scale, float softcap, cudaStream_t stream) {
+int launch(const float* q, const float* k, const float* v, float* o, float* lse, Strides sq,
+           Strides sk, Strides sv, Strides so, int B, int H, int KV, int S, int causal,
+           int window, float scale, float softcap, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_fwd<HD><<<grid, kThreads, smem, stream>>>(q, k, v, o, sq, sk, sv, so, H / KV, S, causal,
-                                                  window, scale, softcap);
+  flash_fwd<HD><<<grid, kThreads, smem, stream>>>(q, k, v, o, lse, sq, sk, sv, so, H / KV, S,
+                                                  causal, window, scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v and o float32. Strides are in elements: (batch, head, sequence)
-// of q, k, v and o in that order.
+// q, k, v and o float32; lse (B, H, S) float32 or null. Strides are in
+// elements: (batch, head, sequence) of q, k, v and o in that order.
 extern "C" int flash_attention_fwd(const float* q, const float* k, const float* v, float* o,
-                                   long long qb, long long qh, long long qs, long long kb,
-                                   long long kh, long long ks, long long vb, long long vh,
+                                   float* lse, long long qb, long long qh, long long qs,
+                                   long long kb, long long kh, long long ks, long long vb, long long vh,
                                    long long vs, long long ob, long long oh, long long os, int B,
                                    int H, int KV, int S, int hd, int causal, int window,
                                    float scale, float softcap, void* stream) {
@@ -255,11 +261,11 @@ extern "C" int flash_attention_fwd(const float* q, const float* k, const float* 
   if (B == 0 || H == 0 || S == 0) return 0;
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 16: return launch<16>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
-    case 32: return launch<32>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
-    case 64: return launch<64>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
-    case 128: return launch<128>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
-    case 256: return launch<256>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
+    case 16: return launch<16>(q, k, v, o, lse, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
+    case 32: return launch<32>(q, k, v, o, lse, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
+    case 64: return launch<64>(q, k, v, o, lse, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
+    case 128: return launch<128>(q, k, v, o, lse, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
+    case 256: return launch<256>(q, k, v, o, lse, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

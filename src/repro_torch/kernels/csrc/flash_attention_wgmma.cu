@@ -53,6 +53,11 @@
 // (B, S, heads, hd) activations go in without a copy. o is written with its
 // own strides.
 //
+// Training: with a non-null lse the kernel also writes each query row's
+// natural log-sum-exp, (m + log2 l)·ln 2 in f32 (m and l are in base 2),
+// (B, H, S) contiguous, for the backward (flash_attention_bwd.cu). Serving
+// passes null.
+//
 // Interface: plain C, loaded with ctypes. The entry point builds the three
 // tensor maps (cuTensorMapEncodeTiled, reached through the runtime's driver
 // entry point), launches on the given stream, does not synchronise,
@@ -75,6 +80,7 @@ constexpr int kThreads = kConsumers + 128;  // and the producer's warpgroup
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // setmaxnreg: 128·24 + 256·240 ≤ 64 K
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ------------------------------------------------------------ PTX helpers
 
@@ -323,8 +329,8 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
             const __grid_constant__ CUtensorMap tmv, __nv_bfloat16* __restrict__ o,
-            long long ob, long long oh, long long os, int B, int H, int group, int S, int causal,
-            int window, float scale, float softcap) {
+            float* __restrict__ lse, long long ob, long long oh, long long os, int B, int H,
+            int group, int S, int causal, int window, float scale, float softcap) {
   using T = Tiles<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -483,6 +489,8 @@ flash_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUt
     const int row = row0 + 8 * r;
     if (row >= S) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && t4 == 0)
+      lse[((long long)b * H + h) * S + row] = (m[r] + log2f(fmaxf(l[r], 1e-30f))) * kLn2;
     uint32_t* dst = reinterpret_cast<uint32_t*>(obase + row * os + 2 * t4);
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
@@ -530,9 +538,9 @@ struct Strides {
 };
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk,
-           Strides sv, Strides so, int B, int H, int KV, int S, int causal, int window,
-           float scale, float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, Strides sq,
+           Strides sk, Strides sv, Strides so, int B, int H, int KV, int S, int causal,
+           int window, float scale, float softcap, cudaStream_t stream) {
   using T = Tiles<HD>;
   const CUtensorMapSwizzle swizzle = T::MODE == 1   ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : T::MODE == 2 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -547,19 +555,19 @@ int launch(const void* q, const void* k, const void* v, void* o, Strides sq, Str
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const long long blocks = (long long)((S + kBQ - 1) / kBQ) * H * B;
   flash_wgmma<HD><<<static_cast<unsigned>(blocks), kThreads, T::SMEM, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), so.b, so.h, so.s, B, H, H / KV, S, causal,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, so.b, so.h, so.s, B, H, H / KV, S, causal,
       window, scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v and o bf16. Strides in elements: (batch, head, sequence) of q, k,
-// v and o in that order; those of q, k and v multiples of 8, their bases
-// 16-byte aligned (the TMA descriptors' rule).
+// q, k, v and o bf16; lse (B, H, S) float32 or null. Strides in elements:
+// (batch, head, sequence) of q, k, v and o in that order; those of q, k and
+// v multiples of 8, their bases 16-byte aligned (the TMA descriptors' rule).
 extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v, void* o,
-                                         long long qb, long long qh, long long qs, long long kb,
-                                         long long kh, long long ks, long long vb, long long vh,
+                                         float* lse, long long qb, long long qh, long long qs,
+                                         long long kb, long long kh, long long ks, long long vb, long long vh,
                                          long long vs, long long ob, long long oh, long long os,
                                          int B, int H, int KV, int S, int hd, int causal,
                                          int window, float scale, float softcap, void* stream) {
@@ -568,11 +576,11 @@ extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const voi
   if (B == 0 || H == 0 || S == 0) return 0;
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 16: return launch<16>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
-    case 32: return launch<32>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
-    case 64: return launch<64>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
-    case 128: return launch<128>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
-    case 256: return launch<256>(q, k, v, o, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
+    case 16: return launch<16>(q, k, v, o, lse, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
+    case 32: return launch<32>(q, k, v, o, lse, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
+    case 64: return launch<64>(q, k, v, o, lse, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
+    case 128: return launch<128>(q, k, v, o, lse, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
+    case 256: return launch<256>(q, k, v, o, lse, sq, sk, sv, so, B, H, KV, S, causal, window, scale, softcap, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

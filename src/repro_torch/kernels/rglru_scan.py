@@ -4,9 +4,11 @@
 
 ``rglru_scan`` launches the hand-written CUDA kernel (``csrc/rglru_scan.cu``)
 for CUDA tensors and takes the plain PyTorch version beside it only for
-CPU tensors; any other device raises. Both compute ``a·h`` and then ``+ b``
-with a rounding each, so on the card they agree bit for bit; the reference
-model's ``associative_scan`` rounds in another order (rtol 1e-5).
+CPU tensors; any other device raises. The kernel is forward only: on the
+card a call under grad with an input that requires it raises. Both
+compute ``a·h`` and then ``+ b`` with a rounding each, so on the card they
+agree bit for bit; the reference model's ``associative_scan`` rounds in
+another order (rtol 1e-5).
 """
 from __future__ import annotations
 
@@ -48,7 +50,9 @@ def _launch(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor]
     """The kernel on checked (B, S, C) tensors -> (out, h_last). A decode
     step (S = 1) makes one allocation, h_last a view beside out: the model
     only reads both. A longer scan allocates h_last apart, so a cache that
-    keeps h_last does not keep the whole of out alive."""
+    keeps h_last does not keep the whole of out alive. Forward only: raises
+    where a gradient is wanted."""
+    build.refuse_grad("rglru_scan", a, b, h0)
     B, S, C = a.shape
     if S == 1:
         both = torch.empty((2, B, C), dtype=torch.float32, device=a.device)

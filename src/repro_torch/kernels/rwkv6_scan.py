@@ -5,7 +5,9 @@ and of the chunk loop in ``repro/models/rwkv6.py::rwkv_time_mix``.
 
 ``rwkv6_scan`` launches the hand-written CUDA kernels (``csrc/rwkv6_scan.cu``)
 for CUDA tensors and takes the plain PyTorch version beside it only for
-CPU tensors; any other device raises. It routes by S, explicitly:
+CPU tensors; any other device raises. The kernels are forward only: on
+the card a call under grad with an input that requires it raises. It
+routes by S, explicitly:
 
 - S > 1 -> the chunked route: chunk states in parallel over (batch,
   head, chunk), a scan of the states down the chunks, then the outputs in
@@ -106,7 +108,9 @@ def route(S: int) -> str:
 
 
 def _launch(r, k, v, logw, u, chunk: int, s0):
-    """The kernel of S's route on checked tensors; returns (o, S_final)."""
+    """The kernel of S's route on checked tensors; returns (o, S_final).
+    Forward only: raises where a gradient is wanted."""
+    build.refuse_grad("rwkv6_scan", r, k, v, logw, u, s0)
     B, H, S, hd = r.shape
     which = route(S)
     entry, _, counter = ROUTES[which]

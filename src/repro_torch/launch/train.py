@@ -1,0 +1,146 @@
+"""The LM gradient regime on one card — the counterpart of
+``repro/launch/train.py --driver loop``: one train step per federated round
+through the port's RoundLoop and ``GradientBackend``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b --smoke \\
+        --steps 3 --batch 4 --seq 32 --device cpu --ckpt /tmp/ck
+    python -m repro_torch.launch.train --arch olmo-1b --steps 20 --batch 8 --seq 2048
+
+Each round selects ``--batch`` clients (one per batch row, with
+``--overselect`` backups), runs the closed-form PON transport and the
+synthetic failures, folds k_ij · mask into the rows' ``client_weight``
+and takes one optimizer step on the card; ``--ckpt`` saves every
+``--ckpt-every`` steps and at the end, and a run resumes from the latest
+step, replaying the skipped rounds' draws, so a resumed run equals an
+uninterrupted one. Without ``--device cpu`` it runs on the card and raises
+if there is none. Flags of machinery the port does not have yet are
+refused, naming the ROADMAP.md item that brings it.
+"""
+from __future__ import annotations
+
+import argparse
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+from repro_torch import configs, device as device_mod, fl
+from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from repro_torch.core.fedavg import FLConfig
+from repro_torch.pon import PonConfig
+
+# reference flags the port refuses, with the ROADMAP.md item that ports their machinery
+_REFUSED = {"dba": "Queue 1 item 2 (the event-simulator transport)",
+            "wavelengths": "Queue 1 item 2 (the event-simulator transport)",
+            "bg_load": "Queue 1 item 2 (the event-simulator transport)",
+            "n_pons": "Queue 1 items 2-3 (metro transport, hier_sfl)",
+            "trace_out": "Queue 1 item 5 (repro.obs)",
+            "metrics_out": "Queue 1 item 5 (repro.obs)",
+            "compress": "Queue 1 item 1b (compressed gradient exchange on torch.distributed)"}
+
+
+def run(arch: str = "qwen2-0.5b", *, smoke: bool = False, steps: int = 20, batch: int = 8,
+        seq: int = 128, lr: float = 3e-4, opt: str = "adamw", micro: int = 1, ckpt: str = "",
+        ckpt_every: int = 50, seed: int = 0, log_every: int = 5,
+        strategy: str = "sfl_two_step", onus: int = PonConfig.n_onus,
+        clients_per_onu: int = PonConfig.clients_per_onu, overselect: float = 0.0,
+        p_crash: float = 0.0, p_transient: float = 0.0, mean_recovery_rounds: float = 3.0,
+        failure_seed: Optional[int] = None, device: str = "cuda") -> Dict[str, Any]:
+    """Train ``steps`` rounds (fewer when resuming from ``ckpt``).
+
+    Returns {"history", "backend" (params, opt_state), "cfg", "start_step"}.
+    """
+    dev = device_mod.resolve(device)
+    cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    flc = FLConfig(n_onus=onus, clients_per_onu=clients_per_onu,
+                   pon=PonConfig(n_onus=onus, clients_per_onu=clients_per_onu))
+    exp = fl.ExperimentConfig(fl=flc, overselect=overselect, p_crash=p_crash,
+                              p_transient=p_transient,
+                              mean_recovery_rounds=mean_recovery_rounds,
+                              failure_seed=failure_seed, n_rounds=steps, seed=seed)
+    # one selected client per batch row: client_weight aligns with the batch
+    exp = exp.with_fl(n_selected=batch)
+    rng = np.random.default_rng(seed)
+    onu_ids = np.arange(flc.n_clients) // flc.clients_per_onu
+    sample_counts = rng.integers(50, 400, flc.n_clients).astype(np.float32)
+    backend = fl.GradientBackend(cfg, fl.make_strategy(strategy), opt_name=opt, lr=lr,
+                                 batch=batch, seq=seq, microbatches=micro, seed=seed,
+                                 sample_counts=sample_counts, onu_ids=onu_ids, device=dev)
+
+    def state():
+        return (backend.params, backend.opt_state)
+
+    step0 = 0
+    if ckpt:
+        last = latest_step(ckpt)
+        if last is not None:
+            (backend.params, backend.opt_state), _, step0 = restore_checkpoint(ckpt, last,
+                                                                               state())
+            print(f"[restore] resumed from step {step0}")
+
+    def on_round(loop, rec):
+        step = rec["round"]
+        if step % log_every == 0 or step == steps - 1:
+            print(f"step {step}: loss {rec['loss']:.4f} grad_norm {rec['grad_norm']:.4f} "
+                  f"involved {rec['involved']:.0f}/{rec['n_selected']} upstream "
+                  f"{rec['upstream_mbits']:.1f} Mb dt {rec['dt']:.3f}s")
+        if ckpt and (step + 1) % ckpt_every == 0:
+            save_checkpoint(ckpt, step + 1, state())
+
+    # a resumed run asks for the remaining rounds; the loop replays the
+    # skipped rounds' draws so the trajectory is the uninterrupted one
+    loop = fl.RoundLoop(exp, backend, callbacks=[on_round])
+    history = loop.run(max(0, steps - step0), start_round=step0)
+    if ckpt:
+        save_checkpoint(ckpt, steps, state())
+        print(f"[ckpt] saved final at step {steps}")
+    return {"history": history, "backend": backend, "cfg": cfg, "start_step": step0}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--smoke", action="store_true", help="reduced config (CPU)")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--opt", default="adamw", choices=["sgd", "sgdm", "adamw", "yogi"])
+    ap.add_argument("--micro", type=int, default=1)
+    ap.add_argument("--ckpt", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--driver", default="loop",
+                    help="loop (the RoundLoop); runtime is ROADMAP.md Queue 1 item 4")
+    ap.add_argument("--strategy", default="sfl_two_step",
+                    help=f"{'|'.join(fl.strategy_names())} (alias: sfl)")
+    ap.add_argument("--onus", type=int, default=PonConfig.n_onus)
+    ap.add_argument("--clients-per-onu", type=int, default=PonConfig.clients_per_onu)
+    ap.add_argument("--overselect", type=float, default=0.0,
+                    help="extra backup clients per round, fraction of N")
+    ap.add_argument("--p-crash", type=float, default=0.0)
+    ap.add_argument("--p-transient", type=float, default=0.0)
+    ap.add_argument("--mean-recovery-rounds", type=float, default=3.0)
+    ap.add_argument("--failure-seed", type=int, default=None)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    for name in _REFUSED:
+        ap.add_argument("--" + name.replace("_", "-"), default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    for name, item in _REFUSED.items():
+        value = getattr(args, name)
+        if value is not None and not (name == "compress" and value == "none"):
+            ap.error(f"--{name.replace('_', '-')} is not ported yet: ROADMAP.md {item}")
+    if args.driver != "loop":
+        ap.error(f"--driver {args.driver} is not ported yet: ROADMAP.md Queue 1 item 4 "
+                 "(the runtime)")
+    run(args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch, seq=args.seq,
+        lr=args.lr, opt=args.opt, micro=args.micro, ckpt=args.ckpt,
+        ckpt_every=args.ckpt_every, seed=args.seed, log_every=args.log_every,
+        strategy=args.strategy, onus=args.onus, clients_per_onu=args.clients_per_onu,
+        overselect=args.overselect, p_crash=args.p_crash, p_transient=args.p_transient,
+        mean_recovery_rounds=args.mean_recovery_rounds, failure_seed=args.failure_seed,
+        device=args.device)
+
+
+if __name__ == "__main__":
+    main()

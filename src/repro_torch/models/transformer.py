@@ -1,6 +1,7 @@
 """Decoder assembly for the ported language models — port of
-``repro/models/transformer.py``: init, forward, and serving (prefill +
-decode) for the ``attn``, ``rglru`` and ``rwkv`` sublayer kinds.
+``repro/models/transformer.py``: init, forward, training's ``loss_fn``
+and serving (prefill + decode) for the ``attn``, ``rglru`` and ``rwkv``
+sublayer kinds.
 
 A model is a repeating unit of sublayers (``cfg.block_pattern``) applied
 ``cfg.n_units`` times, then a short tail. Parameters and caches keep the
@@ -8,8 +9,9 @@ reference's nested-dict layout, unit leaves stacked ``(n_units, …)``; a
 Python loop over the units replaces ``lax.scan``. The reference's
 sharding rules have no single-card counterpart and are left out of every
 signature. MoE, cross-attention and the frame / patch frontends raise
-``NotImplementedError`` (ROADMAP.md Queue 1); so do training's
-``loss_fn`` and ``_xent``, which come with the training slice.
+``NotImplementedError`` (ROADMAP.md Queue 1). Under grad, ``remat="full"``
+recomputes each unit in the backward (``torch.utils.checkpoint``), as the
+reference's ``jax.checkpoint`` does.
 
 The cache is mutable: ``decode_step`` writes the new token's K/V into the
 rings and the new recurrent states into the stacked buffers in place, and
@@ -27,6 +29,7 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.models import layers as L
@@ -203,17 +206,90 @@ def unembed(params, x, cfg: ModelConfig):
 # forward
 # ---------------------------------------------------------------------------
 
+def _unit_step(cfg: ModelConfig, positions):
+    """One unit as the forward applies it: under grad with ``remat="full"``
+    its activations are recomputed in the backward instead of kept (the
+    reference's ``nothing_saveable`` policy). The unit draws no random
+    numbers, so no RNG state is saved for the recompute."""
+    def step(x, unit_p):
+        return _apply_unit(x, unit_p, cfg, positions)[::2]
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save the matmul outputs) is not ported: no ported config uses "
+            "it; ROADMAP.md Queue 1")
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return lambda x, unit_p: checkpoint(step, x, unit_p, use_reentrant=False,
+                                            preserve_rng_state=False)
+    return step
+
+
 def forward(params, batch, cfg: ModelConfig):
     """Full forward: returns (pre-head activations, labels, aux)."""
     x, _, labels, positions = embed_inputs(params, batch, cfg)
+    step = _unit_step(cfg, positions)
     aux_total = 0.0
     for i in range(cfg.n_units):
-        x, _, aux = _apply_unit(x, _index(params["unit"], i), cfg, positions)
+        x, aux = step(x, _index(params["unit"], i))
         aux_total = aux_total + aux
     for i, kind in enumerate(cfg.tail_pattern):
         x, _, aux = _apply_sublayer(x, params["tail"][f"{i}_{kind}"], cfg, kind, positions)
         aux_total = aux_total + aux
     return x, labels, aux_total
+
+
+def _xent(logits, labels, mask):
+    """Token-mean cross entropy pieces in f32: (Σ nll·mask, Σ mask). The
+    gold logit is gathered (the reference sums a one-hot mask over the
+    vocab for its sharding: the same value); the max is held out of the
+    gradient, as the reference's ``stop_gradient``."""
+    logits = logits.float()
+    m = logits.amax(-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def loss_chunks(cfg: ModelConfig, S: int) -> int:
+    """The sequence chunks the head and the loss run in: the largest count
+    up to ``cfg.loss_chunks`` that divides S."""
+    nc = max(1, min(cfg.loss_chunks, S))
+    while S % nc:
+        nc -= 1
+    return nc
+
+
+def chunked_xent(params, x, labels, mask, cfg: ModelConfig):
+    """(Σ nll·mask, Σ mask) over the sequence in ``loss_chunks`` pieces, so
+    the (B, S, vocab) logits never exist whole."""
+    S = x.shape[1]
+    nc = loss_chunks(cfg, S)
+    tot = cnt = 0.0
+    for i in range(nc):
+        sl = slice(i * (S // nc), (i + 1) * (S // nc))
+        t, c = _xent(unembed(params, x[:, sl], cfg), labels[:, sl], mask[:, sl])
+        tot, cnt = tot + t, cnt + c
+    return tot, cnt
+
+
+def loss_mask(cfg: ModelConfig, B: int, S: int, device) -> torch.Tensor:
+    """Ones, but the last position (its shifted label is void)."""
+    mask = torch.ones((B, S), dtype=torch.float32, device=device)
+    if cfg.frontend != "frames":
+        mask[:, -1] = 0.0
+    return mask
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Scalar mean loss (+ metrics dict), the head applied in sequence
+    chunks."""
+    x, labels, aux = forward(params, batch, cfg)
+    B, S, _ = x.shape
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = loss_mask(cfg, B, S, x.device)
+    tot, cnt = chunked_xent(params, x, labels, mask, cfg)
+    loss = tot / torch.clamp(cnt, min=1.0)
+    return loss, {"xent": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

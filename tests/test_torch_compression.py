@@ -290,11 +290,12 @@ def test_make_strategy_passes_fields_and_warns_once_on_unknown_keys(monkeypatch)
     s = fl.make_strategy("sfl", compress="topk", topk_frac=0.1, error_feedback=True)
     assert s.compression_spec() == tc.CompressionSpec("topk", 0.1, True)
     assert fl.make_strategy("classical").compression_spec().active is False
-    with pytest.warns(UserWarning, match=r"dropped unknown kwargs \['server_lr'\]"):
-        fl.make_strategy("classical", server_lr=0.5)
+    assert fl.make_strategy("classical", server_lr=0.5).server_lr == 0.5
+    with pytest.warns(UserWarning, match=r"dropped unknown kwargs \['mu'\]"):
+        fl.make_strategy("classical", mu=0.1)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        fl.make_strategy("classical", server_lr=0.5)          # once per name
+        fl.make_strategy("classical", mu=0.1)          # once per name
 
 
 def test_backend_owns_state_only_when_active():

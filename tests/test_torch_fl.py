@@ -231,3 +231,28 @@ def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
         femnist_cnn.init_params(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch.run(n_rounds=1, n_selected=2)
+
+
+@pytest.mark.parametrize("mode", ["sfl", "classical"])
+def test_server_lr_round_matches_reference(mode):
+    """The base Strategy's ``server_lr`` (0.5 here) scales the mean delta as
+    the reference's ``server_update`` does: make_strategy keeps the key,
+    and one round's transport columns are exact and its parameters within
+    the slice test's atol 1e-4 of the reference RoundLoop's."""
+    import dataclasses
+    strategy = fl.make_strategy(mode, server_lr=0.5)
+    assert strategy.server_lr == 0.5 and fl.make_strategy(mode).server_lr == 1.0
+    init, jloop, jsnaps = _jax_loop(mode, rounds=1, server_lr=0.5)
+    loop = launch.run(n_rounds=0, n_selected=N_SELECTED, seed=SEED, modes=(mode,),
+                      pon=PonConfig(n_onus=4, clients_per_onu=5),
+                      params=params_from_jax(init), device="cpu")[mode]["loop"]
+    loop.backend.strategy = dataclasses.replace(loop.backend.strategy, server_lr=0.5)
+    rec = loop.run_round(0)
+    for key in TRANSPORT_COLUMNS:
+        assert rec[key] == jloop.history.last()[key], key
+    got = params_to_jax(loop.backend.params)
+    moved = 0.0
+    for k, want in jsnaps[0].items():
+        np.testing.assert_allclose(got[k], want, rtol=0, atol=1e-4, err_msg=k)
+        moved = max(moved, float(np.abs(want - init[k]).max()))
+    assert moved > 1e-3       # the round moved the parameters by more than the tolerance

@@ -23,6 +23,7 @@ from test_torch_stub_library import stub_libraries  # noqa: E402
 
 from repro_torch.kernels import (  # noqa: E402
     flash_attention,
+    flash_attention_bwd_plain,
     flash_attention_plain,
     rglru_scan,
     rglru_scan_plain,
@@ -126,6 +127,67 @@ def test_flash_non_causal_matches_ref(jx):
     got = flash_attention(*ts, causal=False)
     _close(got, jx.ref.attention_ref(*_jax_arrays(jx, arrs, "float32"), causal=False),
            2e-5)
+
+
+# ------------------------------------------------------------ flash attention's gradient
+
+def _jax_attention(jx, q, k, v, causal, window, softcap):
+    """The reference's attention as a jnp function of (q, k, v) in
+    (B, heads, S, hd): ``kernels.ref.attention_ref``, or with a soft-cap
+    the reference model's ``_attend_block`` over the KV heads expanded."""
+    if not softcap:
+        return jx.ref.attention_ref(q, k, v, causal=causal, window=window)
+    from repro.models.layers import _attend_block
+    S, g = q.shape[2], q.shape[1] // k.shape[1]
+    idx = jx.jnp.arange(S)
+    mask = idx[None, :] <= idx[:, None] if causal else jx.jnp.ones((S, S), bool)
+    if window:
+        mask = mask & (idx[None, :] > idx[:, None] - window)
+    t = lambda x: x.transpose(0, 2, 1, 3)   # noqa: E731
+    o = _attend_block(t(q), t(jx.jnp.repeat(k, g, 1)), t(jx.jnp.repeat(v, g, 1)),
+                      mask[None, None], 1.0 / np.sqrt(q.shape[-1]), softcap)
+    return t(o)
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,win,softcap", [
+    (1, 4, 2, 40, 16, True, 0, 0.0),        # GQA
+    (2, 4, 1, 33, 16, True, 0, 0.0),        # MQA
+    (1, 2, 2, 50, 16, True, 7, 0.0),        # sliding window
+    (1, 4, 2, 30, 16, True, 0, 5.0),        # soft-cap
+    (1, 4, 1, 300, 16, True, 20, 3.0),      # ragged S over two plain blocks, window + cap
+    (1, 2, 1, 24, 32, False, 0, 0.0),       # not causal
+])
+def test_flash_gradient_plain_versions_match_jax_grad(jx, B, H, KV, S, hd, causal, win,
+                                                      softcap):
+    """``flash_attention_bwd_plain`` (from the plain forward's output and
+    log-sum-exp) and autograd of ``flash_attention_plain`` against
+    ``jax.grad`` of the reference's attention, f32 within 1e-4; the
+    log-sum-exp against jax's logsumexp of the masked scores."""
+    import jax
+    arrs, (q, k, v) = _qkv(B, H, KV, S, hd, "float32", seed=S + H)
+    do = np.random.default_rng(S).normal(size=(B, H, S, hd)).astype(np.float32)
+    kw = dict(causal=causal, window=win, softcap=softcap)
+    ja = [jx.jnp.asarray(a) for a in arrs]
+    want = jax.grad(lambda q_, k_, v_: jx.jnp.sum(
+        _jax_attention(jx, q_, k_, v_, causal, win, softcap) * do), argnums=(0, 1, 2))(*ja)
+    o, lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    got = flash_attention_bwd_plain(q, k, v, o, lse, torch.from_numpy(do), **kw)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    auto = torch.autograd.grad(flash_attention(qa, ka, va, **kw), (qa, ka, va),
+                               torch.from_numpy(do))
+    for a, b in zip(auto, want):
+        _close(a, b, 1e-4)
+    # the log-sum-exp of the rows' visible scores (soft-capped as the kernel does)
+    s = np.einsum("bhqd,bhkd->bhqk", arrs[0], np.repeat(arrs[1], H // KV, 1)) / np.sqrt(hd)
+    if softcap:
+        s = np.tanh(s / softcap) * softcap
+    idx = np.arange(S)
+    mask = (idx[None, :] <= idx[:, None]) if causal else np.ones((S, S), bool)
+    if win:
+        mask &= idx[None, :] > idx[:, None] - win
+    _close(lse, jax.nn.logsumexp(jx.jnp.where(mask, s, -1e30), axis=-1), 1e-4)
 
 
 def test_flash_wrapper_rejects_bad_inputs_and_other_devices():
@@ -516,6 +578,73 @@ def test_flash_bf16_route_rejects_a_stride_tma_cannot_take(monkeypatch):
     fa._launch(q.contiguous(), k, k, True, 0, 0.25, 0.0)   # the same tensor, copied by the caller
 
 
+def _stub_calls(lib, start):
+    """(entry, argument count) of a stand-in library's calls from ``start``."""
+    return [(e, len(a)) for e, a in zip(lib.calls[start:], lib.args[start:])]
+
+
+def test_gradients_never_bypass_a_kernel(monkeypatch):
+    """On the card, under grad with an input that requires it: the RG-LRU
+    and RWKV6 scans (forward only) raise, naming the ROADMAP item, instead
+    of cutting the graph; flash attention goes through its autograd
+    Function, whose output has a grad_fn, whose forward asks the kernel for
+    the log-sum-exp and whose backward launches the three backward entries
+    (counted by route in ``launches_bwd_tc`` and ``launches_bwd_fma``, and in
+    ``launches_bwd``). Under ``torch.no_grad()`` every wrapper
+    makes the calls that inputs without grad make (serving): the same
+    entries with the same argument counts, flash with no log-sum-exp."""
+    import importlib
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    rg = importlib.import_module("repro_torch.kernels.rglru_scan")
+    rw = importlib.import_module("repro_torch.kernels.rwkv6_scan")
+    libs = stub_libraries(monkeypatch)
+    for name in ("launches", "launches_tc", "launches_f32", "launches_bwd", "launches_bwd_tc",
+                 "launches_bwd_fma"):
+        monkeypatch.setattr(flash_attention, name, 0)
+    q, k = torch.zeros((1, 4, 8, 64)), torch.zeros((1, 2, 8, 64))
+    a = torch.zeros((2, 5, 12))
+    r, u = torch.zeros((2, 3, 9, 16)), torch.zeros((3, 16))
+
+    def serve_calls():
+        fa._launch(q.bfloat16(), k.bfloat16(), k.bfloat16(), True, 0, 0.125, 0.0)
+        fa._launch(q, k, k, True, 4, 0.125, 30.0)
+        rg._launch(a, a, None)
+        rw._launch(r, r, r, r, u, 4, None)
+
+    serve_calls()
+    served = {n: _stub_calls(lib, 0) for n, lib in libs.items()}
+    assert all(args[4] is None for args in libs["flash_attention_wgmma"].args)  # no lse
+    start = {n: len(lib.calls) for n, lib in libs.items()}
+    for t in (q, k, a, r):
+        t.requires_grad_(True)
+    with torch.no_grad():
+        serve_calls()
+    assert {n: _stub_calls(lib, start[n]) for n, lib in libs.items()} == served
+
+    with pytest.raises(RuntimeError, match="ROADMAP.md Queue 1"):
+        rg._launch(a, a, None)
+    with pytest.raises(RuntimeError, match="ROADMAP.md Queue 1"):
+        rw._launch(r, r, r, r, u, 4, None)
+    for dtype, lib in ((torch.bfloat16, "flash_attention_wgmma"),
+                       (torch.float32, "flash_attention")):
+        qq, kk = (t.detach().to(dtype).requires_grad_() for t in (q, k))
+        before = len(libs[lib].args)
+        out = fa._launch(qq, kk, kk, True, 0, 0.125, 0.0)
+        assert out.grad_fn is not None and out.shape == qq.shape
+        assert libs[lib].args[before][4] is not None          # the lse pointer
+        out.backward(torch.ones_like(out))
+        assert qq.grad.shape == qq.shape and kk.grad.shape == kk.shape
+    assert libs["flash_attention_bwd"].calls == ["flash_attention_bwd_prep",
+                                                 "flash_attention_bwd_dkdv",
+                                                 "flash_attention_bwd_dq"] * 2
+    # the type flag of the prep pass, then the route: bf16 at hd 64 on the
+    # tensor cores (2), f32 on the CUDA cores (0)
+    assert [a[-2] for a in libs["flash_attention_bwd"].args] == [1, 2, 2, 0, 0, 0]
+    assert (flash_attention.launches_bwd_tc, flash_attention.launches_bwd_fma,
+            flash_attention.launches_bwd, flash_attention.launches) == (3, 3, 6, 6)
+    assert all(set(lib.bound.values()) == {1} for lib in libs.values())
+
+
 # ------------------------------------------------- the kernels on the card
 
 @pytest.mark.cuda
@@ -676,3 +805,51 @@ def test_cuda_rwkv6_routes_match_plain_version(card):
     want_o, want_s = rwkv6_scan_plain(r, k, v, logw, u)
     _within(torch.cat(outs, 2), want_o, RWKV_TOL, RWKV_TOL)
     _within(s, want_s, RWKV_TOL, RWKV_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_matches_plain_versions(card):
+    """The backward kernel's routes (tensor cores for bf16 at hd <= 128, CUDA
+    cores otherwise) at every head_dim, f32 and bf16, GQA, MQA, window,
+    soft-cap, ragged S, the model's strided views: against
+    ``flash_attention_bwd_plain`` on the same o and lse (f32 1e-4, bf16 one
+    rounding: 2^-7·|plain| + 1e-4·max|plain|) and against autograd of the
+    plain version in f32 (bf16: its D reads the bf16-rounded o, and both
+    round once, so 2^-6·|plain| + 1e-2·max|plain|); the log-sum-exp of each
+    forward route against the plain version's."""
+    import importlib
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = [(1, 4, 2, 150, hd, win, 0.0, dt) for hd in HEAD_DIMS for win in (0, 40)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(2, 16, 1, 333, 256, 100, 0.0, torch.bfloat16),
+              (2, 4, 1, 130, 64, 0, 30.0, torch.float32),
+              (1, 14, 2, 77, 64, 0, 30.0, torch.bfloat16)]
+    for B, H, KV, S, hd, win, cap, dt in cases:
+        q, k, v, do = (torch.randn((B, S, n, hd), generator=gen, device="cuda").to(dt)
+                       .transpose(1, 2) for n in (H, KV, KV, H))
+        qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
+        counter = ("launches_bwd_tc" if dt == torch.bfloat16 and hd <= 128
+                   else "launches_bwd_fma")
+        before = (flash_attention.launches, getattr(flash_attention, counter))
+        out = flash_attention(qa, ka, va, window=win, softcap=cap)
+        dq, dk, dv = torch.autograd.grad(out, (qa, ka, va), do)
+        torch.cuda.synchronize()
+        assert (flash_attention.launches, getattr(flash_attention, counter)) == (
+            before[0] + 1, before[1] + 3)
+        o, lse = fa._forward(q, k, v, True, win, 1.0 / hd ** 0.5, cap, with_lse=True)
+        po, plse = flash_attention_plain(q, k, v, window=win, softcap=cap, return_lse=True)
+        _within(lse, plse, 1e-5, 1e-5)
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, window=win, softcap=cap)
+        qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+        auto = torch.autograd.grad(flash_attention_plain(qf, kf, vf, window=win, softcap=cap),
+                                   (qf, kf, vf), do.float())
+        for got, w, a in zip((dq, dk, dv), want, auto):
+            m = float(w.float().abs().max())
+            if dt == torch.float32:
+                _within(got, w, 1e-4, 1e-4 * m)
+                _within(got, a, 1e-4, 1e-4 * m)
+            else:
+                _within(got, w, 2.0 ** -7, 1e-4 * m)
+                _within(got, a, 2.0 ** -6, 1e-2 * m)
