@@ -84,13 +84,16 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              routes against the plain version's (torch.logsumexp of its
              masked scores), and flash attention's backward kernel against
              autograd of the plain version and against its plain version at
-             qwen2-0.5b's and olmo-1b's train shapes (8 × 2048 tokens),
-             recurrentgemma-9b's windowed MQA shape, a ragged S and an f32
-             case; times as in phase 3, the bound at the bf16 tensor-core
-             rate (10·hd flops a visible pair) or the bytes, the backward of
-             ``scaled_dot_product_attention`` as the library call; the
-             forward's time at qwen2-0.5b's train shape with and without
-             the log-sum-exp.
+             qwen2-0.5b's and olmo-1b's train shapes (8 × 2048 tokens, the
+             bf16 wgmma route), recurrentgemma-9b's windowed MQA shape (hd
+             256, the CUDA-core route), a ragged S and an f32 case; two
+             calls on the same inputs give the same bits; times as in phase
+             3, the bound at the bf16 tensor-core rate (10·hd flops a
+             visible pair) or the bytes, the backward of
+             ``scaled_dot_product_attention`` as the library call; at both
+             train shapes the forward's time with and without the
+             log-sum-exp beside the forward of
+             ``scaled_dot_product_attention(is_causal=True)``.
 13. train  — ``repro_torch.launch.train.run`` at full width as a user
              calls it: qwen2-0.5b (adamw, lr 3e-4, batch 8, seq 2048) 4
              steps with --micro 1, checkpointing every 2 steps; a second
@@ -1028,8 +1031,8 @@ def _lm_kernels():
     c = _lm_counters()
     rwkv = c["rwkv6_scan"]
     return [(("flash_wgmma", "flash_fwd"), c["flash_attention"], "launches"),
-            (("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_tc",
-              "flash_bwd_dq_tc"), c["flash_attention"], "launches_bwd"),
+            (("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_wgmma",
+              "flash_bwd_dq_wgmma"), c["flash_attention"], "launches_bwd"),
             (("rglru_ring", "rglru_scalar"), c["rglru_scan"], "launches"),
             (("rwkv6_states",), rwkv, "launches_chunked"),
             (("rwkv6_state_scan",), rwkv, "launches_chunked"),
@@ -1253,7 +1256,8 @@ def phase_train_kernels():
     """The forward kernels' log-sum-exp on both routes, and the backward
     kernel against autograd of the plain version and against its plain
     version, at the train path's shapes; returns the backward's row at
-    qwen2-0.5b's shape and the forward's time there."""
+    qwen2-0.5b's shape (both train shapes' times under "train_shapes")
+    and the forward's times at both train shapes."""
     import importlib
 
     import torch.nn.functional as F
@@ -1262,14 +1266,15 @@ def phase_train_kernels():
         flash_attention_plain
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     gen = torch.Generator(device="cuda").manual_seed(12)
-    rows = {}
-    for what, B, H, KV, S, hd, window, dtype, main in (
-            ("qwen2-0.5b train, GQA 14 -> 2", 8, 14, 2, 2048, 64, 0, torch.bfloat16, True),
-            ("olmo-1b train, MHA", 8, 16, 16, 2048, 128, 0, torch.bfloat16, False),
+    rows = {"train_shapes": {}, "forward_train": {}}
+    for what, B, H, KV, S, hd, window, dtype, train in (
+            ("qwen2-0.5b train, GQA 14 -> 2", 8, 14, 2, 2048, 64, 0, torch.bfloat16,
+             "qwen2-0.5b"),
+            ("olmo-1b train, MHA", 8, 16, 16, 2048, 128, 0, torch.bfloat16, "olmo-1b"),
             ("recurrentgemma-9b shape: MQA, hd 256, window 2048", 1, 16, 1, 4096, 256, 2048,
-             torch.bfloat16, False),
-            ("ragged S", 4, 14, 2, 1999, 64, 0, torch.bfloat16, False),
-            ("f32, the CUDA-core forward route", 2, 4, 2, 300, 64, 0, torch.float32, False)):
+             torch.bfloat16, None),
+            ("ragged S", 4, 14, 2, 1999, 64, 0, torch.bfloat16, None),
+            ("f32, the CUDA-core forward route", 2, 4, 2, 300, 64, 0, torch.float32, None)):
         q, k, v, do = (torch.randn((B, S, n, hd), generator=gen, device="cuda").to(dtype)
                        .transpose(1, 2) for n in (H, KV, KV, H))
         scale = 1.0 / math.sqrt(hd)
@@ -1290,9 +1295,14 @@ def phase_train_kernels():
                        else "launches_bwd_fma")
         before = getattr(flash_attention, bwd_counter)
         got = fa._backward(q, k, v, o, lse, do, True, window, scale, 0.0)
+        again = fa._backward(q, k, v, o, lse, do, True, window, scale, 0.0)
         torch.cuda.synchronize()
-        check(getattr(flash_attention, bwd_counter) == before + 3,
+        check(getattr(flash_attention, bwd_counter) == before + 6,
               f"flash backward [{what}] did not take its {bwd_counter} route")
+        # every sum in one block, in a fixed order: the same bits each call
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash backward [{what}]: two calls on the same inputs differ")
+        del again
         want = flash_attention_bwd_plain(q, k, v, o, lse, do, window=window)
         qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
         auto = torch.autograd.grad(flash_attention_plain(qa, ka, va, window=window),
@@ -1316,7 +1326,7 @@ def phase_train_kernels():
             f"{n} max_abs_err {p:.3e} vs plain, {a:.3e} vs autograd (max {m:.3e})"
             for n, p, a, m in errs)
             + f" (<= {tol[0]:g}·|plain| + {tol[1]:g}·max, autograd {tol[2]:g}·|a| + "
-              f"{tol[3]:g}·max); lse max_abs_err {err_l:.3e}")
+              f"{tol[3]:g}·max); lse max_abs_err {err_l:.3e}; two calls bit for bit")
         ms = time_ms(lambda: fa._backward(q, k, v, o, lse, do, True, window, scale, 0.0))
         plain_ms = time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                               window=window), reps=5, warmup=1)
@@ -1339,13 +1349,20 @@ def phase_train_kernels():
                       note=" (vs the plain version; library: the backward of "
                            "scaled_dot_product_attention, is_causal or the boolean window "
                            "mask, KV expanded)")
-        if main:
-            rows["flash_attention_bwd"] = row
+        if train:
+            rows["train_shapes"][train] = {k: row[k] for k in ("ms", "library_ms", "bound_ms")}
+            rows.setdefault("flash_attention_bwd", row)
             fwd_lse = time_ms(lambda: fa._forward(q, k, v, True, 0, scale, 0.0, True))
             fwd = time_ms(lambda: fa._forward(q, k, v, True, 0, scale, 0.0, False))
-            print(f"flash forward [{what}]: with lse {fwd_lse:.4f} ms, without {fwd:.4f} ms "
+            kx, vx = k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1)
+            sdpa = time_ms(lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=True))
+            del kx, vx
+            rows["forward_train"][train] = {"ms": fwd_lse, "ms_without_lse": fwd,
+                                            "library_ms": sdpa,
+                                            "bound_ms": _fwd_bound(B, H, KV, S, hd)}
+            print(f"flash forward [{what}]: with lse {fwd_lse:.4f} ms, without {fwd:.4f} ms, "
+                  f"scaled_dot_product_attention(is_causal=True, KV expanded) {sdpa:.4f} ms "
                   f"(bound {_fwd_bound(B, H, KV, S, hd):.4f} ms)")
-            rows["forward_train_ms"] = fwd_lse
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     return rows
@@ -1521,8 +1538,9 @@ def main() -> int:
     launches = dict(compressed, **phase(phase_serve))
     phase(phase_lm_parity)
     train_rows = phase(phase_train_kernels)
-    rows["flash_attention_bwd"] = train_rows["flash_attention_bwd"]
-    rows["flash_attention"]["train_forward_ms"] = train_rows["forward_train_ms"]
+    rows["flash_attention_bwd"] = dict(train_rows["flash_attention_bwd"],
+                                       train_shapes=train_rows["train_shapes"])
+    rows["flash_attention"]["train_forward"] = train_rows["forward_train"]
     trained = phase(phase_train)
     launches["flash_attention"] += trained["flash_attention"]
     launches["flash_attention_bwd"] = trained["flash_attention_bwd"]
@@ -1549,8 +1567,9 @@ def main() -> int:
                "flash_attention_bwd": "the gradient of the row above, which the TPU kernel "
                                       "lacks (the reference differentiates its jnp "
                                       "attention): dK/dV by key tile over the GQA group, "
-                                      "then dQ by query tile; bf16 at hd <= 128 on mma.sync "
-                                      "(P, dS as bf16 hi + lo), else CUDA-core f32 FMAs",
+                                      "then dQ by query tile; bf16 at hd <= 128 on wgmma "
+                                      "fed by a TMA ring (P, dS as bf16 hi + lo), else "
+                                      "CUDA-core f32 FMAs",
                "rglru_scan": "one-warp blocks of 32 channels, a 4-stage cp.async ring of "
                              "32 time steps feeding the in-order chain",
                "rwkv6_scan": "chunk-parallel, mma.sync 3xTF32; decode route for S = 1"}

@@ -2,10 +2,11 @@
 
 Each source under ``csrc/`` compiles on first use into
 ``<checkout>/build/repro_torch/lib<name>-<digest>.so``; the digest covers
-the source and the flags, so an edited source never loads a stale
-library. Sources have a plain C interface, so a build takes seconds (no
-PyTorch headers). ``build_all`` starts one ``nvcc`` per source, all at
-once, and waits for every one of them.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header never loads a stale library. Sources have a
+plain C interface, so a build takes seconds (no PyTorch headers).
+``build_all`` starts one ``nvcc`` per source, all at once, and waits for
+every one of them.
 """
 from __future__ import annotations
 
@@ -45,8 +46,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -16,55 +16,97 @@
 //     P   = exp(x − lse)                      (recomputed, never stored)
 //     D   = rowsum(dO ∘ O)                    flash_bwd_prep
 //     dS  = P ∘ (dO·Vᵀ − D) ∘ (1 − (x/c)²)    (the last factor only with a cap)
-//     dV  = Σ_h Pᵀ·dO,  dK = scale · Σ_h dSᵀ·Q flash_bwd_dkdv
-//     dQ  = scale · dS·K                       flash_bwd_dq
+//     dV  = Σ_h Pᵀ·dO,  dK = scale · Σ_h dSᵀ·Q flash_bwd_dkdv*
+//     dQ  = scale · dS·K                       flash_bwd_dq*
+//
+// flash_bwd_prep also writes lse·log2(e) next to D (P is taken as a power of
+// 2), both as (B, H, Sp) f32 with rows padded with zeros to Sp = S rounded
+// up to 64, so that a 64-row tile of either is one aligned bulk copy.
 //
 // Bound: operations. The function needs 10·hd flops a visible (query, key)
-// pair (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q, dS·K); both passes here recompute QKᵀ and
-// dO·Vᵀ, 14·hd. Two routes, chosen by the wrapper:
-// - bf16 at hd <= 128: the products on the tensor cores (mma.sync, below);
+// pair (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q, dS·K). Two routes, chosen by the wrapper:
+// - bf16 at hd <= 128: the products on the tensor cores (wgmma, below);
 // - f32, and bf16 at hd = 256 (whose 64 × 256 f32 accumulators of dK and dV
-//   would not fit a warp's registers): CUDA-core f32 FMAs.
-// Both are simple first designs: wgmma, TMA and a pipelined ring are a
-// later redesign's.
+//   would not fit a warpgroup's registers): CUDA-core f32 FMAs.
+// Both take the same two passes, which keep every sum inside one block, in
+// a fixed order: no atomics, and the result repeats bit for bit.
+// - dK/dV: one block per (batch, KV head, key tile). It walks every query
+//   head of the GQA group and, for each, the query tiles whose rows see one
+//   of its keys, and keeps dK and dV in registers.
+// - dQ: one block per (batch, head, query tile), longest first; it walks the
+//   key tiles its rows see, as the forward does, and keeps dQ in registers.
+// Both recompute QKᵀ and dO·Vᵀ, so the passes do 14·hd flops a pair.
+// Scores past S, and those the causal window hides, give P = dS = 0.
+//
+// Tensor-core design (flash_bwd_dkdv_wgmma, flash_bwd_dq_wgmma). The
+// forward's shape (flash_attention_wgmma.cu; helpers in hopper.cuh): 384
+// threads, a producer warpgroup whose one thread issues TMA copies into a
+// 2-stage ring guarded by full/empty mbarriers, and two consumer
+// warpgroups of 64 rows each (setmaxnreg 24/240). Tiles are 64 rows × hd
+// bf16 as TMA writes them (128-byte swizzle), which is what the wgmma
+// descriptors read, so no tile is copied, converted or transposed by a
+// thread.
+// - dK/dV: a block owns 128 keys (64 a warpgroup); its K and V tiles are
+//   loaded once, and the ring carries (Q, dO, the rows' lse and D) over the
+//   group's heads and the query tiles that see the block's keys. A
+//   warpgroup computes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (wgmma m64n64k16, both
+//   operands from shared memory, hd the reduced axis), Pᵀ and dSᵀ in
+//   registers, then dV += Pᵀ·dO and dK += dSᵀ·Q (wgmma m64n{hd}k16, A from
+//   registers, B = dO or Q read through the transpose bit: the reduced axis
+//   is the tile's rows). dK and dV are 2 × hd/2 f32 registers a thread.
+// - dQ: a block owns 128 queries; Q and dO are loaded once, the ring
+//   carries (K, V). S = Q·Kᵀ and dP = dO·Vᵀ as above, then dQ += dS·K with
+//   K read transposed.
+// P and dS, f32 in registers, enter the products that consume them as two
+// bf16 halves, hi = bf16(x) and lo = bf16(x − hi) (about 16 significant
+// bits, as the forward carries P); Q, K, V and dO are bf16 and exact in the
+// products. So the route keeps the CUDA-core route's accuracy at 20·hd
+// tensor-core flops a pair, twice the bound's 10·hd: the design's ceiling
+// is half the bound's rate. Between the products a warpgroup's 64 × 64
+// tile is elementwise work (P = 2^(s·scale·log2 e − lse·log2 e), one FFMA
+// and one ex2 a score; dS; the hi/lo splits), which at hd = 64 issues about
+// as many instructions as the products take tensor-core cycles. So the
+// mask is applied only to tiles that are not wholly visible (the diagonal,
+// the window's edge, the ragged end), and within a tile P is computed while
+// dP = dO·Vᵀ is still in flight and dS while dV += Pᵀ·dO runs (wgmma
+// wait_group 1, then 0). Blocks go longest first in both passes (the key
+// tile nearest the start sees the most queries); a warpgroup skips the
+// products of a tile wholly outside its rows' window but still waits on it
+// and releases it.
 //
 // CUDA-core design: 256 threads as a 16 × 16 grid, tiles of BT rows (64,
 // or 32 at hd = 256 to fit shared memory), staged in shared memory as f32
 // rows padded by four floats. A score tile is a BT × BT block, R × R values
 // a thread (queries ty·R + i against keys tx + 16j) fed by float4 reads
-// along hd. Both routes take the same two passes:
-// - flash_bwd_dkdv: one block per (batch, KV head, key tile). Its K and V
-//   tiles stay in shared memory; it walks every query head of the GQA group
-//   and, for each, the query tiles whose rows see one of its keys, and keeps
-//   dK and dV in registers (keys ty·R + i, R × hd/16 values each). The sum
-//   over the group's heads is inside the block: no atomics, and the result
-//   repeats bit for bit.
-// - flash_bwd_dq: one block per (batch, head, query tile), longest first; it
-//   walks the key tiles its rows see, as the forward does, and keeps dQ in
-//   registers.
-// Scores past S, and those the causal window hides, give P = dS = 0.
+// along hd; dK and dV are kept for keys ty·R + i, R × hd/16 values each.
 //
 // Layout: q, k, v, o, dO and the outputs are (B, heads, S, hd) with hd
-// contiguous and any (batch, head, sequence) strides, in elements; lse and D
-// are (B, H, S) f32, contiguous. Inputs and outputs are f32 or bf16 (one
-// type for all of them); the arithmetic is f32.
+// contiguous and any (batch, head, sequence) strides, in elements (on the
+// tensor-core route those of q, k, v and dO multiples of 8 on 16-byte
+// aligned bases: the TMA descriptors' rule); lse is the forward's (B, H, S)
+// f32, contiguous. Inputs and outputs are f32 or bf16 (one type for all of
+// them); the arithmetic is f32.
 //
 // Interface: plain C, loaded with ctypes. Each entry point launches on the
 // given stream, does not synchronise, allocates nothing and returns
-// cudaGetLastError().
+// cudaGetLastError() (or 1000 + the driver's error code if a tensor map
+// cannot be built).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;  // 16 × 16
+constexpr int kRowPad = 64;    // lse and D rows are padded to a multiple of this
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
   long long b, h, s;
 };
+
+__host__ __device__ __forceinline__ int padded(int S) {
+  return (S + kRowPad - 1) / kRowPad * kRowPad;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -163,35 +205,64 @@ __device__ __forceinline__ void probs(float (&s)[Cfg<HD>::R][Cfg<HD>::R],
       bool ok = row < S && col < S;
       if (causal) ok = ok && col <= row;
       if (window > 0) ok = ok && col > row - window;
-      const float p = ok ? expf(x - sL[ty * R + i]) : 0.f;
+      const float p = ok ? exp2f(fmaf(x, kLog2e, -sL[ty * R + i])) : 0.f;
       s[i][j] = p;
       dp[i][j] = p * (dp[i][j] - sD[ty * R + i]) * dcap;
     }
   }
 }
 
-template <typename T>
+// Σ o·dO over V elements (one 16-byte load of each where V > 1)
+template <int V, typename T>
+__device__ __forceinline__ float dot_chunk(const T* a, const T* b) {
+  if constexpr (V == 1) {
+    return to_f32(*a) * to_f32(*b);
+  } else {
+    const uint4 x = *reinterpret_cast<const uint4*>(a), y = *reinterpret_cast<const uint4*>(b);
+    const T* xs = reinterpret_cast<const T*>(&x);
+    const T* ys = reinterpret_cast<const T*>(&y);
+    float acc = 0.f;
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc = fmaf(to_f32(xs[e]), to_f32(ys[e]), acc);
+    return acc;
+  }
+}
+
+// D = rowsum(dO ∘ O) and lse·log2(e), both (B, H, Sp) with zeros past S. A
+// row's hd / V chunks of V elements go to min(hd / V, 32) adjacent lanes,
+// which sum them with shuffles: V = 16 bytes' worth where every row starts
+// 16-byte aligned, else 1.
+template <int V, typename T>
 __global__ void flash_bwd_prep(const T* __restrict__ o, const T* __restrict__ dO,
+                               const float* __restrict__ lse, float* __restrict__ L,
                                float* __restrict__ D, Strides so, Strides sdo, int H, int S,
                                int hd, long long rows) {
-  const long long row = (long long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
-  if (row >= rows) return;
-  const int lane = threadIdx.x % 32, s = static_cast<int>(row % S);
-  const long long bh = row / S;
-  const int h = static_cast<int>(bh % H), b = static_cast<int>(bh / H);
-  const T* orow = o + b * so.b + h * so.h + s * so.s;
-  const T* drow = dO + b * sdo.b + h * sdo.h + s * sdo.s;
+  const int chunks = hd / V, lanes = min(chunks, 32);
+  const long long gl = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long row = gl / lanes;
+  const int part = static_cast<int>(gl % lanes), Sp = padded(S);
+  const int s = static_cast<int>(row % Sp);
+  const long long bh = row / Sp;
   float acc = 0.f;
-  for (int d = lane; d < hd; d += 32) acc = fmaf(to_f32(orow[d]), to_f32(drow[d]), acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) D[row] = acc;
+  if (row < rows && s < S) {
+    const int h = static_cast<int>(bh % H), b = static_cast<int>(bh / H);
+    const T* orow = o + b * so.b + h * so.h + s * so.s;
+    const T* drow = dO + b * sdo.b + h * sdo.h + s * sdo.s;
+    for (int c = part; c < chunks; c += lanes) acc += dot_chunk<V>(orow + c * V, drow + c * V);
+  }
+  for (int off = lanes / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (part == 0 && row < rows) {
+    D[row] = acc;
+    L[row] = s < S ? lse[bh * S + s] * kLog2e : 0.f;
+  }
 }
+
+// ------------------------------------------------------------ CUDA-core route
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const T* __restrict__ dO, const float* __restrict__ lse,
+               const T* __restrict__ dO, const float* __restrict__ Lg,
                const float* __restrict__ Dg, T* __restrict__ dk, T* __restrict__ dv, Strides sq,
                Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv, int H, int group,
                int S, int causal, int window, float scale, float softcap) {
@@ -207,7 +278,7 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   float* sL = sdS + BT * PLD;   // BT: lse of the query tile's rows
   float* sD = sL + BT;          // BT: D of the query tile's rows
 
-  const int k0 = blockIdx.x * BT, kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BT, kvh = blockIdx.y, b = blockIdx.z, Sp = padded(S);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   load_tile<HD>(sK, k + b * sk.b + kvh * sk.h, sk.s, k0, S);
   load_tile<HD>(sV, v + b * sv.b + kvh * sv.h, sv.s, k0, S);
@@ -227,8 +298,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     const int h = kvh * group + hh;
     const T* qb = q + b * sq.b + h * sq.h;
     const T* db = dO + b * sdo.b + h * sdo.h;
-    const float* lb = lse + ((long long)b * H + h) * S;
-    const float* Db = Dg + ((long long)b * H + h) * S;
+    const float* lb = Lg + ((long long)b * H + h) * Sp;
+    const float* Db = Dg + ((long long)b * H + h) * Sp;
     for (int qt = qt_lo; qt <= qt_hi; ++qt) {
       const int q0 = qt * BT;
       __syncthreads();  // the previous tile's Q, dO, P and dS are no longer read
@@ -294,7 +365,7 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             const T* __restrict__ dO, const float* __restrict__ lse,
+             const T* __restrict__ dO, const float* __restrict__ Lg,
              const float* __restrict__ Dg, T* __restrict__ dq, Strides sq, Strides sk,
              Strides sv, Strides sdo, Strides sdq, int H, int group, int S, int causal,
              int window, float scale, float softcap) {
@@ -316,8 +387,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   load_tile<HD>(sQ, q + b * sq.b + h * sq.h, sq.s, q0, S);
   load_tile<HD>(sdO, dO + b * sdo.b + h * sdo.h, sdo.s, q0, S);
-  const float* lb = lse + ((long long)b * H + h) * S;
-  const float* Db = Dg + ((long long)b * H + h) * S;
+  const float* lb = Lg + ((long long)b * H + h) * padded(S);
+  const float* Db = Dg + ((long long)b * H + h) * padded(S);
   for (int i = threadIdx.x; i < BT; i += kThreads) {
     sL[i] = q0 + i < S ? lb[q0 + i] : 0.f;
     sD[i] = q0 + i < S ? Db[q0 + i] : 0.f;
@@ -378,311 +449,459 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 }
 
-// ------------------------------------------------------------ tensor-core route
-// bf16 at hd <= 128: the same two passes, with every product on mma.sync
-// m16n8k16 (bf16 in, f32 accumulate). Tiles of 64 rows stay bf16 in shared
-// memory, row-major and, where a product reduces over rows, transposed too.
-// Four warps own 16 rows each (keys in dK/dV, queries in dQ). Q, K, V and
-// dO are bf16 inputs, so their products are exact in f32; P and dS, f32 in
-// registers, enter the products that consume them as two bf16 halves, hi =
-// bf16(x) and lo = bf16(x − hi) (about 16 significant bits, as the forward
-// carries P), so the result keeps the CUDA-core route's accuracy.
+// ------------------------------------------------------------ tensor-core route (wgmma)
 
-constexpr int kTcThreads = 128;  // four warps
-constexpr int kTcRows = 64;      // rows of a query tile and of a key tile
+constexpr int kTcStages = 2;                   // ring depth of both passes
+constexpr int kTcConsumers = 256;              // two warpgroups of 64 rows
+constexpr int kTcThreads = kTcConsumers + 128;  // and the producer's warpgroup
+constexpr int kTcRows = 2 * hopper::kRows;     // keys (dK/dV) or queries (dQ) a block owns
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128·24 + 256·240 ≤ 64 K
 
 template <int HD>
-struct Tc {
-  static constexpr int LD = HD + 8;         // row stride of a [row][d] tile (conflict-free)
-  static constexpr int LDT = kTcRows + 8;   // row stride of a transposed [d][row] tile
-  static constexpr int NB = HD / 8;         // n-blocks of 8 over d
-  static constexpr size_t TILE = size_t(kTcRows) * LD * 2, TILE_T = size_t(HD) * LDT * 2;
-  static constexpr size_t SMEM_DKDV = 4 * TILE + 2 * TILE_T + 8 * kTcRows;
-  static constexpr size_t SMEM_DQ = 4 * TILE + TILE_T + 8 * kTcRows;
+struct Wg {
+  using T = hopper::Tiles<HD>;
+  // own two tiles of each of two operands, the ring's two tiles a stage, the
+  // ring's lse and D rows (dK/dV), barriers, and 1 KB to align the start
+  static constexpr size_t SMEM_DKDV =
+      size_t(4 + 2 * kTcStages) * T::TILE + 2 * kTcStages * hopper::kRows * 4 + 1024 + 128;
+  static constexpr size_t SMEM_DQ = size_t(4 + 2 * kTcStages) * T::TILE + 1024 + 128;
 };
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// x0, x1 -> (bf16 pair of x, bf16 pair of the remainders)
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const float h0 = __bfloat162float(__float2bfloat16_rn(x0));
-  const float h1 = __bfloat162float(__float2bfloat16_rn(x1));
-  hi = pack2(x0, x1);
-  lo = pack2(x0 - h0, x1 - h1);
-}
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c (16 × 8·NBLK) += A · Btᵀ: A's 16 rows at a (stride lda), Bt's 8·NBLK rows
-// at bt (stride ldb), both contiguous along the K reduced elements
-template <int K, int NBLK>
-__device__ __forceinline__ void mma_ss(float (&c)[NBLK][4], const __nv_bfloat16* a, int lda,
-                                       const __nv_bfloat16* bt, int ldb, int g, int t) {
+// the 64 × 16 A fragments of a 64 × 64 f32 accumulator tile, as bf16 hi + lo
+// halves: keys (or queries) 16kk .. 16kk + 15 in hi[kk], lo[kk]
+__device__ __forceinline__ void split_fragments(const float (&x)[32], uint32_t (&hi)[4][4],
+                                                uint32_t (&lo)[4][4]) {
 #pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    const uint32_t af[4] = {lds32(a + g * lda + k0 + 2 * t), lds32(a + (g + 8) * lda + k0 + 2 * t),
-                            lds32(a + g * lda + k0 + 2 * t + 8),
-                            lds32(a + (g + 8) * lda + k0 + 2 * t + 8)};
-#pragma unroll
-    for (int nb = 0; nb < NBLK; ++nb) {
-      const __nv_bfloat16* row = bt + (nb * 8 + g) * ldb + k0 + 2 * t;
-      mma16816(c[nb], af, lds32(row), lds32(row + 8));
-    }
+  for (int i = 0; i < 16; ++i) {  // the pair x[2i], x[2i + 1]
+    const uint32_t h = hopper::pack_bf16(x[2 * i], x[2 * i + 1]);
+    hi[i / 4][i % 4] = h;
+    lo[i / 4][i % 4] = hopper::pack_bf16(x[2 * i] - __uint_as_float(h << 16),
+                                         x[2 * i + 1] - __uint_as_float(h & 0xffff0000u));
   }
 }
 
-// c (16 × 8·NBLK) += R · Btᵀ: R (16 × K) in registers as the accumulator
-// fragments of K/8 n-blocks, split into bf16 hi + lo; Bt as in mma_ss
-template <int K, int NBLK>
-__device__ __forceinline__ void mma_rs(float (&c)[NBLK][4], const float (&r)[K / 8][4],
-                                       const __nv_bfloat16* bt, int ldb, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t hi[4], lo[4];
-    split2(r[2 * kk][0], r[2 * kk][1], hi[0], lo[0]);
-    split2(r[2 * kk][2], r[2 * kk][3], hi[1], lo[1]);
-    split2(r[2 * kk + 1][0], r[2 * kk + 1][1], hi[2], lo[2]);
-    split2(r[2 * kk + 1][2], r[2 * kk + 1][3], hi[3], lo[3]);
-#pragma unroll
-    for (int nb = 0; nb < NBLK; ++nb) {
-      const __nv_bfloat16* row = bt + (nb * 8 + g) * ldb + kk * 16 + 2 * t;
-      const uint32_t b0 = lds32(row), b1 = lds32(row + 8);
-      mma16816(c[nb], hi, b0, b1);
-      mma16816(c[nb], lo, b0, b1);
-    }
-  }
-}
-
-// 64 rows of one (batch, head) into dst [row][d] and, if asked, dst_t
-// [d][row]; 16-byte loads (the wrapper checks strides and bases); zeros
-// past S
+// s (64 × 64) = A·Bᵀ over hd: both tiles from shared memory, hd contiguous
+// (issued, not waited for; the first step overwrites s)
 template <int HD>
-__device__ __forceinline__ void load_rows_tc(__nv_bfloat16* dst, __nv_bfloat16* dst_t,
-                                             const __nv_bfloat16* __restrict__ src,
-                                             long long s_stride, int row0, int S) {
-  constexpr int VPR = HD / 8, LD = Tc<HD>::LD, LDT = Tc<HD>::LDT;
-  for (int i = threadIdx.x; i < kTcRows * VPR; i += kTcThreads) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) val = *reinterpret_cast<const uint4*>(src + (row0 + r) * s_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-    if (dst_t != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+__device__ __forceinline__ void scores(float (&s)[32], const uint8_t* a, const uint8_t* b) {
+  using T = hopper::Tiles<HD>;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) dst_t[(c + j) * LDT + r] = e[j];
+  for (int ks = 0; ks < HD / 16; ++ks)
+    hopper::wgmma_ss_m64n64(s, T::k_desc(a, ks), T::k_desc(b, ks), ks > 0);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Whether every (query, key) pair of queries [q0, q0 + 63] and keys [k0,
+// k0 + 63] is visible: then a tile needs no mask.
+__device__ __forceinline__ bool all_visible(int q0, int k0, int S, int causal, int window) {
+  return q0 + 63 < S && k0 + 63 < S && (!causal || k0 + 63 <= q0) &&
+         (window <= 0 || q0 + 63 - window < k0);
+}
+
+__device__ __forceinline__ bool visible(int query, int key, int S, int causal, int window) {
+  return query < S && key < S && (!causal || key <= query) &&
+         (window <= 0 || key > query - window);
+}
+
+// The elementwise work of a warpgroup's 64 × 64 tile, s (scores) and dp
+// (dO·Vᵀ) in its accumulator layout, both in flight (committed in that
+// order), given at(j) = (query, key, the query's lse·log2(e) and D) of
+// element j: P in place of s and dS in place of dp, split into the A
+// fragments of the products that consume them (P's only kWithP), which
+// `use_p` and `use_ds` issue; returns when they are done. Without a
+// soft-cap, P is computed while dp is still in flight, and dS while the
+// products of P run; with one, both wait for dp (dS needs the cap's
+// derivative, 1 − tanh²). c is scale·log2(e).
+template <bool kCap, bool kMask, bool kWithP, typename At, typename UseP, typename UseDs>
+__device__ __forceinline__ void tile_elementwise(float (&s)[32], float (&dp)[32],
+                                                 uint32_t (&p_hi)[4][4], uint32_t (&p_lo)[4][4],
+                                                 uint32_t (&ds_hi)[4][4],
+                                                 uint32_t (&ds_lo)[4][4], const At& at, int S,
+                                                 int causal, int window, float c, float softcap,
+                                                 const UseP& use_p, const UseDs& use_ds) {
+  using namespace hopper;
+  if constexpr (kCap) {
+    wgmma_wait<0>();
+    keep(s);
+    keep(dp);
+    const float inner = c / kLog2e / softcap, outer = softcap * kLog2e;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      int query, key;
+      float l2, d;
+      at(j, query, key, l2, d);
+      const float th = tanhf(s[j] * inner);
+      float p = ex2(fmaf(th, outer, -l2));
+      if (kMask && !visible(query, key, S, causal, window)) p = 0.f;
+      s[j] = p;
+      dp[j] = p * (dp[j] - d) * (1.f - th * th);
     }
+    if constexpr (kWithP) split_fragments(s, p_hi, p_lo);
+    split_fragments(dp, ds_hi, ds_lo);
+    wgmma_fence();
+    use_p();
+    use_ds();
+  } else {
+    wgmma_wait<1>();  // s has landed; dp may still be in flight
+    keep(s);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      int query, key;
+      float l2, d;
+      at(j, query, key, l2, d);
+      const float p = ex2(fmaf(s[j], c, -l2));
+      s[j] = (kMask && !visible(query, key, S, causal, window)) ? 0.f : p;
+    }
+    if constexpr (kWithP) split_fragments(s, p_hi, p_lo);
+    wgmma_wait<0>();
+    keep(dp);
+    if constexpr (kWithP) {
+      wgmma_fence();
+      use_p();
+      wgmma_commit();
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      int query, key;
+      float l2, d;
+      at(j, query, key, l2, d);
+      dp[j] = s[j] * (dp[j] - d);
+    }
+    split_fragments(dp, ds_hi, ds_lo);
+    wgmma_fence();
+    use_ds();
   }
+  wgmma_commit();
+  wgmma_wait<0>();
+  if constexpr (kWithP) {
+    keep(p_hi);
+    keep(p_lo);
+  }
+  keep(ds_hi);
+  keep(ds_lo);
 }
 
-// P and dS of one warp's 16 × 64 fragment tile: element e of n-block nb is
-// (row g + 8·(e / 2), column 8·nb + 2t + e % 2); ``rows_are_keys`` says
-// which index is the key. s holds q·k, dp holds dO·v; lse and D are
-// indexed by the query within its tile.
-__device__ __forceinline__ void probs_tc(float (&s)[8][4], float (&dp)[8][4], const float* sL,
-                                         const float* sD, int row0, int col0, int q_in_tile0,
-                                         bool rows_are_keys, int g, int t, int S, int causal,
-                                         int window, float scale, float softcap) {
-#pragma unroll
-  for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = g + 8 * (e >> 1), c = nb * 8 + 2 * t + (e & 1);
-      const int key = rows_are_keys ? row0 + r : col0 + c;
-      const int qr = rows_are_keys ? col0 + c : row0 + r;
-      const int qi = rows_are_keys ? c : q_in_tile0 + r;
-      float x = s[nb][e] * scale, dcap = 1.f;
-      if (softcap > 0.f) {
-        const float th = tanhf(x / softcap);
-        x = th * softcap;
-        dcap = 1.f - th * th;
-      }
-      bool ok = qr < S && key < S;
-      if (causal) ok = ok && key <= qr;
-      if (window > 0) ok = ok && key > qr - window;
-      const float p = ok ? expf(x - sL[qi]) : 0.f;
-      s[nb][e] = p;
-      dp[nb][e] = p * (dp[nb][e] - sD[qi]) * dcap;
-    }
-}
-
-template <int HD>
+template <int HD, bool kCap>
 __global__ void __launch_bounds__(kTcThreads, 1)
-flash_bwd_dkdv_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dO,
-                  const float* __restrict__ lse, const float* __restrict__ Dg,
-                  __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Strides sq,
-                  Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv, int H,
-                  int group, int S, int causal, int window, float scale, float softcap) {
-  using C = Tc<HD>;
-  constexpr int LD = C::LD, LDT = C::LDT, NB = C::NB;
-  extern __shared__ __align__(16) uint8_t smem_tc[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_tc);  // [key][d]
-  __nv_bfloat16* sV = sK + kTcRows * LD;                           // [key][d]
-  __nv_bfloat16* sQ = sV + kTcRows * LD;                           // [query][d]
-  __nv_bfloat16* sdO = sQ + kTcRows * LD;                          // [query][d]
-  __nv_bfloat16* sQt = sdO + kTcRows * LD;                         // [d][query]
-  __nv_bfloat16* sdOt = sQt + HD * LDT;                            // [d][query]
-  float* sL = reinterpret_cast<float*>(sdOt + HD * LDT);
-  float* sD = sL + kTcRows;
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmq,
+                     const __grid_constant__ CUtensorMap tmk,
+                     const __grid_constant__ CUtensorMap tmv,
+                     const __grid_constant__ CUtensorMap tmdo, const float* __restrict__ Lg,
+                     const float* __restrict__ Dg, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, Strides sdk, Strides sdv, int B, int H,
+                     int KV, int S, int causal, int window, float scale, float softcap) {
+  using namespace hopper;
+  using T = Tiles<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = align1024(smem_raw);                 // two tiles: the block's keys
+  uint8_t* sV = sK + 2 * T::TILE;                    // two tiles
+  uint8_t* sQ = sV + 2 * T::TILE;                    // kTcStages tiles
+  uint8_t* sdO = sQ + kTcStages * T::TILE;           // kTcStages tiles
+  float* sL = reinterpret_cast<float*>(sdO + kTcStages * T::TILE);  // kTcStages × 64
+  float* sD = sL + kTcStages * kRows;                // kTcStages × 64
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(sD + kTcStages * kRows);
+  uint64_t* bar_full = bar_kv + 1;                   // a stage's Q, dO, lse and D landed
+  uint64_t* bar_empty = bar_full + kTcStages;        // every consumer warp is done with it
 
-  const int k0 = blockIdx.x * kTcRows, kvh = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int kw = 16 * warp;  // this warp's keys, within the tile
-  load_rows_tc<HD>(sK, nullptr, k + b * sk.b + kvh * sk.h, sk.s, k0, S);
-  load_rows_tc<HD>(sV, nullptr, v + b * sv.b + kvh * sv.h, sv.s, k0, S);
-
+  // key tiles nearest the start first (they see the most queries)
+  const int group = H / KV, Sp = padded(S);
+  const int kvh = blockIdx.x % KV, b = (blockIdx.x / KV) % B;
+  const int k0 = static_cast<int>(blockIdx.x / (KV * B)) * kTcRows;
+  // the query tiles some row of which sees one of keys k0 .. k_last
   const int k_last = min(k0 + kTcRows, S) - 1;
-  const int qt_lo = causal ? k0 / kTcRows : 0;
-  const int qt_hi = (window > 0 ? min(S - 1, k_last + window - 1) : S - 1) / kTcRows;
+  const int qt_lo = causal ? k0 / kRows : 0;
+  const int qt_hi = (window > 0 ? min(S - 1, k_last + window - 1) : S - 1) / kRows;
+  const int nq = qt_hi - qt_lo + 1, n_iter = group * nq;
 
-  float acc_k[NB][4], acc_v[NB][4];
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[nb][e] = acc_v[nb][e] = 0.f;
-
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = kvh * group + hh;
-    const float* lb = lse + ((long long)b * H + h) * S;
-    const float* Db = Dg + ((long long)b * H + h) * S;
-    for (int qt = qt_lo; qt <= qt_hi; ++qt) {
-      const int q0 = qt * kTcRows;
-      __syncthreads();  // the previous tile's Q and dO are no longer read
-      load_rows_tc<HD>(sQ, sQt, q + b * sq.b + h * sq.h, sq.s, q0, S);
-      load_rows_tc<HD>(sdO, sdOt, dO + b * sdo.b + h * sdo.h, sdo.s, q0, S);
-      for (int i = threadIdx.x; i < kTcRows; i += kTcThreads) {
-        sL[i] = q0 + i < S ? lb[q0 + i] : 0.f;
-        sD[i] = q0 + i < S ? Db[q0 + i] : 0.f;
-      }
-      __syncthreads();
-
-      float s[8][4], dp[8][4];  // Sᵀ and dPᵀ: this warp's 16 keys × the 64 queries
-#pragma unroll
-      for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
-      mma_ss<HD, 8>(dp, sV + kw * LD, LD, sdO, LD, g, t);
-      mma_ss<HD, 8>(s, sK + kw * LD, LD, sQ, LD, g, t);
-      probs_tc(s, dp, sL, sD, k0 + kw, q0, 0, true, g, t, S, causal, window, scale, softcap);
-      mma_rs<kTcRows, NB>(acc_v, s, sdOt, LDT, g, t);   // dV += Pᵀ·dO
-      mma_rs<kTcRows, NB>(acc_k, dp, sQt, LDT, g, t);   // dK += dSᵀ·Q
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(&bar_full[s], 1);
+      mbar_init(&bar_empty[s], kTcConsumers / 32);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kTcConsumers / 32) {  // the producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kTcConsumers) {
+      mbar_expect_tx(bar_kv, 4 * T::TILE);
+      for (int c = 0; c < 2; ++c)
+        for (int cb = 0; cb < T::NCB; ++cb) {
+          tma_load(sK + c * T::TILE + cb * T::BLOCK, &tmk, bar_kv, cb * T::CB, k0 + kRows * c,
+                   kvh, b);
+          tma_load(sV + c * T::TILE + cb * T::BLOCK, &tmv, bar_kv, cb * T::CB, k0 + kRows * c,
+                   kvh, b);
+        }
+      for (int i = 0; i < n_iter; ++i) {
+        const int st = i % kTcStages, h = kvh * group + i / nq;
+        const int q0 = (qt_lo + i % nq) * kRows;
+        if (i >= kTcStages) mbar_wait(&bar_empty[st], (i / kTcStages - 1) & 1);
+        mbar_expect_tx(&bar_full[st], 2 * T::TILE + 2 * kRows * 4);
+        for (int cb = 0; cb < T::NCB; ++cb) {
+          tma_load(sQ + st * T::TILE + cb * T::BLOCK, &tmq, &bar_full[st], cb * T::CB, q0, h, b);
+          tma_load(sdO + st * T::TILE + cb * T::BLOCK, &tmdo, &bar_full[st], cb * T::CB, q0, h,
+                   b);
+        }
+        const long long row = ((long long)b * H + h) * Sp + q0;
+        bulk_load(sL + st * kRows, Lg + row, kRows * 4, &bar_full[st]);
+        bulk_load(sD + st * kRows, Dg + row, kRows * 4, &bar_full[st]);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  // a consumer warpgroup: keys kw0 .. kw0 + 63; this thread holds keys key0
+  // and key0 + 8 (accumulator rows), queries 8j + 2·t4 + {0, 1} of a tile
+  const int wg = warp / 4, g = lane / 4, t4 = lane % 4;
+  const int kw0 = k0 + kRows * wg, kw1 = min(kw0 + kRows - 1, S - 1);
+  const int key0 = kw0 + 16 * (warp % 4) + g;
+  const uint8_t* k_tile = sK + wg * T::TILE;
+  const uint8_t* v_tile = sV + wg * T::TILE;
+  const float c = scale * kLog2e;
+
+  float acc_k[HD / 2], acc_v[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  mbar_wait(bar_kv, 0);
+
+  for (int i = 0; i < n_iter; ++i) {
+    const int st = i % kTcStages, q0 = (qt_lo + i % nq) * kRows;
+    mbar_wait(&bar_full[st], (i / kTcStages) & 1);
+    const int q_last = min(q0 + kRows, S) - 1;
+    if (kw0 < S && (!causal || q_last >= kw0) && (window <= 0 || q0 - window + 1 <= kw1)) {
+      const uint8_t* q_tile = sQ + st * T::TILE;
+      const uint8_t* do_tile = sdO + st * T::TILE;
+      const float* l = sL + st * kRows;
+      const float* d = sD + st * kRows;
+      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: this warpgroup's keys × the tile's queries
+      float s[32], dp[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
+      wgmma_fence();
+      scores<HD>(s, k_tile, q_tile);
+      wgmma_commit();
+      scores<HD>(dp, v_tile, do_tile);
+      wgmma_commit();
+      // then dV += Pᵀ·dO and dK += dSᵀ·Q over the tile's queries in steps of 16
+      uint32_t p_hi[4][4], p_lo[4][4], ds_hi[4][4], ds_lo[4][4];
+      const auto at = [&](int j, int& query, int& key, float& l2, float& dd) {
+        const int qi = 8 * (j >> 2) + 2 * t4 + (j & 1);
+        query = q0 + qi;
+        key = key0 + 8 * ((j >> 1) & 1);
+        l2 = l[qi];
+        dd = d[qi];
+      };
+      const auto use_p = [&] {
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk) {
+          const uint64_t desc = T::row_desc(do_tile, kk);
+          wgmma_rs<HD>(acc_v, p_hi[kk], desc);
+          wgmma_rs<HD>(acc_v, p_lo[kk], desc);
+        }
+      };
+      const auto use_ds = [&] {
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk) {
+          const uint64_t desc = T::row_desc(q_tile, kk);
+          wgmma_rs<HD>(acc_k, ds_hi[kk], desc);
+          wgmma_rs<HD>(acc_k, ds_lo[kk], desc);
+        }
+      };
+      if (all_visible(q0, kw0, S, causal, window))
+        tile_elementwise<kCap, false, true>(s, dp, p_hi, p_lo, ds_hi, ds_lo, at, S, causal,
+                                            window, c, softcap, use_p, use_ds);
+      else
+        tile_elementwise<kCap, true, true>(s, dp, p_hi, p_lo, ds_hi, ds_lo, at, S, causal, window,
+                                           c, softcap, use_p, use_ds);
+      keep(acc_v);
+      keep(acc_k);
+    }
+    if (lane == 0) mbar_arrive(&bar_empty[st]);
   }
 
   __nv_bfloat16* dkb = dk + b * sdk.b + kvh * sdk.h;
   __nv_bfloat16* dvb = dv + b * sdv.b + kvh * sdv.h;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int key = k0 + kw + g + 8 * half;
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
     if (key >= S) continue;
+    uint32_t* dst_k = reinterpret_cast<uint32_t*>(dkb + key * sdk.s + 2 * t4);
+    uint32_t* dst_v = reinterpret_cast<uint32_t*>(dvb + key * sdv.s + 2 * t4);
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      const int col = nb * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(&dkb[key * sdk.s + col]) =
-          pack2(acc_k[nb][2 * half] * scale, acc_k[nb][2 * half + 1] * scale);
-      *reinterpret_cast<uint32_t*>(&dvb[key * sdv.s + col]) =
-          pack2(acc_v[nb][2 * half], acc_v[nb][2 * half + 1]);
+    for (int j = 0; j < HD / 8; ++j) {
+      dst_k[4 * j] = pack_bf16(acc_k[4 * j + 2 * r] * scale, acc_k[4 * j + 2 * r + 1] * scale);
+      dst_v[4 * j] = pack_bf16(acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
     }
   }
 }
 
-template <int HD>
+template <int HD, bool kCap>
 __global__ void __launch_bounds__(kTcThreads, 1)
-flash_bwd_dq_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dO,
-                const float* __restrict__ lse, const float* __restrict__ Dg,
-                __nv_bfloat16* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sdo,
-                Strides sdq, int H, int group, int S, int causal, int window, float scale,
-                float softcap) {
-  using C = Tc<HD>;
-  constexpr int LD = C::LD, LDT = C::LDT, NB = C::NB;
-  extern __shared__ __align__(16) uint8_t smem_tc[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_tc);  // [query][d]
-  __nv_bfloat16* sdO = sQ + kTcRows * LD;                          // [query][d]
-  __nv_bfloat16* sK = sdO + kTcRows * LD;                          // [key][d]
-  __nv_bfloat16* sV = sK + kTcRows * LD;                           // [key][d]
-  __nv_bfloat16* sKt = sV + kTcRows * LD;                          // [d][key]
-  float* sL = reinterpret_cast<float*>(sKt + HD * LDT);
-  float* sD = sL + kTcRows;
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
+                   const __grid_constant__ CUtensorMap tmv,
+                   const __grid_constant__ CUtensorMap tmdo, const float* __restrict__ Lg,
+                   const float* __restrict__ Dg, __nv_bfloat16* __restrict__ dq, Strides sdq,
+                   int B, int H, int KV, int S, int causal, int window, float scale,
+                   float softcap) {
+  using namespace hopper;
+  using T = Tiles<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);                 // two tiles: the block's queries
+  uint8_t* sdO = sQ + 2 * T::TILE;                   // two tiles
+  uint8_t* sK = sdO + 2 * T::TILE;                   // kTcStages tiles
+  uint8_t* sV = sK + kTcStages * T::TILE;            // kTcStages tiles
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + kTcStages * T::TILE);
+  uint64_t* bar_full = bar_q + 1;                    // a stage's K and V landed
+  uint64_t* bar_empty = bar_full + kTcStages;        // every consumer warp is done with it
 
-  const int nq = (S + kTcRows - 1) / kTcRows;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * kTcRows;  // longest first
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / group;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int qw = 16 * warp;  // this warp's queries, within the tile
-  load_rows_tc<HD>(sQ, nullptr, q + b * sq.b + h * sq.h, sq.s, q0, S);
-  load_rows_tc<HD>(sdO, nullptr, dO + b * sdo.b + h * sdo.h, sdo.s, q0, S);
-  const float* lb = lse + ((long long)b * H + h) * S;
-  const float* Db = Dg + ((long long)b * H + h) * S;
-  for (int i = threadIdx.x; i < kTcRows; i += kTcThreads) {
-    sL[i] = q0 + i < S ? lb[q0 + i] : 0.f;
-    sD[i] = q0 + i < S ? Db[q0 + i] : 0.f;
+  // longest query tiles first; the heads of one KV head adjacent
+  const int nq = (S + kTcRows - 1) / kTcRows, group = H / KV;
+  const int h = blockIdx.x % H, b = (blockIdx.x / H) % B, kvh = h / group;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x / (H * B))) * kTcRows;
+  // the key tiles some row in [r0, r1] sees
+  const auto tile_range = [&](int r0, int r1, int& lo, int& hi) {
+    hi = causal ? r1 / kRows : (S - 1) / kRows;
+    lo = (window > 0 && r0 - window + 1 > 0) ? (r0 - window + 1) / kRows : 0;
+  };
+  int kt_lo, kt_hi;
+  tile_range(q0, min(q0 + kTcRows, S) - 1, kt_lo, kt_hi);
+  const int n_tiles = kt_hi - kt_lo + 1;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(&bar_full[s], 1);
+      mbar_init(&bar_empty[s], kTcConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const __nv_bfloat16* kb = k + b * sk.b + kvh * sk.h;
-  const __nv_bfloat16* vb = v + b * sv.b + kvh * sv.h;
+  __syncthreads();
 
-  const int last_row = min(q0 + kTcRows, S) - 1;
-  const int kt_hi = causal ? last_row / kTcRows : (S - 1) / kTcRows;
-  const int kt_lo = (window > 0 && q0 - window + 1 > 0) ? (q0 - window + 1) / kTcRows : 0;
+  if (warp >= kTcConsumers / 32) {  // the producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kTcConsumers) {
+      mbar_expect_tx(bar_q, 4 * T::TILE);
+      for (int c = 0; c < 2; ++c)
+        for (int cb = 0; cb < T::NCB; ++cb) {
+          tma_load(sQ + c * T::TILE + cb * T::BLOCK, &tmq, bar_q, cb * T::CB, q0 + kRows * c, h,
+                   b);
+          tma_load(sdO + c * T::TILE + cb * T::BLOCK, &tmdo, bar_q, cb * T::CB, q0 + kRows * c,
+                   h, b);
+        }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kTcStages, k0 = (kt_lo + i) * kRows;
+        if (i >= kTcStages) mbar_wait(&bar_empty[st], (i / kTcStages - 1) & 1);
+        mbar_expect_tx(&bar_full[st], 2 * T::TILE);
+        for (int cb = 0; cb < T::NCB; ++cb) {
+          tma_load(sK + st * T::TILE + cb * T::BLOCK, &tmk, &bar_full[st], cb * T::CB, k0, kvh,
+                   b);
+          tma_load(sV + st * T::TILE + cb * T::BLOCK, &tmv, &bar_full[st], cb * T::CB, k0, kvh,
+                   b);
+        }
+      }
+    }
+    return;
+  }
 
-  float acc[NB][4];
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  // a consumer warpgroup: queries wr0 .. wr0 + 63; this thread holds rows
+  // row0 and row0 + 8, keys 8j + 2·t4 + {0, 1} of a tile
+  const int wg = warp / 4, g = lane / 4, t4 = lane % 4;
+  const int wr0 = q0 + kRows * wg, row0 = wr0 + 16 * (warp % 4) + g;
+  int w_lo = 0, w_hi = -1;  // the key tiles this warpgroup's rows see
+  if (wr0 < S) tile_range(wr0, min(wr0 + kRows, S) - 1, w_lo, w_hi);
+  const uint8_t* q_tile = sQ + wg * T::TILE;
+  const uint8_t* do_tile = sdO + wg * T::TILE;
+  const long long lrow = ((long long)b * H + h) * padded(S);
+  float l2[2], dr[2];
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    l2[r] = row < S ? Lg[lrow + row] : 0.f;
+    dr[r] = row < S ? Dg[lrow + row] : 0.f;
+  }
+  const float c = scale * kLog2e;
 
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k0 = kt * kTcRows;
-    __syncthreads();  // the previous tile's K, V are no longer read
-    load_rows_tc<HD>(sK, sKt, kb, sk.s, k0, S);
-    load_rows_tc<HD>(sV, nullptr, vb, sv.s, k0, S);
-    __syncthreads();
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  mbar_wait(bar_q, 0);
 
-    float s[8][4], dp[8][4];  // S and dP: this warp's 16 queries × the 64 keys
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kTcStages, kt = kt_lo + i, k0 = kt * kRows;
+    mbar_wait(&bar_full[st], (i / kTcStages) & 1);
+    if (kt >= w_lo && kt <= w_hi) {
+      const uint8_t* k_tile = sK + st * T::TILE;
+      // S = Q·Kᵀ and dP = dO·Vᵀ: this warpgroup's queries × the tile's keys
+      float s[32], dp[32];
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
+      for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
+      wgmma_fence();
+      scores<HD>(s, q_tile, k_tile);
+      wgmma_commit();
+      scores<HD>(dp, do_tile, sV + st * T::TILE);
+      wgmma_commit();
+      // then dQ += dS·K over the tile's keys in steps of 16 (P feeds no product)
+      uint32_t p_hi[4][4], p_lo[4][4], ds_hi[4][4], ds_lo[4][4];
+      const auto at = [&](int j, int& query, int& key, float& ll, float& dd) {
+        const int r = (j >> 1) & 1;
+        query = row0 + 8 * r;
+        key = k0 + 8 * (j >> 2) + 2 * t4 + (j & 1);
+        ll = l2[r];
+        dd = dr[r];
+      };
+      const auto use_ds = [&] {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
-    mma_ss<HD, 8>(dp, sdO + qw * LD, LD, sV, LD, g, t);
-    mma_ss<HD, 8>(s, sQ + qw * LD, LD, sK, LD, g, t);
-    probs_tc(s, dp, sL, sD, q0 + qw, k0, qw, false, g, t, S, causal, window, scale, softcap);
-    mma_rs<kTcRows, NB>(acc, dp, sKt, LDT, g, t);   // dQ += dS·K
+        for (int kk = 0; kk < kRows / 16; ++kk) {
+          const uint64_t desc = T::row_desc(k_tile, kk);
+          wgmma_rs<HD>(acc, ds_hi[kk], desc);
+          wgmma_rs<HD>(acc, ds_lo[kk], desc);
+        }
+      };
+      const auto none = [] {};
+      if (all_visible(wr0, k0, S, causal, window))
+        tile_elementwise<kCap, false, false>(s, dp, p_hi, p_lo, ds_hi, ds_lo, at, S, causal,
+                                             window, c, softcap, none, use_ds);
+      else
+        tile_elementwise<kCap, true, false>(s, dp, p_hi, p_lo, ds_hi, ds_lo, at, S, causal,
+                                            window, c, softcap, none, use_ds);
+      keep(acc);
+    }
+    if (lane == 0) mbar_arrive(&bar_empty[st]);
   }
 
   __nv_bfloat16* dqb = dq + b * sdq.b + h * sdq.h;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + qw + g + 8 * half;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
     if (row >= S) continue;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(dqb + row * sdq.s + 2 * t4);
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-      *reinterpret_cast<uint32_t*>(&dqb[row * sdq.s + nb * 8 + 2 * t]) =
-          pack2(acc[nb][2 * half] * scale, acc[nb][2 * half + 1] * scale);
+    for (int j = 0; j < HD / 8; ++j)
+      dst[4 * j] = pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
   }
 }
+
+// ------------------------------------------------------------ host side
 
 // the route of a dK/dV or dQ launch, chosen by the wrapper
 constexpr int kRouteF32 = 0;           // f32: CUDA cores
 constexpr int kRouteBf16 = 1;          // bf16 at hd = 256: CUDA cores
-constexpr int kRouteTensorCores = 2;   // bf16 at hd <= 128: mma.sync
+constexpr int kRouteTensorCores = 2;   // bf16 at hd <= 128: wgmma
 
 struct Args {
   const void *q, *k, *v, *dO;
-  const float *lse, *D;
+  const float *L, *D;
   void *dq, *dk, *dv;
   Strides sq, sk, sv, sdo, sdq, sdk, sdv;
   int B, H, KV, S, causal, window;
@@ -699,7 +918,7 @@ int launch_dkdv(const Args& a) {
   const dim3 grid((a.S + Cfg<HD>::BT - 1) / Cfg<HD>::BT, a.KV, a.B);
   flash_bwd_dkdv<T, HD><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dO), a.lse, a.D, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sq,
+      static_cast<const T*>(a.dO), a.L, a.D, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sq,
       a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.H, a.H / a.KV, a.S, a.causal, a.window, a.scale,
       a.softcap);
   return static_cast<int>(cudaGetLastError());
@@ -714,37 +933,55 @@ int launch_dq(const Args& a) {
   const dim3 grid((a.S + Cfg<HD>::BT - 1) / Cfg<HD>::BT, a.H, a.B);
   flash_bwd_dq<T, HD><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dO), a.lse, a.D, static_cast<T*>(a.dq), a.sq, a.sk, a.sv, a.sdo,
+      static_cast<const T*>(a.dO), a.L, a.D, static_cast<T*>(a.dq), a.sq, a.sk, a.sv, a.sdo,
       a.sdq, a.H, a.H / a.KV, a.S, a.causal, a.window, a.scale, a.softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
-int launch_tc(int pass, const Args& a) {
+template <int HD, bool kCap>
+int launch_wgmma(int pass, const Args& a) {
+  using T = hopper::Tiles<HD>;
+  CUtensorMap mq, mk, mv, mdo;
+  int err = hopper::make_map(&mq, a.q, HD, a.S, a.H, a.B, a.sq.s, a.sq.h, a.sq.b, T::CB,
+                             T::SWIZZLE);
+  if (err == 0)
+    err = hopper::make_map(&mk, a.k, HD, a.S, a.KV, a.B, a.sk.s, a.sk.h, a.sk.b, T::CB,
+                           T::SWIZZLE);
+  if (err == 0)
+    err = hopper::make_map(&mv, a.v, HD, a.S, a.KV, a.B, a.sv.s, a.sv.h, a.sv.b, T::CB,
+                           T::SWIZZLE);
+  if (err == 0)
+    err = hopper::make_map(&mdo, a.dO, HD, a.S, a.H, a.B, a.sdo.s, a.sdo.h, a.sdo.b, T::CB,
+                           T::SWIZZLE);
+  if (err != 0) return err;
   using B16 = __nv_bfloat16;
-  const dim3 block(kTcThreads), grid((a.S + kTcRows - 1) / kTcRows, pass == 0 ? a.KV : a.H, a.B);
-  cudaError_t err;
+  const long long tiles = (a.S + kTcRows - 1) / kTcRows;
+  cudaError_t attr;
   if (pass == 0) {
-    constexpr size_t smem = Tc<HD>::SMEM_DKDV;
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_tc<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dkdv_tc<HD><<<grid, block, smem, a.stream>>>(
-        static_cast<const B16*>(a.q), static_cast<const B16*>(a.k), static_cast<const B16*>(a.v),
-        static_cast<const B16*>(a.dO), a.lse, a.D, static_cast<B16*>(a.dk),
-        static_cast<B16*>(a.dv), a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.H, a.H / a.KV, a.S,
-        a.causal, a.window, a.scale, a.softcap);
+    constexpr size_t smem = Wg<HD>::SMEM_DKDV;
+    attr = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<HD, kCap>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    flash_bwd_dkdv_wgmma<HD, kCap><<<static_cast<unsigned>(tiles * a.KV * a.B), kTcThreads,
+                                     smem, a.stream>>>(
+        mq, mk, mv, mdo, a.L, a.D, static_cast<B16*>(a.dk), static_cast<B16*>(a.dv), a.sdk,
+        a.sdv, a.B, a.H, a.KV, a.S, a.causal, a.window, a.scale, a.softcap);
   } else {
-    constexpr size_t smem = Tc<HD>::SMEM_DQ;
-    err = cudaFuncSetAttribute(flash_bwd_dq_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dq_tc<HD><<<grid, block, smem, a.stream>>>(
-        static_cast<const B16*>(a.q), static_cast<const B16*>(a.k), static_cast<const B16*>(a.v),
-        static_cast<const B16*>(a.dO), a.lse, a.D, static_cast<B16*>(a.dq), a.sq, a.sk, a.sv,
-        a.sdo, a.sdq, a.H, a.H / a.KV, a.S, a.causal, a.window, a.scale, a.softcap);
+    constexpr size_t smem = Wg<HD>::SMEM_DQ;
+    attr = cudaFuncSetAttribute(flash_bwd_dq_wgmma<HD, kCap>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    flash_bwd_dq_wgmma<HD, kCap><<<static_cast<unsigned>(tiles * a.H * a.B), kTcThreads, smem,
+                                   a.stream>>>(mq, mk, mv, mdo, a.L, a.D, static_cast<B16*>(a.dq),
+                                               a.sdq, a.B, a.H, a.KV, a.S, a.causal, a.window,
+                                               a.scale, a.softcap);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_wgmma_hd(int pass, const Args& a) {
+  return a.softcap > 0.f ? launch_wgmma<HD, true>(pass, a) : launch_wgmma<HD, false>(pass, a);
 }
 
 template <typename T, int HD>
@@ -764,23 +1001,23 @@ int dispatch(int pass, int hd, const Args& a) {
   }
 }
 
-int dispatch_tc(int pass, int hd, const Args& a) {
+int dispatch_wgmma(int pass, int hd, const Args& a) {
   switch (hd) {
-    case 16: return launch_tc<16>(pass, a);
-    case 32: return launch_tc<32>(pass, a);
-    case 64: return launch_tc<64>(pass, a);
-    case 128: return launch_tc<128>(pass, a);
+    case 16: return launch_wgmma_hd<16>(pass, a);
+    case 32: return launch_wgmma_hd<32>(pass, a);
+    case 64: return launch_wgmma_hd<64>(pass, a);
+    case 128: return launch_wgmma_hd<128>(pass, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-int run(int pass, const void* q, const void* k, const void* v, const void* dO, const float* lse,
+int run(int pass, const void* q, const void* k, const void* v, const void* dO, const float* L,
         const float* D, void* dq, void* dk, void* dv, const long long* st, int B, int H, int KV,
         int S, int hd, int causal, int window, float scale, float softcap, int route,
         void* stream) {
   if (B == 0 || H == 0 || S == 0) return 0;
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, dO, lse, D, dq, dk, dv,
+  const Args a{q, k, v, dO, L, D, dq, dk, dv,
                {st[0], st[1], st[2]}, {st[3], st[4], st[5]}, {st[6], st[7], st[8]},
                {st[9], st[10], st[11]}, {st[12], st[13], st[14]}, {st[15], st[16], st[17]},
                {st[18], st[19], st[20]},
@@ -788,45 +1025,57 @@ int run(int pass, const void* q, const void* k, const void* v, const void* dO, c
   switch (route) {
     case kRouteF32: return dispatch<float>(pass, hd, a);
     case kRouteBf16: return dispatch<__nv_bfloat16>(pass, hd, a);
-    case kRouteTensorCores: return dispatch_tc(pass, hd, a);
+    case kRouteTensorCores: return dispatch_wgmma(pass, hd, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <int V, typename T>
+void launch_prep(const void* o, const void* dO, const float* lse, float* L, float* D, Strides so,
+                 Strides sd, int H, int S, int hd, long long rows, cudaStream_t stream) {
+  const long long threads = rows * (hd / V < 32 ? hd / V : 32);
+  flash_bwd_prep<V, T><<<static_cast<unsigned>((threads + kThreads - 1) / kThreads), kThreads, 0,
+                         stream>>>(static_cast<const T*>(o), static_cast<const T*>(dO), lse, L,
+                                   D, so, sd, H, S, hd, rows);
+}
+
 }  // namespace
 
-// D = rowsum(dO ∘ O) in f32, (B, H, S) contiguous. o and dO f32 or bf16
-// (bf16 != 0), strides (batch, head, sequence) in elements.
-extern "C" int flash_attention_bwd_prep(const void* o, const void* dO, float* D, long long ob,
-                                        long long oh, long long os, long long db, long long dh,
-                                        long long ds, int B, int H, int S, int hd, int bf16,
-                                        void* stream) {
-  const long long rows = (long long)B * H * S;
+// D = rowsum(dO ∘ O) and L = lse·log2(e) from the forward's lse (B, H, S),
+// both written (B, H, Sp) f32 with Sp = S rounded up to 64 and zeros past
+// S. o and dO f32 or bf16 (bf16 != 0), strides (batch, head, sequence) in
+// elements.
+extern "C" int flash_attention_bwd_prep(const void* o, const void* dO, const float* lse,
+                                        float* L, float* D, long long ob, long long oh,
+                                        long long os, long long db, long long dh, long long ds,
+                                        int B, int H, int S, int hd, int bf16, void* stream) {
+  const long long rows = (long long)B * H * padded(S);
   if (rows == 0) return 0;
-  const unsigned blocks = static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32));
   const Strides so{ob, oh, os}, sd{db, dh, ds};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    flash_bwd_prep<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dO), D, so, sd,
-        H, S, hd, rows);
-  else
-    flash_bwd_prep<float><<<blocks, kThreads, 0, st>>>(static_cast<const float*>(o),
-                                                       static_cast<const float*>(dO), D, so, sd,
-                                                       H, S, hd, rows);
+  // 16-byte chunks where every row of o and dO starts on a 16-byte boundary
+  const int v = bf16 ? 8 : 4;
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(o) | reinterpret_cast<uintptr_t>(dO)) % 16 == 0 &&
+      (ob | oh | os | db | dh | ds | hd) % v == 0;
+  if (bf16 && aligned) launch_prep<8, __nv_bfloat16>(o, dO, lse, L, D, so, sd, H, S, hd, rows, st);
+  else if (bf16) launch_prep<1, __nv_bfloat16>(o, dO, lse, L, D, so, sd, H, S, hd, rows, st);
+  else if (aligned) launch_prep<4, float>(o, dO, lse, L, D, so, sd, H, S, hd, rows, st);
+  else launch_prep<1, float>(o, dO, lse, L, D, so, sd, H, S, hd, rows, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 // dK and dV (flash_attention_bwd_dkdv) or dQ (flash_attention_bwd_dq). Both
-// take the same arguments: q, k, v, dO, lse, D, dq, dk, dv (the entry writes
-// only its own outputs), then the (batch, head, sequence) element strides of
-// q, k, v, dO, dq, dk and dv in that order, the sizes, the mask, the scale,
-// the soft-cap (0: none) and the route: 0 f32 on the CUDA cores, 1 bf16 on
-// the CUDA cores, 2 bf16 on the tensor cores (hd <= 128; q, k, v and dO
-// with strides in multiples of 8 elements on 16-byte aligned bases).
+// take the same arguments: q, k, v, dO, L and D (prep's padded outputs), dq,
+// dk, dv (the entry writes only its own outputs), then the (batch, head,
+// sequence) element strides of q, k, v, dO, dq, dk and dv in that order, the
+// sizes, the mask, the scale, the soft-cap (0: none) and the route: 0 f32 on
+// the CUDA cores, 1 bf16 on the CUDA cores, 2 bf16 on the tensor cores (hd
+// <= 128; q, k, v and dO with strides in multiples of 8 elements on 16-byte
+// aligned bases).
 #define FLASH_BWD_ENTRY(NAME, PASS)                                                              \
   extern "C" int NAME(const void* q, const void* k, const void* v, const void* dO,               \
-                      const float* lse, const float* D, void* dq, void* dk, void* dv,            \
+                      const float* L, const float* D, void* dq, void* dk, void* dv,              \
                       long long s0, long long s1, long long s2, long long s3, long long s4,      \
                       long long s5, long long s6, long long s7, long long s8, long long s9,       \
                       long long s10, long long s11, long long s12, long long s13, long long s14, \
@@ -835,7 +1084,7 @@ extern "C" int flash_attention_bwd_prep(const void* o, const void* dO, float* D,
                       int window, float scale, float softcap, int route, void* stream) {         \
     const long long st[21] = {s0,  s1,  s2,  s3,  s4,  s5,  s6,  s7,  s8,  s9, s10,              \
                               s11, s12, s13, s14, s15, s16, s17, s18, s19, s20};                 \
-    return run(PASS, q, k, v, dO, lse, D, dq, dk, dv, st, B, H, KV, S, hd, causal, window,       \
+    return run(PASS, q, k, v, dO, L, D, dq, dk, dv, st, B, H, KV, S, hd, causal, window,         \
                scale, softcap, route, stream);                                                   \
   }
 

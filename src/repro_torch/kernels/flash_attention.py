@@ -27,8 +27,8 @@ log-sum-exp, and the backward runs ``csrc/flash_attention_bwd.cu`` (D =
 rowsum(dO ∘ O), then dK and dV, then dQ: three launches), routed
 explicitly too:
 
-- bf16 at hd <= 128 -> the tensor cores (``mma.sync``, P and dS as bf16
-  hi + lo halves); counted in ``flash_attention.launches_bwd_tc``;
+- bf16 at hd <= 128 -> the tensor cores (wgmma on a TMA-fed ring, P and
+  dS as bf16 hi + lo halves); counted in ``flash_attention.launches_bwd_tc``;
 - f32, or bf16 at hd = 256 -> CUDA-core f32 FMAs; counted in
   ``flash_attention.launches_bwd_fma``;
 
@@ -61,13 +61,15 @@ ROUTES = {torch.bfloat16: ("flash_attention_wgmma", "flash_attention_wgmma_fwd",
           torch.float32: ("flash_attention", "flash_attention_fwd", "launches_f32")}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-# the backward's library: D = rowsum(dO ∘ O), then dK and dV, then dQ; the
-# route code the last two take, by input type and head_dim
+# the backward's library: D = rowsum(dO ∘ O) beside lse·log2(e), both
+# (B, H, S) with S padded to BWD_ROW_PAD, then dK and dV, then dQ; the route
+# code the last two take, by input type and head_dim
 TC_BWD_MAX_HEAD_DIM = 128
+BWD_ROW_PAD = 64
 _BWD_ROUTE_F32, _BWD_ROUTE_BF16_FMA, _BWD_ROUTE_TC = 0, 1, 2
 _BWD_PASSES = ("flash_attention_bwd_prep", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 _BWD_ENTRIES = {
-    "flash_attention_bwd_prep": ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 6
+    "flash_attention_bwd_prep": ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 6
                                  + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     **dict.fromkeys(_BWD_PASSES[1:], [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 21
                     + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
@@ -248,20 +250,24 @@ def _backward(q, k, v, o, lse, do, causal: bool, window: int, scale: float, soft
     tc = bf16 and hd <= TC_BWD_MAX_HEAD_DIM
     if do.stride(-1) != 1 or (tc and not _tma_ok(do)):
         do = do.contiguous()
-    if tc:   # 16-byte row loads: the forward's TMA rule, checked the same way
-        for t, n in ((q, "q"), (k, "k"), (v, "v")):
-            _tma_strides(t, n)
     route = _BWD_ROUTE_TC if tc else _BWD_ROUTE_BF16_FMA if bf16 else _BWD_ROUTE_F32
     dq, dk, dv = (_model_layout(B, n, S, hd, q) for n in (H, KV, KV))
     if dq.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    D = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if tc:   # q, k, v and dO through TMA descriptors: the forward's rule
+        strides = [s for t, n in ((q, "q"), (k, "k"), (v, "v"), (do, "dO"))
+                   for s in _tma_strides(t, n)]
+    else:
+        strides = [s for t in (q, k, v, do) for s in t.stride()[:3]]
+    strides += [s for t in (dq, dk, dv) for s in t.stride()[:3]]
+    Sp = -(-S // BWD_ROW_PAD) * BWD_ROW_PAD
+    L, D = torch.empty((2, B, H, Sp), dtype=torch.float32, device=q.device)
+    lse = lse.contiguous()
     lib = build.load("flash_attention_bwd", _BWD_ENTRIES)
-    strides = [s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]]
     calls = (
-        (o.data_ptr(), do.data_ptr(), D.data_ptr(), *o.stride()[:3], *do.stride()[:3],
-         B, H, S, hd, int(bf16)),
-        *[(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        (o.data_ptr(), do.data_ptr(), lse.data_ptr(), L.data_ptr(), D.data_ptr(),
+         *o.stride()[:3], *do.stride()[:3], B, H, S, hd, int(bf16)),
+        *[(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), L.data_ptr(),
            D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *strides,
            B, H, KV, S, hd, int(causal), int(window), scale, float(softcap), route)] * 2)
     counter = "launches_bwd_tc" if tc else "launches_bwd_fma"

@@ -1,5 +1,6 @@
-"""The port's first rule: ``src/repro_torch`` and ``chip_smoke.py`` import
-``torch`` and never ``jax`` nor anything of the JAX package ``repro`` —
+"""The port's first rule: ``src/repro_torch``, ``chip_smoke.py`` and the
+port's tools (``tools/*.py``) import ``torch`` and never ``jax`` nor
+anything of the JAX package ``repro`` —
 not at module level and not inside a function. Each file is parsed with
 ``ast`` (nothing is imported), one case per file."""
 import ast
@@ -9,7 +10,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted(p.relative_to(ROOT).as_posix()
-               for p in (ROOT / "src" / "repro_torch").rglob("*.py")) + ["chip_smoke.py"]
+               for p in [*(ROOT / "src" / "repro_torch").rglob("*.py"),
+                         *(ROOT / "tools").glob("*.py")]) + ["chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -394,6 +394,152 @@ def test_flash_wgmma_model_matches_pallas(jx, B, H, KV, S, hd, win):
     _within(got, np.asarray(pallas.astype(jx.jnp.float32)), FLASH_RTOL, FLASH_ATOL)
 
 
+def _split(x):
+    """x (f32) as the kernels carry it into a bf16 product: hi + lo halves."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def _tile_visible(q0, k0, S, causal, window):
+    """The kernel's ``all_visible``: a 64 × 64 tile that needs no mask."""
+    return (q0 + 63 < S and k0 + 63 < S and (not causal or k0 + 63 <= q0)
+            and (not window or q0 + 63 - window < k0))
+
+
+def _flash_bwd_wgmma_model(q, k, v, o, lse, do, *, causal=True, window=0, scale=None,
+                           softcap=0.0):
+    """The bf16 wgmma backward's arithmetic in plain torch, tile by tile.
+
+    prep: D = rowsum(dO ∘ O) and lse·log2(e). dK/dV: blocks of 128 keys
+    (two warpgroups of 64) walk the GQA group's heads and the 64-row query
+    tiles from the block's window, a warpgroup skipping tiles none of whose
+    pairs it sees and masking only tiles that are not wholly visible; Sᵀ
+    and dPᵀ of bf16 operands in f32, P = 2^(s·scale·log2(e) − lse·log2(e))
+    (through tanh with a soft-cap), dS = P ∘ (dP − D) (∘ 1 − tanh²), then
+    dV += Pᵀ·dO and dK += dSᵀ·Q with P and dS as bf16 hi + lo. dQ: blocks of
+    128 queries walk the key tiles their rows see, dQ += dS·K the same way.
+    """
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    g = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    log2e = 1.0 / math.log(2)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    D = (dof * o.float()).sum(-1)
+    L2 = lse.float() * log2e
+
+    def tile(h, kvh, q0, k0):
+        """(P, dS) of queries q0 + [0, 64) and keys k0 + [0, 64) of head h."""
+        q1, k1 = min(q0 + 64, S), min(k0 + 64, S)
+        s = qf[:, h, q0:q1] @ kf[:, kvh, k0:k1].transpose(-1, -2)
+        dp = dof[:, h, q0:q1] @ vf[:, kvh, k0:k1].transpose(-1, -2)
+        if softcap:
+            th = torch.tanh(s * scale / softcap)
+            p = torch.exp2(th * (softcap * log2e) - L2[:, h, q0:q1, None])
+        else:
+            p = torch.exp2(s * (scale * log2e) - L2[:, h, q0:q1, None])
+        if not _tile_visible(q0, k0, S, causal, window):
+            rows = torch.arange(q0, q1)[:, None]
+            cols = torch.arange(k0, k1)[None, :]
+            ok = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool)
+            if causal:
+                ok &= cols <= rows
+            if window:
+                ok &= cols > rows - window
+            p = torch.where(ok, p, torch.zeros(()))
+        ds = p * (dp - D[:, h, q0:q1, None])
+        if softcap:
+            ds = ds * (1 - th * th)
+        return p, ds
+
+    dq = torch.zeros((B, H, S, hd))
+    dk = torch.zeros((B, KV, S, hd))
+    dv = torch.zeros((B, KV, S, hd))
+    for kvh in range(KV):
+        for k0 in range(0, S, 128):
+            k_last = min(k0 + 128, S) - 1
+            qt_lo = k0 // 64 if causal else 0
+            qt_hi = (min(S - 1, k_last + window - 1) if window else S - 1) // 64
+            for h in range(kvh * g, kvh * g + g):
+                for qt in range(qt_lo, qt_hi + 1):
+                    q0 = 64 * qt
+                    q_last = min(q0 + 64, S) - 1
+                    for kw0 in (k0, k0 + 64):
+                        kw1 = min(kw0 + 63, S - 1)
+                        if kw0 >= S or (causal and q_last < kw0) or (
+                                window and q0 - window + 1 > kw1):
+                            continue
+                        p, ds = tile(h, kvh, q0, kw0)
+                        kw_end = min(kw0 + 64, S)
+                        rows = slice(q0, q_last + 1)
+                        for half in _split(p):
+                            dv[:, kvh, kw0:kw_end] += half.transpose(-1, -2) @ dof[:, h, rows]
+                        for half in _split(ds):
+                            dk[:, kvh, kw0:kw_end] += half.transpose(-1, -2) @ qf[:, h, rows]
+    for h in range(H):
+        kvh = h // g
+        for q0 in range(0, S, 128):
+            for wr0 in (q0, q0 + 64):
+                if wr0 >= S:
+                    continue
+                r1 = min(wr0 + 64, S) - 1
+                hi_t = r1 // 64 if causal else (S - 1) // 64
+                lo_t = (wr0 - window + 1) // 64 if window and wr0 - window + 1 > 0 else 0
+                for kt in range(lo_t, hi_t + 1):
+                    _, ds = tile(h, kvh, wr0, 64 * kt)
+                    k_end = min(64 * kt + 64, S)
+                    for half in _split(ds):
+                        dq[:, h, wr0:r1 + 1] += half @ kf[:, kvh, 64 * kt:k_end]
+    return ((dq * scale).to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype))
+
+
+BWD_CASES = [   # (B, H, KV, S, hd, window, softcap)
+    (1, 4, 2, 150, 64, 0, 0.0),       # GQA, ragged S: a block's second warpgroup past S
+    (1, 14, 2, 200, 64, 0, 0.0),      # qwen2-0.5b's group of 7 heads
+    (1, 2, 2, 260, 128, 0, 0.0),      # olmo-1b's MHA at hd 128, interior tiles unmasked
+    (1, 4, 1, 200, 32, 70, 0.0),      # window
+    (2, 4, 2, 77, 16, 0, 30.0),       # soft-cap
+    (1, 2, 1, 300, 64, 100, 5.0),     # window and soft-cap over several tiles
+]
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,win,softcap", BWD_CASES)
+def test_flash_bwd_wgmma_model_matches_plain_version(B, H, KV, S, hd, win, softcap):
+    """The wgmma backward's design (tile walk, per-warpgroup skips, masks
+    only on the tiles that need one, P in base 2, P and dS as bf16 hi + lo)
+    stays within chip_smoke's bound of the plain version: one bf16 rounding,
+    2^-7·|plain| + 1e-4·max|plain|."""
+    _, (q, k, v) = _qkv(B, H, KV, S, hd, "bfloat16", seed=S + hd + 1)
+    do = torch.from_numpy(np.random.default_rng(S).normal(size=(B, H, S, hd))
+                          .astype(np.float32)).bfloat16()
+    o, lse = flash_attention_plain(q, k, v, window=win, softcap=softcap, return_lse=True)
+    got = _flash_bwd_wgmma_model(q, k, v, o, lse, do, window=win, softcap=softcap)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, window=win, softcap=softcap)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        _within(g, w, 2.0 ** -7, 1e-4 * float(w.float().abs().max()))
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,win,softcap", BWD_CASES[::2])
+def test_flash_bwd_wgmma_model_matches_jax_grad(jx, B, H, KV, S, hd, win, softcap):
+    """… and ``jax.grad`` of the reference's attention on the same bf16
+    inputs in f32, at chip_smoke's autograd bound (the reference's D reads
+    the unrounded o): 2^-6·|grad| + 1e-2·max|grad|."""
+    import jax
+    arrs, (q, k, v) = _qkv(B, H, KV, S, hd, "bfloat16", seed=S + hd + 1)
+    do = torch.from_numpy(np.random.default_rng(S).normal(size=(B, H, S, hd))
+                          .astype(np.float32)).bfloat16()
+    o, lse = flash_attention_plain(q, k, v, window=win, softcap=softcap, return_lse=True)
+    got = _flash_bwd_wgmma_model(q, k, v, o, lse, do, window=win, softcap=softcap)
+    dof = do.float().numpy()
+    want = jax.grad(lambda q_, k_, v_: jx.jnp.sum(
+        _jax_attention(jx, q_, k_, v_, True, win, softcap) * dof), argnums=(0, 1, 2))(
+        *[jx.jnp.asarray(a) for a in arrs])
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        _within(g, w, 2.0 ** -6, 1e-2 * float(np.abs(w).max()))
+
+
 def _rwkv6_chunked_model(r, k, v, logw, u, *, chunk=64, s0=None):
     """The chunk-parallel kernel's arithmetic in plain torch, f32 products
     (the kernel's 3 × TF32 split carries about 21 bits of each operand).
@@ -645,6 +791,35 @@ def test_gradients_never_bypass_a_kernel(monkeypatch):
     assert all(set(lib.bound.values()) == {1} for lib in libs.values())
 
 
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, 2), (torch.float32, 0)])
+def test_flash_backward_hands_its_passes_padded_rows(monkeypatch, dtype, route):
+    """The backward's three launches through a stand-in library: prep reads
+    the forward's lse and writes L (lse in log2 units) and D, both (B, H, S)
+    with S padded to a multiple of 64, from one allocation; both passes
+    read those two; the bf16 (wgmma) route hands q, k, v and dO over with
+    TMA-legal strides (a batch of one steps by 8 elements), the f32 route
+    with their own."""
+    import importlib
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    libs = stub_libraries(monkeypatch)
+    B, H, KV, S, hd = 1, 4, 2, 70, 64
+    q, o, do = (torch.zeros((B, S, H, hd), dtype=dtype).transpose(1, 2) for _ in range(3))
+    k = torch.zeros((B, S, KV, hd), dtype=dtype).transpose(1, 2)
+    lse = torch.zeros((B, H, S))
+    fa._backward(q, k, k, o, lse, do, True, 0, 0.125, 0.0)
+    lib = libs["flash_attention_bwd"]
+    assert lib.calls == list(fa._BWD_PASSES)
+    prep, dkdv, dq = lib.args
+    assert prep[2] == lse.data_ptr() and prep[-2] == int(dtype == torch.bfloat16)
+    L, D = prep[3], prep[4]
+    assert D - L == B * H * fa.BWD_ROW_PAD * 2 * 4          # S = 70 padded to 128
+    assert dkdv[4:6] == dq[4:6] == (L, D)
+    assert dkdv[:4] == dq[:4] == (q.data_ptr(), k.data_ptr(), k.data_ptr(), do.data_ptr())
+    assert dkdv[-2] == dq[-2] == route
+    want = (8 if route == 2 else S * H * hd, hd, H * hd)   # q's (batch, head, sequence)
+    assert dkdv[9:12] == dq[9:12] == want
+
+
 # ------------------------------------------------- the kernels on the card
 
 @pytest.mark.cuda
@@ -809,14 +984,16 @@ def test_cuda_rwkv6_routes_match_plain_version(card):
 
 @pytest.mark.cuda
 def test_cuda_flash_backward_matches_plain_versions(card):
-    """The backward kernel's routes (tensor cores for bf16 at hd <= 128, CUDA
-    cores otherwise) at every head_dim, f32 and bf16, GQA, MQA, window,
-    soft-cap, ragged S, the model's strided views: against
-    ``flash_attention_bwd_plain`` on the same o and lse (f32 1e-4, bf16 one
-    rounding: 2^-7·|plain| + 1e-4·max|plain|) and against autograd of the
-    plain version in f32 (bf16: its D reads the bf16-rounded o, and both
-    round once, so 2^-6·|plain| + 1e-2·max|plain|); the log-sum-exp of each
-    forward route against the plain version's."""
+    """The backward kernel's routes (wgmma for bf16 at hd <= 128, CUDA cores
+    otherwise) at every head_dim, f32 and bf16, GQA, MQA, window, soft-cap,
+    ragged S, the model's strided views, and qwen2-0.5b's and olmo-1b's
+    train shapes at batch 1: against ``flash_attention_bwd_plain`` on the
+    same o and lse (f32 1e-4, bf16 one rounding: 2^-7·|plain| +
+    1e-4·max|plain|) and against autograd of the plain version in f32 (bf16:
+    its D reads the bf16-rounded o, and both round once, so 2^-6·|plain| +
+    1e-2·max|plain|); the log-sum-exp of each forward route against the
+    plain version's; a second backward call on the same inputs gives the
+    same bits (no atomics: every sum in one block, in a fixed order)."""
     import importlib
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.kernels.flash_attention import HEAD_DIMS
@@ -825,7 +1002,9 @@ def test_cuda_flash_backward_matches_plain_versions(card):
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(2, 16, 1, 333, 256, 100, 0.0, torch.bfloat16),
               (2, 4, 1, 130, 64, 0, 30.0, torch.float32),
-              (1, 14, 2, 77, 64, 0, 30.0, torch.bfloat16)]
+              (1, 14, 2, 77, 64, 0, 30.0, torch.bfloat16),
+              (1, 14, 2, 2048, 64, 0, 0.0, torch.bfloat16),      # qwen2-0.5b's train shape
+              (1, 16, 16, 2048, 128, 0, 0.0, torch.bfloat16)]    # olmo-1b's
     for B, H, KV, S, hd, win, cap, dt in cases:
         q, k, v, do = (torch.randn((B, S, n, hd), generator=gen, device="cuda").to(dt)
                        .transpose(1, 2) for n in (H, KV, KV, H))
@@ -841,6 +1020,9 @@ def test_cuda_flash_backward_matches_plain_versions(card):
         o, lse = fa._forward(q, k, v, True, win, 1.0 / hd ** 0.5, cap, with_lse=True)
         po, plse = flash_attention_plain(q, k, v, window=win, softcap=cap, return_lse=True)
         _within(lse, plse, 1e-5, 1e-5)
+        first = fa._backward(q, k, v, o, lse, do, True, win, 1.0 / hd ** 0.5, cap)
+        again = fa._backward(q, k, v, o, lse, do, True, win, 1.0 / hd ** 0.5, cap)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
         want = flash_attention_bwd_plain(q, k, v, o, lse, do, window=win, softcap=cap)
         qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
         auto = torch.autograd.grad(flash_attention_plain(qf, kf, vf, window=win, softcap=cap),
