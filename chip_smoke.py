@@ -94,21 +94,39 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              train shapes the forward's time with and without the
              log-sum-exp beside the forward of
              ``scaled_dot_product_attention(is_causal=True)``.
+   scan bwd kernels — the RG-LRU backward kernel at recurrentgemma-9b's
+             train shape (8, 2048, 4096), with and without h0 and dh_last,
+             bit for bit against its plain version; the RWKV6 backward at
+             rwkv6-3b's (8, 48, 2048, 64) bf16, with and without s0 and
+             dS_final, a ragged S and an f32 case, against its plain version
+             (2e-3·|plain| + 1e-3·max of each gradient; bf16 dr, dk, dv
+             2^-7·|plain|); both against autograd of the plain forwards
+             (the RG-LRU's within 1e-5·|a| + 1e-6·max); two calls give the
+             same bits; times as in phase 3 beside the forward's at the same
+             shape, the bound the bytes (the RWKV6 backward's products at
+             the TF32 rate beside them).
 13. train  — ``repro_torch.launch.train.run`` at full width as a user
-             calls it: qwen2-0.5b (adamw, lr 3e-4, batch 8, seq 2048) 4
+             calls it (batch 8, seq 2048, lr 3e-4): qwen2-0.5b (adamw) 4
              steps with --micro 1, checkpointing every 2 steps; a second
              run resumes at step 2 (its losses printed beside the first
              run's, held within 1e-2 relative: nothing makes the card's sums
              repeat their order between runs); 4 steps with --micro
-             2; olmo-1b 3 steps. Launch counts zeroed before each run and
-             checked after it against the routing table (flash forward once
-             a layer and micro-batch and once more in remat's recompute, the
-             backward's three launches, no scan); every loss and gradient
-             norm finite; step s cold and warm, tokens/s, peak memory; a
-             torch.profiler breakdown of one warm step of two of the runs.
+             2; olmo-1b (adamw) 3 steps; rwkv6-3b (sgdm, 32 layers) 3 steps;
+             recurrentgemma-9b (sgdm) at full width with its depth cut to 5
+             layers (one unit and the tail), 3 steps. Launch counts zeroed
+             before each run and checked after it against the routing table
+             (each layer's forward once a micro-batch in the tail and twice
+             in a unit, remat's recompute; each attention, RG-LRU and RWKV6
+             layer's backward once: flash's three launches by route, the
+             RG-LRU's one, the RWKV6's three); every loss and gradient norm
+             finite; the state reckoned at the update, step s cold and warm,
+             tokens/s, peak memory; a torch.profiler breakdown of one warm
+             step of each run that neither checkpoints nor resumes.
 14. train parity — reduced width, card against CPU: one train step (sgd
-             and adamw) from the same weights and tokens, loss and every
-             parameter within 1e-4 in f32 and 0.08 in bf16.
+             and adamw) of qwen2-0.5b, olmo-1b, rwkv6-3b and
+             recurrentgemma-9b from the same weights and tokens, loss and
+             every parameter within 1e-4 in f32 and 0.08 in bf16; on the
+             card each backward kernel launched as the routing table says.
 
 Phases 4, 7, 10 and 13 are the main paths (the FEMNIST round uncompressed
 and compressed, LM serving, LM training). The last lines are the
@@ -1034,10 +1052,13 @@ def _lm_kernels():
             (("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_wgmma",
               "flash_bwd_dq_wgmma"), c["flash_attention"], "launches_bwd"),
             (("rglru_ring", "rglru_scalar"), c["rglru_scan"], "launches"),
+            (("rglru_bwd_ring", "rglru_bwd_scalar"), c["rglru_scan"], "launches_bwd"),
             (("rwkv6_states",), rwkv, "launches_chunked"),
             (("rwkv6_state_scan",), rwkv, "launches_chunked"),
             (("rwkv6_outputs",), rwkv, "launches_chunked"),
-            (("rwkv6_decode",), rwkv, "launches_decode")]
+            (("rwkv6_decode",), rwkv, "launches_decode"),
+            (("rwkv6_bwd_states", "rwkv6_bwd_state_scan", "rwkv6_bwd_grads"), rwkv,
+             "launches_bwd")]
 
 
 def _zero_launches(fn) -> None:
@@ -1071,7 +1092,7 @@ def _route_table(cfg, gen: int):
     return {"flash_attention": {"launches_bwd": 0, "launches_bwd_fma": 0, "launches_bwd_tc": 0,
                                 "launches_f32": 0 if tc else layers.count("attn"),
                                 "launches_tc": layers.count("attn") if tc else 0},
-            "rwkv6_scan": {"launches_chunked": layers.count("rwkv"),
+            "rwkv6_scan": {"launches_bwd": 0, "launches_chunked": layers.count("rwkv"),
                            "launches_decode": layers.count("rwkv") * gen}}
 
 
@@ -1239,9 +1260,14 @@ def _to(tree, dev):
             for k, v in tree.items()}
 
 
-TRAIN = dict(batch=8, seq=2048, lr=3e-4, opt="adamw")
-# (arch, micro-batches, steps): the train runs of phase 13
-TRAIN_RUNS = (("qwen2-0.5b", 1, 4), ("qwen2-0.5b", 2, 4), ("olmo-1b", 1, 3))
+TRAIN = dict(batch=8, seq=2048, lr=3e-4)
+# (config, its cut, micro-batches, steps, optimizer): the train runs of phase
+# 13. recurrentgemma-9b keeps its full width with the depth cut to one
+# (rglru, rglru, attn) unit and the (rglru, rglru) tail; sgdm where AdamW's
+# old and new moments would not fit the card beside the weights
+TRAIN_RUNS = (("qwen2-0.5b", {}, 1, 4, "adamw"), ("qwen2-0.5b", {}, 2, 4, "adamw"),
+              ("olmo-1b", {}, 1, 3, "adamw"), ("rwkv6-3b", {}, 1, 3, "sgdm"),
+              ("recurrentgemma-9b", {"n_layers": 5}, 1, 3, "sgdm"))
 
 
 def _bwd_bound(B, H, KV, S, hd, window, itemsize, flops_per_s):
@@ -1368,22 +1394,194 @@ def phase_train_kernels():
     return rows
 
 
+def _rwkv_bwd_flops(S: int, hd: int, W: int) -> int:
+    """Matrix-product flops of the chunked backward per (batch, head): per
+    chunk of n tokens dU, S_in·do, dS_out·v and k̃·dS_out (2·n·hd² each), P
+    = do·vᵀ and Aᵀ·do (2·n²·hd each) and the three pair sums (the pair
+    matrix and the intra-chunk parts of dr and dk, 2·hd a causal pair)."""
+    flops = 0
+    for t0 in range(0, S, W):
+        n = min(W, S - t0)
+        flops += 8 * n * hd * hd + 4 * n * n * hd + 3 * hd * n * (n - 1)
+    return flops
+
+
+def _grads_close(tag, got, want, names, rtol, atol_of_max):
+    """Each gradient within rtol·|want| + atol_of_max·max|want|; returns the
+    largest |got − want| and the largest such difference over its
+    gradient's max|want|."""
+    worst = ratio = 0.0
+    for name, g, w in zip(names, got, want):
+        if w is None:
+            continue
+        m = float(w.float().abs().max())
+        err, ok = _within(g, w, rtol, atol_of_max * m)
+        check(ok, f"{tag} {name}: max |diff| {err} (max |grad| {m})")
+        worst, ratio = max(worst, err), max(ratio, err / m if m else 0.0)
+    return worst, ratio
+
+
+def phase_scan_bwd_kernels():
+    """The RG-LRU and RWKV6 backward kernels against their plain versions
+    and against autograd of the plain forwards at the train path's shapes;
+    two calls give the same bits; times beside the forward's at the same
+    shape. Returns each kernel's row at its main shape."""
+    import importlib
+
+    from repro_torch.kernels import (rglru_scan, rglru_scan_bwd_plain, rglru_scan_plain,
+                                     rwkv6_scan, rwkv6_scan_bwd_plain, rwkv6_scan_plain)
+    rg = importlib.import_module("repro_torch.kernels.rglru_scan")
+    rw = importlib.import_module("repro_torch.kernels.rwkv6_scan")
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rows = {}
+    B, S, C = 8, 2048, 4096                             # recurrentgemma-9b's train shape
+    for what, with_h0, with_dl in (("train shape, no h0, no dh_last", False, False),
+                                   ("train shape, h0 and dh_last", True, True)):
+        a = torch.rand((B, S, C), generator=gen, device="cuda")
+        b = torch.randn((B, S, C), generator=gen, device="cuda")
+        h0 = torch.randn((B, C), generator=gen, device="cuda") if with_h0 else None
+        dout = torch.randn((B, S, C), generator=gen, device="cuda")
+        dl = torch.randn((B, C), generator=gen, device="cuda") if with_dl else None
+        out, _ = rg._forward(a, b, h0, share=False)
+        before = rglru_scan.launches_bwd
+        got = rg._backward(a, out, h0, dout, dl)
+        again = rg._backward(a, out, h0, dout, dl)
+        torch.cuda.synchronize()
+        check(rglru_scan.launches_bwd == before + 2, f"rglru backward [{what}] did not launch")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"rglru backward [{what}]: two calls on the same inputs differ")
+        want = rglru_scan_bwd_plain(a, out, h0, dout, dl)
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"rglru backward [{what}] differs from its plain version")
+        ins = [t.detach().requires_grad_() for t in (a, b) + ((h0,) if with_h0 else ())]
+        o_p, h_p = rglru_scan_plain(*ins)
+        auto = torch.autograd.grad((o_p, h_p) if with_dl else (o_p,), ins,
+                                   (dout, dl) if with_dl else (dout,))
+        # autograd sums the same terms, in another order where two meet
+        err_a, _ = _grads_close(f"rglru backward [{what}] vs autograd", got, auto,
+                                ("da", "db", "dh0"), 1e-5, 1e-6)
+        del ins, o_p, h_p, auto, want, again
+        ms = time_ms(lambda: rg._backward(a, out, h0, dout, dl))
+        plain_ms = time_ms(lambda: rglru_scan_bwd_plain(a, out, h0, dout, dl), reps=3, warmup=1)
+        fwd_ms = time_ms(lambda: rg._forward(a, b, h0, share=False))
+        # a, out, dout (and h0, dh_last) read, da, db and dh0 written; a
+        # multiply-add and a multiply a step and channel
+        nbytes = 4 * (5 * B * S * C + B * C * (1 + with_h0 + with_dl))
+        row = _report("rglru_scan_bwd", f"{what} B={B} S={S} C={C}", 0.0, ms, plain_ms, None,
+                      *bound(nbytes, 3 * B * S * C),
+                      note=f" (bit for bit the plain version, two calls bit for bit; "
+                           f"autograd of the plain forward within 1e-5·|a| + 1e-6·max: "
+                           f"{err_a:.3e}; the forward {fwd_ms:.4f} ms)")
+        row["forward_ms"] = fwd_ms
+        rows.setdefault("rglru_scan_bwd", row)
+        del a, b, h0, dout, dl, out, got
+        torch.cuda.empty_cache()
+
+    # the kernel's products are 3 × TF32 (about 21 bits an operand) and its
+    # exponentials ex2.approx: 2e-3·|plain| + 1e-3·max|plain| of each
+    # gradient; dr, dk, dv in bf16 are one rounding apart (2^-7·|plain|)
+    names = ("dr", "dk", "dv", "dlogw", "du", "ds0")
+    for what, B, H, S, hd, W, dtype, with_s0, with_df, strong in (
+            ("rwkv6-3b train shape", 8, 48, 2048, 64, 64, torch.bfloat16, False, False, False),
+            ("from s0, with dS_final", 8, 48, 2048, 64, 64, torch.bfloat16, True, True, False),
+            ("ragged S, strong decays", 4, 48, 1999, 64, 64, torch.bfloat16, False, True, True),
+            ("f32", 2, 8, 300, 64, 64, torch.float32, True, True, True)):
+        r, k, v = (torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+                   .transpose(1, 2) for _ in range(3))
+        x = (torch.rand((B, S, H, hd), generator=gen, device="cuda") * 11 - 8 if strong
+             else 0.5 * torch.randn((B, S, H, hd), generator=gen, device="cuda"))
+        logw = -torch.exp(x).transpose(1, 2)
+        del x
+        u = 0.5 * torch.randn((H, hd), generator=gen, device="cuda")
+        s0 = torch.randn((B, H, hd, hd), generator=gen, device="cuda") if with_s0 else None
+        do = torch.randn((B, S, H, hd), generator=gen, device="cuda").transpose(1, 2)
+        df = torch.randn((B, H, hd, hd), generator=gen, device="cuda") if with_df else None
+        o, s_out, scratch = rw._forward(r, k, v, logw, u, W, s0, "chunked")
+        before = rwkv6_scan.launches_bwd
+        got = rw._backward(r, k, v, logw, u, s_out, scratch, do, df, W)
+        again = rw._backward(r, k, v, logw, u, s_out, scratch, do, df, W)
+        torch.cuda.synchronize()
+        check(rwkv6_scan.launches_bwd == before + 6, f"rwkv6 backward [{what}] did not launch")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"rwkv6 backward [{what}]: two calls on the same inputs differ")
+        del again
+        bf16 = dtype == torch.bfloat16
+        want = rwkv6_scan_bwd_plain(r, k, v, logw, u, do, chunk=W, s0=s0, ds_final=df)
+        errs = [_grads_close(f"rwkv6 backward [{what}] vs plain", got[:3], want[:3], names,
+                             2.0 ** -7 if bf16 else 2e-3, 1e-3),
+                _grads_close(f"rwkv6 backward [{what}] vs plain", got[3:], want[3:], names[3:],
+                             2e-3, 1e-3)]
+        del want
+        ins = [t.detach().requires_grad_() for t in (r, k, v, logw, u)]
+        s0a = s0.detach().requires_grad_() if with_s0 else None
+        o_p, s_p = rwkv6_scan_plain(*ins, chunk=W, s0=s0a)
+        auto = torch.autograd.grad((o_p, s_p) if with_df else (o_p,),
+                                   ins + ([s0a] if with_s0 else []),
+                                   (do, df) if with_df else (do,))
+        del ins, s0a, o_p, s_p
+        torch.cuda.empty_cache()
+        errs_a = [_grads_close(f"rwkv6 backward [{what}] vs autograd", got[:3], auto[:3],
+                               names, 2.0 ** -7 if bf16 else 2e-3, 1e-3),
+                  _grads_close(f"rwkv6 backward [{what}] vs autograd", got[3:],
+                               auto[3:] + ((None,) if not with_s0 else ()), names[3:], 2e-3,
+                               1e-3)]
+        del auto, got
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: rw._backward(r, k, v, logw, u, s_out, scratch, do, df, W))
+        plain_ms = time_ms(lambda: rwkv6_scan_bwd_plain(r, k, v, logw, u, do, chunk=W, s0=s0,
+                                                        ds_final=df), reps=3, warmup=1)
+        fwd_ms = time_ms(lambda: rw._forward(r, k, v, logw, u, W, s0, "chunked"))
+        chunks = -(-S // W)
+        size = r.element_size()
+        # r, k, v, logw, do, u, S_in of every chunk, S_final (and dS_final)
+        # read; dr, dk, dv, dlogw, du and dS0 written
+        nbytes = (B * H * S * hd * (6 * size + 4 + 4 + 4) + H * hd * 8
+                  + B * H * hd * hd * 4 * (chunks + 2 + with_df))
+        row = _report("rwkv6_scan_bwd", f"{what} B={B} H={H} S={S} hd={hd} W={W} "
+                      f"{str(dtype).split('.')[-1]} r/k/v{', s0' if with_s0 else ''}"
+                      f"{', dS_final' if with_df else ''}", max(e for e, _ in errs), ms,
+                      plain_ms, None,
+                      *bound(nbytes, B * H * _rwkv_bwd_flops(S, hd, W), TF32_FLOPS_PER_S),
+                      note=f" (vs the plain version, {max(r for _, r in errs):.2e} of the "
+                           f"gradient's max |plain|; <= {'2^-7' if bf16 else '2e-3'}·|plain| "
+                           f"+ 1e-3·max for dr/dk/dv, 2e-3·|plain| + 1e-3·max for dlogw, du, "
+                           f"ds0; autograd of the plain forward {max(e for e, _ in errs_a):.3e}"
+                           f", {max(r for _, r in errs_a):.2e} of max, same bounds; two calls "
+                           f"bit for bit; the forward {fwd_ms:.4f} ms)")
+        row["forward_ms"] = fwd_ms
+        rows.setdefault("rwkv6_scan_bwd", row)
+        del r, k, v, logw, do, o, s_out, scratch
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _fwd_bound(B, H, KV, S, hd):
     nbytes = 2 * (2 * B * H * S * hd + 2 * B * KV * S * hd)
     return bound(nbytes, 4 * B * H * hd * _visible_pairs(S, 0), BF16_FLOPS_PER_S)[0]
 
 
 def _train_routing(cfg, steps: int, micro: int):
-    """Launches of a train run: each attention layer's flash forward once
-    per micro-batch and once more in the backward's recompute (remat),
-    all on the tensor-core route (bf16), and the backward's three launches;
-    no scan."""
-    n = cfg.n_layers * steps * micro
-    return {"flash_attention": {"launches": 2 * n, "launches_tc": 2 * n, "launches_f32": 0,
-                                "launches_bwd": 3 * n, "launches_bwd_tc": 3 * n,
-                                "launches_bwd_fma": 0},
-            "rglru_scan": {"launches": 0},
-            "rwkv6_scan": {"launches": 0, "launches_chunked": 0, "launches_decode": 0}}
+    """Launches of a train run, per micro-batch and step: each layer of a
+    unit runs its forward twice (the forward and remat's recompute), each
+    tail layer once (the tail stays outside the checkpoint); each attention,
+    RG-LRU and RWKV6 layer runs its backward once: flash's three launches
+    (bf16 at hd <= 128 on the tensor cores, else on the CUDA cores), the
+    RG-LRU scan's one, the RWKV6 scan's three (its forward on the chunked
+    route)."""
+    n = steps * micro
+    unit, tail = list(cfg.block_pattern) * cfg.n_units, list(cfg.tail_pattern)
+    fwd = {kind: n * (2 * unit.count(kind) + tail.count(kind)) for kind in ("attn", "rglru", "rwkv")}
+    bwd = {kind: n * (unit + tail).count(kind) for kind in ("attn", "rglru", "rwkv")}
+    tc = cfg.dtype == "bfloat16"
+    tc_bwd = tc and cfg.head_dim <= 128
+    return {"flash_attention": {"launches": fwd["attn"], "launches_tc": fwd["attn"] if tc else 0,
+                                "launches_f32": 0 if tc else fwd["attn"],
+                                "launches_bwd": 3 * bwd["attn"],
+                                "launches_bwd_tc": 3 * bwd["attn"] if tc_bwd else 0,
+                                "launches_bwd_fma": 0 if tc_bwd else 3 * bwd["attn"]},
+            "rglru_scan": {"launches": fwd["rglru"], "launches_bwd": bwd["rglru"]},
+            "rwkv6_scan": {"launches": fwd["rwkv"], "launches_chunked": fwd["rwkv"],
+                           "launches_decode": 0, "launches_bwd": 3 * bwd["rwkv"]}}
 
 
 def _train_counts():
@@ -1391,31 +1589,61 @@ def _train_counts():
             for k, fn in _lm_counters().items()}
 
 
+def _train_arch(name: str, cut: dict, smoke: bool):
+    """A run's model: the config's name as a user passes it, or the named
+    config with its depth cut (a ``ModelConfig``, at full or reduced width)."""
+    if not cut:
+        return name
+    from repro_torch import configs
+    return configs.get_smoke(name, **cut) if smoke else dataclasses.replace(configs.get(name),
+                                                                           **cut)
+
+
+def _reckoned_gib(cfg, opt: str) -> float:
+    """The state alive at the optimizer's update, which returns new trees:
+    parameters, gradients and new parameters in the model's type, the old
+    and the new optimizer state in f32 (sgdm: one tree, adamw: two)."""
+    from repro_torch.models import transformer
+    params = transformer._build_params(cfg, None, torch.device("meta"))
+    n = sum(t.numel() for t in _leaves(params))
+    size = 2 if cfg.dtype == "bfloat16" else 4
+    trees = {"sgd": 0, "sgdm": 1, "adamw": 2, "yogi": 2}[opt]
+    return n * (3 * size + 2 * trees * 4) / 2**30
+
+
 def phase_train(device: str = "cuda", smoke: bool = False, **shape):
     """The LM gradient regime at full width through launch.train.run;
-    returns launches by kernel (bwd apart)."""
+    returns the launches of each kernel (backwards apart)."""
     import shutil
     import tempfile
 
+    from repro_torch import configs
     from repro_torch.data import lm as lm_data
     from repro_torch.launch import train
 
     shape = shape or TRAIN
-    totals = {"flash_attention": 0, "flash_attention_bwd": 0}
+    totals = dict.fromkeys(("flash_attention", "flash_attention_bwd", "rglru_scan",
+                            "rglru_scan_bwd", "rwkv6_scan", "rwkv6_scan_bwd"), 0)
     uninterrupted = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckdir:
         # the first run checkpoints, the second resumes from its step 2
-        runs = [(arch, micro, steps, "ckpt" if i == 0 else None)
-                for i, (arch, micro, steps) in enumerate(TRAIN_RUNS)]
-        runs.insert(1, ("qwen2-0.5b", 1, 4, "resume"))
-        for arch, micro, steps, role in runs:
+        runs = [run + ("ckpt" if i == 0 else None,) for i, run in enumerate(TRAIN_RUNS)]
+        runs.insert(1, TRAIN_RUNS[0] + ("resume",))
+        for name, cut, micro, steps, opt, role in runs:
+            arch = _train_arch(name, cut, smoke)
             for fn in _lm_counters().values():
                 _zero_launches(fn)
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
+            if role != "resume":
+                cfg = arch if cut else (configs.get_smoke(arch) if smoke else configs.get(arch))
+                print(f"train {name}{' ' + str(cut) if cut else ''} {opt}: reckoned at the update "
+                      f"{_reckoned_gib(cfg, opt):.2f} GiB (parameters, gradients, new "
+                      f"parameters, old and new optimizer state), activations apart")
             t0 = time.perf_counter()
             res = train.run(arch, smoke=smoke, steps=steps, micro=micro, seed=0, log_every=1,
-                            ckpt=ckdir if role else "", ckpt_every=2, device=device, **shape)
+                            ckpt=ckdir if role else "", ckpt_every=2, device=device, opt=opt,
+                            **shape)
             wall = time.perf_counter() - t0
             counts = _train_counts()
             peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1425,7 +1653,8 @@ def phase_train(device: str = "cuda", smoke: bool = False, **shape):
             dts = [r["dt"] for r in hist]
             warm = statistics.median(dts[1:]) if ran > 1 else dts[0]
             tokens = shape["batch"] * shape["seq"]
-            label = f"{arch} micro {micro}" + (" resumed at step 2" if role == "resume" else "")
+            label = (f"{name}{' ' + str(cut) if cut else ''} {opt} micro {micro}"
+                     + (" resumed at step 2" if role == "resume" else ""))
             print(f"train {label}: {ran} steps from step {res['start_step']}, step s cold "
                   f"{dts[0]:.3f} warm {warm:.3f} ({tokens / warm:.0f} tokens/s); wall with init "
                   f"{wall:.2f} s; peak device memory {peak:.2f} GiB; losses "
@@ -1434,13 +1663,14 @@ def phase_train(device: str = "cuda", smoke: bool = False, **shape):
             check(counts == want, f"train {label}: launches {counts}, want {want}")
             check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                       for r in hist), f"train {label}: a loss or gradient norm is not finite")
-            totals["flash_attention"] += counts["flash_attention"]["launches"]
-            totals["flash_attention_bwd"] += counts["flash_attention"]["launches_bwd"]
+            for kernel in ("flash_attention", "rglru_scan", "rwkv6_scan"):
+                totals[kernel] += counts[kernel]["launches"]
+                totals[kernel + "_bwd"] += counts[kernel]["launches_bwd"]
             backend = res["backend"]
             if role == "ckpt":
                 uninterrupted = hist
                 n_params = sum(t.numel() for t in _leaves(backend.params))
-                print(f"train {arch}: {n_params:,} parameters ({cfg.dtype}), checkpoints "
+                print(f"train {name}: {n_params:,} parameters ({cfg.dtype}), checkpoints "
                       f"{sorted(os.listdir(ckdir))}")
                 shutil.rmtree(os.path.join(ckdir, "step_4"))
             elif role == "resume":
@@ -1451,6 +1681,11 @@ def phase_train(device: str = "cuda", smoke: bool = False, **shape):
                           f"uninterrupted {u['loss']:.6f} (rel {rel:.2e}, held to 1e-2)")
                     check(r["involved"] == u["involved"] and rel <= 1e-2,
                           f"train resume: step {r['round']} differs")
+            else:
+                n_params = sum(t.numel() for t in _leaves(backend.params))
+                print(f"train {name}: {n_params:,} parameters ({cfg.dtype}), {cfg.n_layers} "
+                      f"layers {list(cfg.block_pattern)} x {cfg.n_units} + "
+                      f"{list(cfg.tail_pattern)}, d_model {cfg.d_model}, vocab {cfg.vocab_size}")
             if device == "cuda" and not role:
                 # one warm step of the same backend, traced
                 toks = next(lm_data.lm_batches(99, 1, shape["batch"], shape["seq"],
@@ -1477,23 +1712,24 @@ def phase_train_parity(devices=("cuda", "cpu")) -> None:
 
     toks = torch.from_numpy(np.random.default_rng(14).integers(0, 256, (4, 32)))
     w = torch.tensor([120.0, 0.0, 37.0, 250.0])
-    for arch in ("qwen2-0.5b", "olmo-1b"):
+    for arch in ("qwen2-0.5b", "olmo-1b", "rwkv6-3b", "recurrentgemma-9b"):
         for dtype, tol in (("float32", 1e-4), ("bfloat16", 0.08)):
             cfg = configs.get_smoke(arch, dtype=dtype)
             p_cpu = transformer.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+            want_bwd = {k: v["launches_bwd"] for k, v in _train_routing(cfg, 1, 1).items()}
             for opt_name, lr in (("sgd", 0.5), ("adamw", 3e-4)):
                 out = []
                 for dev in devices:
-                    before = _lm_counters()["flash_attention"].launches_bwd
+                    before = {k: fn.launches_bwd for k, fn in _lm_counters().items()}
                     params = _to(p_cpu, dev)
                     step = specs.make_train_step(cfg, opt_name, lr)
                     new, state, loss = step(params, make_optimizer(opt_name).init(params),
                                             {"tokens": toks.to(dev), "client_weight": w.to(dev)})
                     out.append((float(loss), _to(new, "cpu")))
                     if dev == "cuda":
-                        check(_lm_counters()["flash_attention"].launches_bwd
-                              == before + 3 * cfg.n_layers,
-                              f"train parity {arch}: the backward kernel did not run")
+                        ran = {k: fn.launches_bwd - before[k] for k, fn in _lm_counters().items()}
+                        check(ran == want_bwd, f"train parity {arch}: backward launches {ran}, "
+                                               f"want {want_bwd}")
                 (la, pa), (lb, pb) = out
                 check(abs(la - lb) <= tol + tol * abs(lb),
                       f"train parity {arch} {dtype} {opt_name}: loss {la} vs {lb}")
@@ -1541,9 +1777,11 @@ def main() -> int:
     rows["flash_attention_bwd"] = dict(train_rows["flash_attention_bwd"],
                                        train_shapes=train_rows["train_shapes"])
     rows["flash_attention"]["train_forward"] = train_rows["forward_train"]
+    rows.update(phase(phase_scan_bwd_kernels))
     trained = phase(phase_train)
-    launches["flash_attention"] += trained["flash_attention"]
-    launches["flash_attention_bwd"] = trained["flash_attention_bwd"]
+    for name in ("flash_attention", "rglru_scan", "rwkv6_scan"):
+        launches[name] += trained[name]
+        launches[name + "_bwd"] = trained[name + "_bwd"]
     phase(phase_train_parity)
     print(f"total {time.perf_counter() - t0:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
@@ -1558,7 +1796,9 @@ def main() -> int:
              ("flash_attention_bwd", csrc + "flash_attention_bwd.cu",
               "src/repro/kernels/flash_attention.py:78"),
              ("rglru_scan", csrc + "rglru_scan.cu", "src/repro/kernels/rglru_scan.py:49"),
-             ("rwkv6_scan", csrc + "rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:79"))
+             ("rwkv6_scan", csrc + "rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:79"),
+             ("rglru_scan_bwd", csrc + "rglru_scan.cu", "src/repro/kernels/rglru_scan.py:49"),
+             ("rwkv6_scan_bwd", csrc + "rwkv6_scan_bwd.cu", "src/repro/kernels/rwkv6_scan.py:79"))
     # the design of each route ("route" itself stays "cuda", the build route)
     designs = {"agg_reduce": "no CSR for one segment, else a CSR copied from pinned memory "
                              "without blocking the host; 4 row loads a batch",
@@ -1572,7 +1812,15 @@ def main() -> int:
                                       "CUDA-core f32 FMAs",
                "rglru_scan": "one-warp blocks of 32 channels, a 4-stage cp.async ring of "
                              "32 time steps feeding the in-order chain",
-               "rwkv6_scan": "chunk-parallel, mma.sync 3xTF32; decode route for S = 1"}
+               "rwkv6_scan": "chunk-parallel, mma.sync 3xTF32; decode route for S = 1",
+               "rglru_scan_bwd": "the gradient of the row rglru_scan, which the TPU kernel "
+                                 "lacks (the reference differentiates its associative scan): "
+                                 "the forward's cp.async ring run backwards in time",
+               "rwkv6_scan_bwd": "the gradient of the row rwkv6_scan, which the TPU kernel "
+                                 "lacks (the reference differentiates its jnp chunk body): "
+                                 "the forward's three launches in reverse from its saved chunk "
+                                 "states; products mma.sync 3xTF32, pair sums with per-pair "
+                                 "exponentials on the CUDA cores"}
     for name, _, _ in table:
         check(launches[name] > 0, f"{name} never launched on the main path")
     print(json.dumps({"kernels": [

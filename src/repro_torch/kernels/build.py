@@ -27,7 +27,7 @@ SOURCES = {"agg_reduce": "agg_reduce.cu", "quantize": "quantize.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_wgmma": "flash_attention_wgmma.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu", "rglru_scan": "rglru_scan.cu",
-           "rwkv6_scan": "rwkv6_scan.cu"}
+           "rwkv6_scan": "rwkv6_scan.cu", "rwkv6_scan_bwd": "rwkv6_scan_bwd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -97,16 +97,6 @@ def on_device(device, call):
         return call(torch._C._cuda_getCurrentRawStream(current))
     with torch.cuda.device(device.index):
         return call(torch._C._cuda_getCurrentRawStream(device.index))
-
-
-def refuse_grad(name: str, *tensors) -> None:
-    """Raise where autograd wants a gradient through a forward-only kernel:
-    its launch writes into fresh tensors through ctypes, so the result
-    would carry no graph and backpropagation would pass around it."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} has no backward kernel yet (ROADMAP.md Queue 1, item 1a'): call it "
-            "under torch.no_grad(), or on CPU tensors, whose plain version autograd follows")
 
 
 def load(name: str, entries: Dict[str, list]) -> ctypes.CDLL:

@@ -19,13 +19,14 @@ refused, naming the ROADMAP.md item that brings it.
 from __future__ import annotations
 
 import argparse
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 
 from repro_torch import configs, device as device_mod, fl
 from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.core.fedavg import FLConfig
+from repro_torch.models.config import ModelConfig
 from repro_torch.pon import PonConfig
 
 # reference flags the port refuses, with the ROADMAP.md item that ports their machinery
@@ -38,19 +39,24 @@ _REFUSED = {"dba": "Queue 1 item 2 (the event-simulator transport)",
             "compress": "Queue 1 item 1b (compressed gradient exchange on torch.distributed)"}
 
 
-def run(arch: str = "qwen2-0.5b", *, smoke: bool = False, steps: int = 20, batch: int = 8,
+def run(arch: Union[str, ModelConfig] = "qwen2-0.5b", *, smoke: bool = False, steps: int = 20, batch: int = 8,
         seq: int = 128, lr: float = 3e-4, opt: str = "adamw", micro: int = 1, ckpt: str = "",
         ckpt_every: int = 50, seed: int = 0, log_every: int = 5,
         strategy: str = "sfl_two_step", onus: int = PonConfig.n_onus,
         clients_per_onu: int = PonConfig.clients_per_onu, overselect: float = 0.0,
         p_crash: float = 0.0, p_transient: float = 0.0, mean_recovery_rounds: float = 3.0,
         failure_seed: Optional[int] = None, device: str = "cuda") -> Dict[str, Any]:
-    """Train ``steps`` rounds (fewer when resuming from ``ckpt``).
+    """Train ``steps`` rounds (fewer when resuming from ``ckpt``) of ``arch``,
+    a config name or a ``ModelConfig`` (a named config cut to size, taken as
+    it is: ``smoke`` does not apply).
 
     Returns {"history", "backend" (params, opt_state), "cfg", "start_step"}.
     """
     dev = device_mod.resolve(device)
-    cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    if isinstance(arch, ModelConfig):
+        cfg = arch
+    else:
+        cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
     flc = FLConfig(n_onus=onus, clients_per_onu=clients_per_onu,
                    pon=PonConfig(n_onus=onus, clients_per_onu=clients_per_onu))
     exp = fl.ExperimentConfig(fl=flc, overselect=overselect, p_crash=p_crash,

@@ -2,7 +2,9 @@
 and the chunked RWKV6 scan — held against the reference: the jnp oracles
 of ``repro.kernels.ref`` and the Pallas kernels in interpret mode, at
 ``tests/test_kernels.py``'s shapes cut to S <= 256 and its tolerances
-(flash 2e-5 in f32 and 0.03 in bf16, rglru 1e-5, rwkv6 2e-3). On the CPU
+(flash 2e-5 in f32 and 0.03 in bf16, rglru 1e-5, rwkv6 2e-3); the three
+kernels' gradients (their plain versions and autograd of the plain
+forwards) against ``jax.grad`` of the reference's jnp forms. On the CPU
 each wrapper runs its plain PyTorch version; the CUDA kernels are held
 against those plain versions by the ``cuda``-marked tests (and by
 chip_smoke.py) on the card.
@@ -26,8 +28,10 @@ from repro_torch.kernels import (  # noqa: E402
     flash_attention_bwd_plain,
     flash_attention_plain,
     rglru_scan,
+    rglru_scan_bwd_plain,
     rglru_scan_plain,
     rwkv6_scan,
+    rwkv6_scan_bwd_plain,
     rwkv6_scan_plain,
 )
 
@@ -301,6 +305,132 @@ def test_rwkv6_wrapper_rejects_bad_inputs_and_other_devices():
     m = r.to("meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         rwkv6_scan(m, m, m, m, torch.ones((2, 8), device="meta"))
+
+
+# ------------------------------------------------- the scans' gradients
+
+def _close_to_max(got, want, tol):
+    """|got − want| <= tol·max|want| everywhere (``_within`` with no rtol)."""
+    _within(got, want, 0.0, tol * float(np.abs(_np(want)).max()))
+
+
+@pytest.mark.parametrize("B,S,C,with_h0,with_dl", [
+    (2, 17, 7, True, True), (1, 33, 16, False, False), (3, 8, 130, True, False),
+    (2, 1, 5, False, True),
+])
+def test_rglru_gradient_plain_versions_match_jax_grad(jx, B, S, C, with_h0, with_dl):
+    """``rglru_scan_bwd_plain`` (from the plain forward's out) and autograd
+    of the wrapper (the plain version, on the CPU) against ``jax.grad`` of
+    ``kernels.ref.rglru_scan_ref`` (h0 where given; dh_last where h_last
+    takes a gradient) and, from zeros, of the reference model's associative
+    ``rglru_scan`` (dh_last joined to the last step's dout); rtol 1e-5, the
+    forward's."""
+    import jax
+
+    from repro.models.rglru import rglru_scan as model_scan
+    jnp = jx.jnp
+    a, b, h0 = _ab(B, S, C, seed=S + C, with_h0=with_h0)
+    rng = np.random.default_rng(C)
+    dout = rng.normal(size=(B, S, C)).astype(np.float32)
+    dl = rng.normal(size=(B, C)).astype(np.float32) if with_dl else None
+
+    def ref_loss(a_, b_, *h):
+        o, h_last = jx.ref.rglru_scan_ref(a_, b_, *h)
+        return jnp.sum(o * dout) + (jnp.sum(h_last * dl) if with_dl else 0.0)
+    args = [jnp.asarray(x) for x in (a, b) + ((h0,) if with_h0 else ())]
+    want = jax.grad(ref_loss, argnums=tuple(range(len(args))))(*args)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    th0 = torch.from_numpy(h0) if with_h0 else None
+    tdl = torch.from_numpy(dl) if with_dl else None
+    out, _ = rglru_scan_plain(ta, tb, th0)
+    got = rglru_scan_bwd_plain(ta, out, th0, torch.from_numpy(dout), tdl)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-5)
+    ins = [t.clone().requires_grad_() for t in (ta, tb) + ((th0,) if with_h0 else ())]
+    o, h_last = rglru_scan(*ins)
+    auto = torch.autograd.grad((o, h_last) if with_dl else (o,), ins,
+                               (torch.from_numpy(dout), tdl) if with_dl
+                               else (torch.from_numpy(dout),))
+    for g, w in zip(auto, want):
+        _close(g, w, 1e-5)
+    if not with_h0:
+        dd = dout.copy()
+        if with_dl:
+            dd[:, -1] += dl
+        wm = jax.grad(lambda a_, b_: jnp.sum(model_scan(a_, b_) * dd), argnums=(0, 1))(*args)
+        for g, w in zip(got, wm):
+            _close(g, w, 1e-5)
+
+
+@pytest.mark.parametrize("B,H,S,hd,chunk,strong,pad_head", [
+    (1, 2, 20, 8, 8, False, False),
+    (2, 3, 37, 16, 8, True, True),       # ragged last chunk, strong decays, a padded head
+    (1, 2, 45, 16, 4, False, True),
+    (1, 1, 64, 32, 4, True, False),
+])
+def test_rwkv6_gradient_plain_versions_match_jax_grad(jx, B, H, S, hd, chunk, strong,
+                                                      pad_head):
+    """``rwkv6_scan_bwd_plain`` and autograd of the wrapper (the plain
+    version, on the CPU) against ``jax.grad`` of ``kernels.ref.rwkv6_ref``
+    (the exact token recurrence) with a dS_final: f32 within
+    1e-4·max|grad|; ragged last chunks, chunks of 4 and 8 tokens, and a
+    padded head whose do is 0, as the model's head mask makes it."""
+    import jax
+    jnp = jx.jnp
+    arrs = (_strong_rkvwu if strong else _rkvwu)(B, H, S, hd, seed=S)
+    rng = np.random.default_rng(S + 1)
+    do = rng.normal(size=(B, H, S, hd)).astype(np.float32)
+    if pad_head:
+        do[:, -1] = 0.0
+    df = rng.normal(size=(B, H, hd, hd)).astype(np.float32)
+
+    def loss(*xs):
+        o, s_fin = jx.ref.rwkv6_ref(*xs)
+        return jnp.sum(o * do) + jnp.sum(s_fin * df)
+    want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*(jnp.asarray(x) for x in arrs))
+    ts = [torch.from_numpy(x) for x in arrs]
+    got = rwkv6_scan_bwd_plain(*ts, torch.from_numpy(do), chunk=chunk,
+                               ds_final=torch.from_numpy(df))
+    for g, w in zip(got, want):
+        _close_to_max(g, w, 1e-4)
+    ins = [t.clone().requires_grad_() for t in ts]
+    o, s_fin = rwkv6_scan(*ins, chunk=chunk)
+    auto = torch.autograd.grad((o, s_fin), ins, (torch.from_numpy(do), torch.from_numpy(df)))
+    for g, w in zip(auto, want):
+        _close_to_max(g, w, 1e-4)
+
+
+@pytest.mark.parametrize("S,chunk", [(24, 8), (30, 8), (18, 4)])
+def test_rwkv6_gradient_from_s0_matches_jax_chunk_body(jx, S, chunk):
+    """From an initial state: ``rwkv6_scan_bwd_plain`` against ``jax.grad``
+    of the reference model's ``_chunk_body`` chained over the chunks (its
+    (B, W, H, hd) layout), every input's gradient and ds0 within
+    1e-4·max|grad|, ragged last chunk included."""
+    import jax
+
+    from repro.models.rwkv6 import _chunk_body
+    jnp = jx.jnp
+    B, H, hd = 2, 2, 8
+    arrs = _strong_rkvwu(B, H, S, hd, seed=S + chunk)
+    rng = np.random.default_rng(S)
+    s0 = rng.normal(size=(B, H, hd, hd)).astype(np.float32)
+    do = rng.normal(size=(B, H, S, hd)).astype(np.float32)
+    df = rng.normal(size=(B, H, hd, hd)).astype(np.float32)
+
+    def loss(r, k, v, logw, u, st):
+        total = 0.0
+        for t0 in range(0, S, chunk):
+            t1 = min(S, t0 + chunk)
+            tr = lambda x: x[:, :, t0:t1].transpose(0, 2, 1, 3)   # noqa: E731
+            o, st = _chunk_body(tr(r), tr(k), tr(v), tr(logw), u, st, None)
+            total = total + jnp.sum(o * tr(jnp.asarray(do)))
+        return total + jnp.sum(st * df)
+    want = jax.grad(loss, argnums=tuple(range(6)))(*(jnp.asarray(x) for x in arrs + (s0,)))
+    got = rwkv6_scan_bwd_plain(*(torch.from_numpy(x) for x in arrs), torch.from_numpy(do),
+                               chunk=chunk, s0=torch.from_numpy(s0),
+                               ds_final=torch.from_numpy(df))
+    for g, w in zip(got, want):
+        _close_to_max(g, w, 1e-4)
 
 
 # ------------------------------------- models of the redesigned kernels
@@ -649,6 +779,103 @@ def test_rwkv6_chunked_model_chains_decode_steps():
     _within(st, want_s, RWKV_TOL, RWKV_TOL)
 
 
+def _rwkv6_bwd_kernel_model(r, k, v, logw, u, do, *, chunk=64, s0=None, ds_final=None):
+    """The backward kernel's three passes in plain torch, f32 products (the
+    kernel's 3 × TF32 split carries about 21 bits of each operand).
+
+    Chunks of W tokens and hd channels zero-padded to 64 × 64 (logw = 0,
+    r = k = v = do = 0), cumulative decays in log2 units; the forward's
+    chunk states as its passes 1-2 leave them in the scratch. Pass A: every
+    chunk's dU = (r ⊙ 2^{ce})ᵀ·do and decay; pass B: dS_out of each chunk
+    from the last to the first, dS_in = 2^{c_63} ⊙ dS_out + dU, and dS0;
+    pass C: P = do·vᵀ, the pair matrix and the pair sums of dr and dk with
+    one exponential a pair and channel (clamped at 0), the products with
+    S_in and dS_out, dv = Aᵀ·do + k̃·dS_out, X from the next chunk's S_in (or
+    S_final), dlogw as the reverse sum over the chunk's 64 rows, du from one
+    partial per chunk and batch row.
+    """
+    B, H, S, hd = r.shape
+    W = min(chunk, S)
+    nc = -(-S // W)
+    F = torch.nn.functional
+
+    def tile(t):       # (B, H, S, hd) -> (B, H, nc, 64, 64)
+        t = F.pad(t.float(), (0, 0, 0, nc * W - S)).reshape(B, H, nc, W, hd)
+        return F.pad(t, (0, 64 - hd, 0, 64 - W))
+    sq = lambda m: F.pad(m.float(), (0, 64 - hd, 0, 64 - hd))       # noqa: E731
+    R, K, V, D, L = (tile(t) for t in (r, k, v, do, logw))
+    up = F.pad(u.float(), (0, 64 - hd))[None, :, None, None, :]        # (1, H, 1, 1, 64)
+    C = torch.cumsum(L / math.log(2), dim=-2)
+    Ce = F.pad(C[..., :-1, :], (0, 0, 1, 0))
+    last = C[..., -1:, :]
+    # the forward's states (passes 1-2)
+    U = (K * torch.exp2(last - C)).transpose(-1, -2) @ V
+    dec = torch.exp2(C[..., -1, :])
+    st = torch.zeros((B, H, 64, 64)) if s0 is None else sq(s0)
+    s_in = []
+    for n in range(nc):
+        s_in.append(st)
+        st = dec[:, :, n, :, None] * st + U[:, :, n]
+    s_in = torch.stack(s_in, 2)
+    # pass A
+    dU = (R * torch.exp2(Ce.clamp_max(0))).transpose(-1, -2) @ D
+    # pass B
+    dS = torch.zeros((B, H, 64, 64)) if ds_final is None else sq(ds_final)
+    ds_out = [None] * nc
+    for n in range(nc - 1, -1, -1):
+        ds_out[n] = dS
+        dS = dec[:, :, n, :, None] * dS + dU[:, :, n]
+    G = torch.stack(ds_out, 2)
+    # pass C
+    s_next = torch.cat([s_in[:, :, 1:], st[:, :, None]], 2)
+    X = (G * s_next).sum(-1)                                      # (B, H, nc, 64)
+    P = D @ V.transpose(-1, -2)
+    tri = torch.tril(torch.ones((64, 64), dtype=torch.bool), -1)
+    E = torch.where(tri[..., None],
+                    torch.exp2((Ce[..., :, None, :] - C[..., None, :, :]).clamp_max(0)), 0.0)
+    A = (R[..., :, None, :] * K[..., None, :, :] * E).sum(-1) + torch.diag_embed(
+        (R * up * K).sum(-1))
+    T1 = (P[..., None] * K[..., None, :, :] * E).sum(-2)
+    T2 = (P[..., None] * R[..., :, None, :] * E).sum(-3)
+    Ptt = torch.diagonal(P, dim1=-2, dim2=-1)[..., None]
+    drw = (D @ s_in.transpose(-1, -2)) * torch.exp2(Ce.clamp_max(0)) + T1
+    dkw = (V @ G.transpose(-1, -2)) * torch.exp2((last - C).clamp_max(0)) + T2
+    dr, dk = drw + up * K * Ptt, dkw + up * R * Ptt
+    dv = A.transpose(-1, -2) @ D + (K * torch.exp2((last - C).clamp_max(0))) @ G
+    q, kap = R * drw, K * dkw
+    z = torch.flip(torch.cumsum(torch.flip(q - kap, (-2,)), -2), (-2,))
+    dlogw = X[..., None, :] + z - q
+    du = (R * K * Ptt).sum(-2).sum((0, 2))[:, :hd]
+    untile = lambda t: t[..., :W, :hd].reshape(B, H, nc * W, hd)[:, :, :S]   # noqa: E731
+    return (*(untile(t) for t in (dr, dk, dv, dlogw)), du, dS[..., :hd, :hd])
+
+
+@pytest.mark.parametrize("B,H,S,hd,chunk,strong,with_s0,with_df", [
+    (1, 2, 128, 32, 64, False, False, False),
+    (2, 2, 100, 16, 64, True, True, True),     # strong decays, ragged last chunk, s0, dS_final
+    (1, 3, 77, 64, 64, True, False, True),
+    (1, 2, 45, 16, 8, False, True, False),     # the reduced configs' chunk of 8
+    (1, 1, 1, 64, 64, False, True, True),      # one token
+])
+def test_rwkv6_bwd_kernel_model_matches_plain_version(B, H, S, hd, chunk, strong, with_s0,
+                                                      with_df):
+    """The backward kernel's design (padded 64 × 64 tiles, log2 decays, the
+    three passes, X from the next chunk's state, dlogw as a reverse sum)
+    within chip_smoke's bound of ``rwkv6_scan_bwd_plain``: 2e-3·|plain| +
+    1e-3·max|plain| of each gradient."""
+    arrs = (_strong_rkvwu if strong else _rkvwu)(B, H, S, hd, seed=S + hd)
+    ts = [torch.from_numpy(x) for x in arrs]
+    rng = np.random.default_rng(S)
+    do = torch.from_numpy(rng.normal(size=(B, H, S, hd)).astype(np.float32))
+    s0, df = (torch.from_numpy(rng.normal(size=(B, H, hd, hd)).astype(np.float32)) if w
+              else None for w in (with_s0, with_df))
+    got = _rwkv6_bwd_kernel_model(*ts, do, chunk=chunk, s0=s0, ds_final=df)
+    want = rwkv6_scan_bwd_plain(*ts, do, chunk=chunk, s0=s0, ds_final=df)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        _within(g, w, RWKV_TOL, 1e-3 * float(w.abs().max()))
+
+
 def test_kernel_routes_by_type_and_length(monkeypatch):
     """bf16 attention goes to the tensor-core kernel and f32 to the CUDA-core
     one; an RWKV6 call with S = 1 to the decode route, longer ones to the
@@ -709,7 +936,8 @@ def test_rglru_launch_reaches_its_entry_at_every_length(monkeypatch, with_h0):
         assert shared == (S == 1)
     assert libs["rglru_scan"].calls == ["rglru_scan_f32"] * 4
     assert rglru_scan.launches == 4
-    assert libs["rglru_scan"].bound == {"rglru_scan_f32": 1}
+    # the library's two entries (forward and backward) bound once, when it loaded
+    assert libs["rglru_scan"].bound == {"rglru_scan_f32": 1, "rglru_scan_bwd_f32": 1}
 
 
 def test_flash_bf16_route_rejects_a_stride_tma_cannot_take(monkeypatch):
@@ -730,15 +958,18 @@ def _stub_calls(lib, start):
 
 
 def test_gradients_never_bypass_a_kernel(monkeypatch):
-    """On the card, under grad with an input that requires it: the RG-LRU
-    and RWKV6 scans (forward only) raise, naming the ROADMAP item, instead
-    of cutting the graph; flash attention goes through its autograd
-    Function, whose output has a grad_fn, whose forward asks the kernel for
-    the log-sum-exp and whose backward launches the three backward entries
-    (counted by route in ``launches_bwd_tc`` and ``launches_bwd_fma``, and in
-    ``launches_bwd``). Under ``torch.no_grad()`` every wrapper
-    makes the calls that inputs without grad make (serving): the same
-    entries with the same argument counts, flash with no log-sum-exp."""
+    """On the card, under grad with an input that requires it, every LM
+    kernel goes through its autograd Function: the output has a grad_fn and
+    its backward launches the kernel's backward entries. Flash attention's
+    forward asks the kernel for the log-sum-exp and its backward makes three
+    launches (counted by route in ``launches_bwd_tc`` and
+    ``launches_bwd_fma``, and in ``launches_bwd``); the RG-LRU scan's
+    backward is one launch of ``rglru_scan_bwd_f32``; the RWKV6 scan takes
+    the chunked route at every S, a one-token call too, and its backward is
+    one call of ``rwkv6_scan_bwd`` (three launches). Under
+    ``torch.no_grad()`` every wrapper makes the calls that inputs without
+    grad make (serving): the same entries with the same argument counts,
+    flash with no log-sum-exp, RWKV6 at S = 1 on the decode route."""
     import importlib
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     rg = importlib.import_module("repro_torch.kernels.rglru_scan")
@@ -747,30 +978,49 @@ def test_gradients_never_bypass_a_kernel(monkeypatch):
     for name in ("launches", "launches_tc", "launches_f32", "launches_bwd", "launches_bwd_tc",
                  "launches_bwd_fma"):
         monkeypatch.setattr(flash_attention, name, 0)
+    for name in ("launches", "launches_bwd"):
+        monkeypatch.setattr(rglru_scan, name, 0)
+    for name in ("launches", "launches_chunked", "launches_decode", "launches_bwd"):
+        monkeypatch.setattr(rwkv6_scan, name, 0)
     q, k = torch.zeros((1, 4, 8, 64)), torch.zeros((1, 2, 8, 64))
     a = torch.zeros((2, 5, 12))
     r, u = torch.zeros((2, 3, 9, 16)), torch.zeros((3, 16))
+    one = torch.zeros((2, 3, 1, 16))
 
     def serve_calls():
         fa._launch(q.bfloat16(), k.bfloat16(), k.bfloat16(), True, 0, 0.125, 0.0)
         fa._launch(q, k, k, True, 4, 0.125, 30.0)
         rg._launch(a, a, None)
         rw._launch(r, r, r, r, u, 4, None)
+        rw._launch(one, one, one, one, u, 4, None)
 
     serve_calls()
     served = {n: _stub_calls(lib, 0) for n, lib in libs.items()}
     assert all(args[4] is None for args in libs["flash_attention_wgmma"].args)  # no lse
+    assert libs["rwkv6_scan"].calls == ["rwkv6_scan_fwd", "rwkv6_decode_fwd"]
     start = {n: len(lib.calls) for n, lib in libs.items()}
-    for t in (q, k, a, r):
+    for t in (q, k, a, r, one):
         t.requires_grad_(True)
     with torch.no_grad():
         serve_calls()
     assert {n: _stub_calls(lib, start[n]) for n, lib in libs.items()} == served
 
-    with pytest.raises(RuntimeError, match="ROADMAP.md Queue 1"):
-        rg._launch(a, a, None)
-    with pytest.raises(RuntimeError, match="ROADMAP.md Queue 1"):
-        rw._launch(r, r, r, r, u, 4, None)
+    out, h_last = rg._launch(a, a, None)
+    assert out.grad_fn is not None and h_last.grad_fn is not None
+    out.sum().backward()
+    assert a.grad.shape == a.shape
+    assert _stub_calls(libs["rglru_scan"], 2) == [("rglru_scan_f32", 9), ("rglru_scan_bwd_f32", 12)]
+    before = len(libs["rwkv6_scan"].calls)
+    for x in (r, one):
+        o, s_out = rw._launch(x, x, x, x, u, 4, None)
+        assert o.grad_fn is not None and s_out.grad_fn is not None
+        o.sum().backward()
+        assert x.grad.shape == x.shape
+    assert libs["rwkv6_scan"].calls[before:] == ["rwkv6_scan_fwd"] * 2       # S = 1 too
+    assert _stub_calls(libs["rwkv6_scan_bwd"], 0) == [("rwkv6_scan_bwd", 51)] * 2
+    assert (rglru_scan.launches, rglru_scan.launches_bwd) == (3, 1)
+    assert (rwkv6_scan.launches_chunked, rwkv6_scan.launches_decode, rwkv6_scan.launches_bwd,
+            rwkv6_scan.launches) == (4, 2, 6, 6)
     for dtype, lib in ((torch.bfloat16, "flash_attention_wgmma"),
                        (torch.float32, "flash_attention")):
         qq, kk = (t.detach().to(dtype).requires_grad_() for t in (q, k))
@@ -789,6 +1039,47 @@ def test_gradients_never_bypass_a_kernel(monkeypatch):
     assert (flash_attention.launches_bwd_tc, flash_attention.launches_bwd_fma,
             flash_attention.launches_bwd, flash_attention.launches) == (3, 3, 6, 6)
     assert all(set(lib.bound.values()) == {1} for lib in libs.values())
+
+
+def test_scan_backwards_take_the_forward_s_tensors(monkeypatch):
+    """Through the stand-in libraries, under grad: the RG-LRU Function
+    hands ``rglru_scan_bwd_f32`` a, the forward's own out (the kernel reads
+    h_{t-1} from it) and h0, dout, no dh_last where h_last took no gradient,
+    and (B, S, C); the RWKV6 Function hands ``rwkv6_scan_bwd`` the chunk
+    states the forward entry wrote (its scratch) and its S_final, a
+    dS_final only where S_final took a gradient, the gradients laid out as
+    the model's (B, S, H, hd), and (B, H, S, hd, W). One backward launch a
+    RG-LRU call, three a RWKV6 call."""
+    import importlib
+    rg = importlib.import_module("repro_torch.kernels.rglru_scan")
+    rw = importlib.import_module("repro_torch.kernels.rwkv6_scan")
+    libs = stub_libraries(monkeypatch)
+    monkeypatch.setattr(rglru_scan, "launches_bwd", 0)
+    monkeypatch.setattr(rwkv6_scan, "launches_bwd", 0)
+    B, S, C = 2, 6, 8
+    a = torch.zeros((B, S, C), requires_grad=True)
+    h0 = torch.zeros((B, C))
+    out, h_last = rg._launch(a, a, h0)
+    out.sum().backward()
+    fwd, bwd = libs["rglru_scan"].args
+    assert bwd[:3] == (a.data_ptr(), fwd[3], h0.data_ptr())
+    assert bwd[4] is None and bwd[8:11] == (B, S, C)
+    assert rglru_scan.launches_bwd == 1
+
+    B, H, S, hd, W = 2, 3, 10, 16, 4
+    r = torch.zeros((B, S, H, hd)).transpose(1, 2).requires_grad_()
+    u = torch.zeros((H, hd))
+    for with_final in (False, True):
+        o, s_out = rw._launch(r, r, r, r, u, W, None)
+        ((o.sum() + s_out.sum()) if with_final else o.sum()).backward()
+        fwd = libs["rwkv6_scan"].args[-1]
+        bwd = libs["rwkv6_scan_bwd"].args[-1]
+        assert bwd[7] == fwd[9] and bwd[8] == fwd[8]       # S_in of each chunk, S_final
+        assert (bwd[9] is not None) == with_final          # dS_final
+        assert bwd[33:36] == (S * H * hd, hd, H * hd)      # dr in the model's layout
+        assert bwd[-6:-1] == (B, H, S, hd, W)
+    assert rwkv6_scan.launches_bwd == 6
+    assert libs["rwkv6_scan_bwd"].bound == {"rwkv6_scan_bwd": 1}
 
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, 2), (torch.float32, 0)])
@@ -1035,3 +1326,68 @@ def test_cuda_flash_backward_matches_plain_versions(card):
             else:
                 _within(got, w, 2.0 ** -7, 1e-4 * m)
                 _within(got, a, 2.0 ** -6, 1e-2 * m)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_backwards_match_plain_versions(card):
+    """Both backward kernels over S in {1, 7, 63, 64, 65, 2048}, with and
+    without an initial state and a final state's gradient: the RG-LRU's bit
+    for bit its plain version (f32, the type it takes), the RWKV6's in f32
+    and bf16 within chip_smoke's bounds (2e-3·|plain| + 1e-3·max; bf16 dr,
+    dk, dv 2^-7·|plain| + 1e-3·max); then through autograd (the Functions)
+    against autograd of the plain forwards at S = 65."""
+    import importlib
+    rg = importlib.import_module("repro_torch.kernels.rglru_scan")
+    rw = importlib.import_module("repro_torch.kernels.rwkv6_scan")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for S in (1, 7, 63, 64, 65, 2048):
+        for with_state in (False, True):
+            B, C = 2, 4096 if S == 2048 else 260
+            a = torch.rand((B, S, C), generator=gen, device="cuda")
+            b, dout = (torch.randn((B, S, C), generator=gen, device="cuda") for _ in range(2))
+            h0, dl = ((torch.randn((B, C), generator=gen, device="cuda") for _ in range(2))
+                      if with_state else (None, None))
+            out, _ = rg._forward(a, b, h0, share=False)
+            got = rg._backward(a, out, h0, dout, dl)
+            want = rglru_scan_bwd_plain(a, out, h0, dout, dl)
+            assert all(torch.equal(x, y) for x, y in zip(got, want)), (S, with_state)
+            for dtype in (torch.float32, torch.bfloat16):
+                H, hd, W = 4, 64, 64
+                r, k, v, do = (torch.randn((1, S, H, hd), generator=gen, device="cuda")
+                               .transpose(1, 2) for _ in range(4))
+                r, k, v = (t.to(dtype) for t in (r, k, v))
+                logw = -torch.exp(torch.rand((1, S, H, hd), generator=gen, device="cuda") * 11
+                                  - 8).transpose(1, 2)
+                u = 0.5 * torch.randn((H, hd), generator=gen, device="cuda")
+                s0, df = ((torch.randn((1, H, hd, hd), generator=gen, device="cuda")
+                           for _ in range(2)) if with_state else (None, None))
+                Wc = min(W, S)
+                o, s_out, scratch = rw._forward(r, k, v, logw, u, Wc, s0, "chunked")
+                got = rw._backward(r, k, v, logw, u, s_out, scratch, do, df, Wc)
+                want = rwkv6_scan_bwd_plain(r, k, v, logw, u, do, chunk=Wc, s0=s0, ds_final=df)
+                for i, (g, w) in enumerate(zip(got, want)):
+                    rtol = 2.0 ** -7 if i < 3 and dtype == torch.bfloat16 else RWKV_TOL
+                    _within(g, w, rtol, 1e-3 * float(w.float().abs().max()))
+    # end to end through the Functions at S = 65, against autograd of the plain forwards
+    a = torch.rand((2, 65, 260), generator=gen, device="cuda")
+    b = torch.randn((2, 65, 260), generator=gen, device="cuda")
+    ins = [t.clone().requires_grad_() for t in (a, b)]
+    before = rglru_scan.launches_bwd
+    got = torch.autograd.grad(rglru_scan(*ins)[0].sum(), ins)
+    assert rglru_scan.launches_bwd == before + 1
+    ins = [t.clone().requires_grad_() for t in (a, b)]
+    for g, w in zip(got, torch.autograd.grad(rglru_scan_plain(*ins)[0].sum(), ins)):
+        _within(g, w, 1e-5, 1e-6 * float(w.abs().max()))
+    r, k, v = (torch.randn((2, 65, 4, 64), generator=gen, device="cuda").bfloat16()
+               .transpose(1, 2) for _ in range(3))
+    logw = -torch.exp(0.5 * torch.randn((2, 65, 4, 64), generator=gen, device="cuda")
+                      ).transpose(1, 2)
+    u = 0.5 * torch.randn((4, 64), generator=gen, device="cuda")
+    ins = [t.detach().requires_grad_() for t in (r, k, v, logw, u)]
+    before = rwkv6_scan.launches_bwd
+    got = torch.autograd.grad(rwkv6_scan(*ins)[0].sum(), ins)
+    assert rwkv6_scan.launches_bwd == before + 3
+    ins = [t.detach().requires_grad_() for t in (r, k, v, logw, u)]
+    want = torch.autograd.grad(rwkv6_scan_plain(*ins)[0].sum(), ins)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _within(g, w, 2.0 ** -7 if i < 3 else RWKV_TOL, 1e-3 * float(w.float().abs().max()))

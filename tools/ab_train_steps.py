@@ -7,7 +7,9 @@ checkouts on one card in turns.
     done
 
 Runs ``launch.train.run`` from the checkout at ``root`` (its ``src/`` and
-its ``chip_smoke.py``, whose TRAIN settings it uses: batch 8 × 2048, adamw)
+its ``chip_smoke.py``, whose TRAIN settings it uses: batch 8 × 2048, lr
+3e-4; adamw, ``launch.train.run``'s default, which older checkouts' TRAIN
+names)
 for qwen2-0.5b at ``--micro`` 1 and 2 (5 steps) and olmo-1b (4 steps),
 random weights from seed 0, and prints per run one ``RESULT`` line (the
 median of the warm steps' ``dt``, tokens/s, every step) and a
