@@ -825,6 +825,9 @@ def _kernel_name(key: str) -> str:
     return (key[5:] if key.startswith("void ") else key).split("(")[0].strip()[:70]
 
 
+PROFILE_MARGIN_S = 0.05   # idle card time at each end of a profiler session
+
+
 def _device_profile(label: str, fn, kernels, calls: int = 1, top: int = 6) -> None:
     """Print the device time of ``calls`` calls of ``fn`` by kernel
     (torch.profiler's CUDA activity) beside the host clock's wall time:
@@ -832,17 +835,38 @@ def _device_profile(label: str, fn, kernels, calls: int = 1, top: int = 6) -> No
     the port's kernels as (names, wrapper, counter): the profiler must
     record one launch of the named kernels for each step of the wrapper's
     counter over the calls, or the run fails, since a session that misses
-    launches reads too little device time (later sessions in one process
-    have missed some, on the H100)."""
+    launches reads too little device time.
+
+    The profiler keeps only the device activity that falls inside its
+    capture window, from its start to its stop on the host's clock, with
+    the card's timestamps converted to that clock. Where the two clocks
+    disagree by more than the idle time at either end of the window, the
+    first or last launches are dropped: a session of short calls (the
+    RWKV6 decode step) recorded 14 of its 20 launches late in a run on the
+    H100. So the card idles ``PROFILE_MARGIN_S`` inside the window before
+    the first call and after the last; the wall time excludes both, and
+    the line printed gives where the device activity lies in the session
+    beside where the calls ran on the host's clock."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     before = [getattr(wrapper, counter) for _, wrapper, counter in kernels]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t_in = time.perf_counter()
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0) / calls
+        t1 = time.perf_counter()
+        time.sleep(PROFILE_MARGIN_S)
+    wall = 1e3 * (t1 - t0) / calls
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    placed = (f"device activity {min(a for a, _ in spans) / 1e3:.3f}-"
+              f"{max(b for _, b in spans) / 1e3:.3f} ms into the session"
+              if spans else "no device activity")
+    placed += f", the calls {1e3 * (t0 - t_in):.3f}-{1e3 * (t1 - t_in):.3f} ms on the host"
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     made = 0
     for (names, wrapper, counter), was in zip(kernels, before):
@@ -850,14 +874,14 @@ def _device_profile(label: str, fn, kernels, calls: int = 1, top: int = 6) -> No
         seen = sum(e.count for e in events
                    if _kernel_name(e.key).split("<")[0] in names)
         check(seen == want, f"profile {label}: {seen} launches of {'/'.join(names)} "
-                            f"recorded, {want} made")
+                            f"recorded, {want} made ({placed})")
         made += want
     check(made > 0, f"profile {label}: none of the port's kernels launched")
     rows = sorted(((e.self_device_time_total / 1e3 / calls, e.count / calls,
                     _kernel_name(e.key)) for e in events), reverse=True)
     device = sum(ms for ms, _, _ in rows)
     print(f"profile {label}: device {device:.4f} ms of wall {wall:.4f} ms a call "
-          f"({100 * device / wall:.1f}% busy); top kernels: "
+          f"({100 * device / wall:.1f}% busy; {placed}); top kernels: "
           + "; ".join(f"{name} {ms:.4f} ms x{n:g}" for ms, n, name in rows[:top]))
 
 
@@ -1282,8 +1306,10 @@ def phase_train_kernels():
     """The forward kernels' log-sum-exp on both routes, and the backward
     kernel against autograd of the plain version and against its plain
     version, at the train path's shapes; returns the backward's row at
-    qwen2-0.5b's shape (both train shapes' times under "train_shapes")
-    and the forward's times at both train shapes."""
+    qwen2-0.5b's shape (the three train shapes' times under
+    "train_shapes": qwen2-0.5b, olmo-1b and recurrentgemma-9b's hd-256
+    MQA, whose window of 2048 covers the whole sequence) and the forward's
+    times at the train shapes."""
     import importlib
 
     import torch.nn.functional as F
@@ -1297,6 +1323,8 @@ def phase_train_kernels():
             ("qwen2-0.5b train, GQA 14 -> 2", 8, 14, 2, 2048, 64, 0, torch.bfloat16,
              "qwen2-0.5b"),
             ("olmo-1b train, MHA", 8, 16, 16, 2048, 128, 0, torch.bfloat16, "olmo-1b"),
+            ("recurrentgemma-9b train, MQA, hd 256, window 2048", 8, 16, 1, 2048, 256, 2048,
+             torch.bfloat16, "recurrentgemma-9b"),
             ("recurrentgemma-9b shape: MQA, hd 256, window 2048", 1, 16, 1, 4096, 256, 2048,
              torch.bfloat16, None),
             ("ragged S", 4, 14, 2, 1999, 64, 0, torch.bfloat16, None),
@@ -1317,8 +1345,7 @@ def phase_train_kernels():
                        else _within(o, po, 2e-5, 2e-5))
         check(ok_l and ok_o, f"flash forward with lse [{what}]: o {err_o}, lse {err_l}")
         del po, plse
-        bwd_counter = ("launches_bwd_tc" if dtype == torch.bfloat16 and hd <= 128
-                       else "launches_bwd_fma")
+        bwd_counter = "launches_bwd_tc" if dtype == torch.bfloat16 else "launches_bwd_fma"
         before = getattr(flash_attention, bwd_counter)
         got = fa._backward(q, k, v, o, lse, do, True, window, scale, 0.0)
         again = fa._backward(q, k, v, o, lse, do, True, window, scale, 0.0)
@@ -1358,11 +1385,11 @@ def phase_train_kernels():
                                                               window=window), reps=5, warmup=1)
         qx = q.detach().requires_grad_()
         kx, vx = (t.repeat_interleave(H // KV, 1).detach().requires_grad_() for t in (k, v))
-        if window:
+        if 0 < window < S:
             idx = torch.arange(S, device="cuda")
             mask = (idx[None, :] <= idx[:, None]) & (idx[None, :] > idx[:, None] - window)
             out = F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask)
-        else:
+        else:   # no window, or one that covers every row's keys: causal
             out = F.scaled_dot_product_attention(qx, kx, vx, is_causal=True)
         library_ms = time_ms(lambda: torch.autograd.grad(out, (qx, kx, vx), do,
                                                          retain_graph=True))
@@ -1375,6 +1402,9 @@ def phase_train_kernels():
                       note=" (vs the plain version; library: the backward of "
                            "scaled_dot_product_attention, is_causal or the boolean window "
                            "mask, KV expanded)")
+        print(f"flash backward [{what}]: {ms:.4f} ms, {ms / library_ms:.2f}x the library's "
+              f"{library_ms:.4f} ms, {100 * row['bound_ms'] / ms:.1f}% of its bound "
+              f"{row['bound_ms']:.4f} ms ({bwd_counter[13:]} route)")
         if train:
             rows["train_shapes"][train] = {k: row[k] for k in ("ms", "library_ms", "bound_ms")}
             rows.setdefault("flash_attention_bwd", row)
@@ -1549,6 +1579,9 @@ def phase_scan_bwd_kernels():
                            f", {max(r for _, r in errs_a):.2e} of max, same bounds; two calls "
                            f"bit for bit; the forward {fwd_ms:.4f} ms)")
         row["forward_ms"] = fwd_ms
+        print(f"rwkv6 backward [{what}]: {ms:.4f} ms, {ms / fwd_ms:.2f}x its forward's "
+              f"{fwd_ms:.4f} ms, {100 * row['bound_ms'] / ms:.1f}% of its bound "
+              f"{row['bound_ms']:.4f} ms")
         rows.setdefault("rwkv6_scan_bwd", row)
         del r, k, v, logw, do, o, s_out, scratch
         torch.cuda.empty_cache()
@@ -1565,7 +1598,7 @@ def _train_routing(cfg, steps: int, micro: int):
     unit runs its forward twice (the forward and remat's recompute), each
     tail layer once (the tail stays outside the checkpoint); each attention,
     RG-LRU and RWKV6 layer runs its backward once: flash's three launches
-    (bf16 at hd <= 128 on the tensor cores, else on the CUDA cores), the
+    (bf16 on the tensor cores, hd 256 too; f32 on the CUDA cores), the
     RG-LRU scan's one, the RWKV6 scan's three (its forward on the chunked
     route)."""
     n = steps * micro
@@ -1573,12 +1606,11 @@ def _train_routing(cfg, steps: int, micro: int):
     fwd = {kind: n * (2 * unit.count(kind) + tail.count(kind)) for kind in ("attn", "rglru", "rwkv")}
     bwd = {kind: n * (unit + tail).count(kind) for kind in ("attn", "rglru", "rwkv")}
     tc = cfg.dtype == "bfloat16"
-    tc_bwd = tc and cfg.head_dim <= 128
     return {"flash_attention": {"launches": fwd["attn"], "launches_tc": fwd["attn"] if tc else 0,
                                 "launches_f32": 0 if tc else fwd["attn"],
                                 "launches_bwd": 3 * bwd["attn"],
-                                "launches_bwd_tc": 3 * bwd["attn"] if tc_bwd else 0,
-                                "launches_bwd_fma": 0 if tc_bwd else 3 * bwd["attn"]},
+                                "launches_bwd_tc": 3 * bwd["attn"] if tc else 0,
+                                "launches_bwd_fma": 0 if tc else 3 * bwd["attn"]},
             "rglru_scan": {"launches": fwd["rglru"], "launches_bwd": bwd["rglru"]},
             "rwkv6_scan": {"launches": fwd["rwkv"], "launches_chunked": fwd["rwkv"],
                            "launches_decode": 0, "launches_bwd": 3 * bwd["rwkv"]}}
@@ -1661,6 +1693,11 @@ def phase_train(device: str = "cuda", smoke: bool = False, **shape):
                   f"{[round(r['loss'], 5) for r in hist]}; grad norms "
                   f"{[round(r['grad_norm'], 4) for r in hist]}; launches {counts}")
             check(counts == want, f"train {label}: launches {counts}, want {want}")
+            fl = counts["flash_attention"]
+            if cfg.dtype == "bfloat16" and fl["launches_bwd"]:
+                # every bf16 backward, hd 256 too, on the tensor-core route
+                check(fl["launches_bwd_tc"] == fl["launches_bwd"] and not fl["launches_bwd_fma"],
+                      f"train {label}: flash backward launches {fl}, want all on launches_bwd_tc")
             check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                       for r in hist), f"train {label}: a loss or gradient norm is not finite")
             for kernel in ("flash_attention", "rglru_scan", "rwkv6_scan"):
@@ -1807,9 +1844,11 @@ def main() -> int:
                "flash_attention_bwd": "the gradient of the row above, which the TPU kernel "
                                       "lacks (the reference differentiates its jnp "
                                       "attention): dK/dV by key tile over the GQA group, "
-                                      "then dQ by query tile; bf16 at hd <= 128 on wgmma "
-                                      "fed by a TMA ring (P, dS as bf16 hi + lo), else "
-                                      "CUDA-core f32 FMAs",
+                                      "then dQ by query tile; bf16 on wgmma fed by a TMA "
+                                      "ring (P, dS as bf16 hi + lo; at hd 256 64-row blocks "
+                                      "whose two warpgroups split the head's columns and "
+                                      "both compute the tile's scores); f32 on CUDA-core "
+                                      "FMAs",
                "rglru_scan": "one-warp blocks of 32 channels, a 4-stage cp.async ring of "
                              "32 time steps feeding the in-order chain",
                "rwkv6_scan": "chunk-parallel, mma.sync 3xTF32; decode route for S = 1",
@@ -1819,8 +1858,10 @@ def main() -> int:
                "rwkv6_scan_bwd": "the gradient of the row rwkv6_scan, which the TPU kernel "
                                  "lacks (the reference differentiates its jnp chunk body): "
                                  "the forward's three launches in reverse from its saved chunk "
-                                 "states; products mma.sync 3xTF32, pair sums with per-pair "
-                                 "exponentials on the CUDA cores"}
+                                 "states; products mma.sync 3xTF32; the pair sums factored "
+                                 "over 16-token sub-chunks as the forward's, off-diagonal "
+                                 "blocks as products, per-pair exponentials only on the "
+                                 "diagonal blocks; 95 KB of shared memory, two blocks an SM"}
     for name, _, _ in table:
         check(launches[name] > 0, f"{name} never launched on the main path")
     print(json.dumps({"kernels": [

@@ -25,9 +25,8 @@
 //
 // Bound: operations. The function needs 10·hd flops a visible (query, key)
 // pair (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q, dS·K). Two routes, chosen by the wrapper:
-// - bf16 at hd <= 128: the products on the tensor cores (wgmma, below);
-// - f32, and bf16 at hd = 256 (whose 64 × 256 f32 accumulators of dK and dV
-//   would not fit a warpgroup's registers): CUDA-core f32 FMAs.
+// - bf16 (every hd): the products on the tensor cores (wgmma, below);
+// - f32: CUDA-core f32 FMAs.
 // Both take the same two passes, which keep every sum inside one block, in
 // a fixed order: no atomics, and the result repeats bit for bit.
 // - dK/dV: one block per (batch, KV head, key tile). It walks every query
@@ -42,43 +41,60 @@
 // forward's shape (flash_attention_wgmma.cu; helpers in hopper.cuh): 384
 // threads, a producer warpgroup whose one thread issues TMA copies into a
 // 2-stage ring guarded by full/empty mbarriers, and two consumer
-// warpgroups of 64 rows each (setmaxnreg 24/240). Tiles are 64 rows × hd
-// bf16 as TMA writes them (128-byte swizzle), which is what the wgmma
-// descriptors read, so no tile is copied, converted or transposed by a
-// thread.
-// - dK/dV: a block owns 128 keys (64 a warpgroup); its K and V tiles are
-//   loaded once, and the ring carries (Q, dO, the rows' lse and D) over the
-//   group's heads and the query tiles that see the block's keys. A
-//   warpgroup computes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (wgmma m64n64k16, both
-//   operands from shared memory, hd the reduced axis), Pᵀ and dSᵀ in
+// warpgroups (setmaxnreg 24/240). Tiles are 64 rows × hd bf16 as TMA
+// writes them (128-byte swizzle), which is what the wgmma descriptors
+// read, so no tile is copied, converted or transposed by a thread.
+// - dK/dV: a block owns 128 keys, 64 a warpgroup (hd <= 128); its K and V
+//   tiles are loaded once, and the ring carries (Q, dO, the rows' lse and
+//   D) over the group's heads and the query tiles that see the block's
+//   keys. A warpgroup computes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (wgmma m64n64k16,
+//   both operands from shared memory, hd the reduced axis), Pᵀ and dSᵀ in
 //   registers, then dV += Pᵀ·dO and dK += dSᵀ·Q (wgmma m64n{hd}k16, A from
 //   registers, B = dO or Q read through the transpose bit: the reduced axis
 //   is the tile's rows). dK and dV are 2 × hd/2 f32 registers a thread.
 // - dQ: a block owns 128 queries; Q and dO are loaded once, the ring
 //   carries (K, V). S = Q·Kᵀ and dP = dO·Vᵀ as above, then dQ += dS·K with
 //   K read transposed.
+// hd = 256 (Wg<256>::kSplit). A warpgroup's 64 rows of f32 dK and dV at
+// full width would take 2 × 128 registers a thread, and 128 rows of K and V
+// beside the ring 256 KB of shared memory. So a block owns 64 rows (keys,
+// or queries in the dQ pass) and its two warpgroups split hd: each keeps
+// dK[:, half] and dV[:, half] (dQ[:, half]), 128 accumulator registers a
+// thread as at hd 128, and multiplies by its half of dO, Q (K) through a
+// descriptor that starts two column blocks in. Both warpgroups compute the
+// same 64 × 64 Sᵀ and dPᵀ (S and dP) over the full hd: the products are
+// duplicated rather than exchanged as two 64 × 64 f32 partials through
+// shared memory, which would add 32 KB, two named barriers a tile and lock
+// the warpgroups together. Shared memory: K and V 64 KB and a 2-stage ring
+// of Q and dO 128 KB with the rows' lse and D (dK/dV), Q and dO 64 KB and a
+// ring of K and V 128 KB (dQ): about 194 KB each (Wg's static_assert).
+// At the train shape (KV = 1) the dK/dV grid is 256 blocks of 64 keys on
+// 132 SMs, each walking all 16 heads; taken longest first they pair up
+// (the key tile nearest the start sees 32 query tiles, the last one 1).
 // P and dS, f32 in registers, enter the products that consume them as two
 // bf16 halves, hi = bf16(x) and lo = bf16(x − hi) (about 16 significant
 // bits, as the forward carries P); Q, K, V and dO are bf16 and exact in the
 // products. So the route keeps the CUDA-core route's accuracy at 20·hd
-// tensor-core flops a pair, twice the bound's 10·hd: the design's ceiling
-// is half the bound's rate. Between the products a warpgroup's 64 × 64
-// tile is elementwise work (P = 2^(s·scale·log2 e − lse·log2 e), one FFMA
-// and one ex2 a score; dS; the hi/lo splits), which at hd = 64 issues about
-// as many instructions as the products take tensor-core cycles. So the
-// mask is applied only to tiles that are not wholly visible (the diagonal,
-// the window's edge, the ragged end), and within a tile P is computed while
-// dP = dO·Vᵀ is still in flight and dS while dV += Pᵀ·dO runs (wgmma
-// wait_group 1, then 0). Blocks go longest first in both passes (the key
-// tile nearest the start sees the most queries); a warpgroup skips the
-// products of a tile wholly outside its rows' window but still waits on it
-// and releases it.
+// tensor-core flops a pair (28·hd at hd 256: 16·hd in dK/dV, 12·hd in dQ,
+// with Sᵀ and dPᵀ duplicated), against the bound's 10·hd: the design's
+// ceiling is half the bound's rate (5/14 at hd 256). Between the products
+// a warpgroup's 64 × 64 tile is elementwise work (P = 2^(s·scale·log2 e −
+// lse·log2 e), one FFMA and one ex2 a score; dS; the hi/lo splits), which
+// at hd = 64 issues about as many instructions as the products take
+// tensor-core cycles. So the mask is applied only to tiles that are not
+// wholly visible (the diagonal, the window's edge, the ragged end), and
+// within a tile P is computed while dP = dO·Vᵀ is still in flight and dS
+// while dV += Pᵀ·dO runs (wgmma wait_group 1, then 0). Blocks go longest
+// first in both passes (the key tile nearest the start sees the most
+// queries); a warpgroup skips the products of a tile wholly outside its
+// rows' window but still waits on it and releases it.
 //
-// CUDA-core design: 256 threads as a 16 × 16 grid, tiles of BT rows (64,
-// or 32 at hd = 256 to fit shared memory), staged in shared memory as f32
-// rows padded by four floats. A score tile is a BT × BT block, R × R values
-// a thread (queries ty·R + i against keys tx + 16j) fed by float4 reads
-// along hd; dK and dV are kept for keys ty·R + i, R × hd/16 values each.
+// CUDA-core design (f32): 256 threads as a 16 × 16 grid, tiles of BT rows
+// (64, or 32 at hd = 256 to fit shared memory), staged in shared memory as
+// f32 rows padded by four floats. A score tile is a BT × BT block, R × R
+// values a thread (queries ty·R + i against keys tx + 16j) fed by float4
+// reads along hd; dK and dV are kept for keys ty·R + i, R × hd/16 values
+// each.
 //
 // Layout: q, k, v, o, dO and the outputs are (B, heads, S, hd) with hd
 // contiguous and any (batch, head, sequence) strides, in elements (on the
@@ -110,8 +126,6 @@ __host__ __device__ __forceinline__ int padded(int S) {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 template <int HD>
 struct Cfg {
@@ -130,15 +144,15 @@ __device__ __forceinline__ int column(int tx, int c) {
   return Cfg<HD>::kVec ? 4 * tx + 64 * (c / 4) + c % 4 : tx + 16 * c;
 }
 
-// rows row0 .. row0 + BT − 1 of one (batch, head) as f32, zeros past S
-template <int HD, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+// rows row0 .. row0 + BT − 1 of one (batch, head), zeros past S
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
                                           long long s_stride, int row0, int S) {
   constexpr int BT = Cfg<HD>::BT, LD = Cfg<HD>::LD;
   for (int i = threadIdx.x; i < BT * HD; i += kThreads) {
     const int r = i / HD, d = i % HD;
     dst[r * LD + d] =
-        (row0 + r < S) ? to_f32(src[(long long)(row0 + r) * s_stride + d]) : 0.f;
+        (row0 + r < S) ? src[(long long)(row0 + r) * s_stride + d] : 0.f;
   }
 }
 
@@ -257,13 +271,14 @@ __global__ void flash_bwd_prep(const T* __restrict__ o, const T* __restrict__ dO
   }
 }
 
-// ------------------------------------------------------------ CUDA-core route
+// ------------------------------------------------------------ CUDA-core route (f32)
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const T* __restrict__ dO, const float* __restrict__ Lg,
-               const float* __restrict__ Dg, T* __restrict__ dk, T* __restrict__ dv, Strides sq,
+flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dO,
+               const float* __restrict__ Lg, const float* __restrict__ Dg,
+               float* __restrict__ dk, float* __restrict__ dv, Strides sq,
                Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv, int H, int group,
                int S, int causal, int window, float scale, float softcap) {
   using C = Cfg<HD>;
@@ -296,8 +311,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 
   for (int hh = 0; hh < group; ++hh) {
     const int h = kvh * group + hh;
-    const T* qb = q + b * sq.b + h * sq.h;
-    const T* db = dO + b * sdo.b + h * sdo.h;
+    const float* qb = q + b * sq.b + h * sq.h;
+    const float* db = dO + b * sdo.b + h * sdo.h;
     const float* lb = Lg + ((long long)b * H + h) * Sp;
     const float* Db = Dg + ((long long)b * H + h) * Sp;
     for (int qt = qt_lo; qt <= qt_hi; ++qt) {
@@ -348,25 +363,26 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     }
   }
 
-  T* dkb = dk + b * sdk.b + kvh * sdk.h;
-  T* dvb = dv + b * sdv.b + kvh * sdv.h;
+  float* dkb = dk + b * sdk.b + kvh * sdk.h;
+  float* dvb = dv + b * sdv.b + kvh * sdv.h;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int key = k0 + ty * R + i;
     if (key >= S) continue;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
-      store(&dkb[key * sdk.s + column<HD>(tx, c)], acc_k[i][c] * scale);
-      store(&dvb[key * sdv.s + column<HD>(tx, c)], acc_v[i][c]);
+      dkb[key * sdk.s + column<HD>(tx, c)] = acc_k[i][c] * scale;
+      dvb[key * sdv.s + column<HD>(tx, c)] = acc_v[i][c];
     }
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             const T* __restrict__ dO, const float* __restrict__ Lg,
-             const float* __restrict__ Dg, T* __restrict__ dq, Strides sq, Strides sk,
+flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dO,
+             const float* __restrict__ Lg, const float* __restrict__ Dg,
+             float* __restrict__ dq, Strides sq, Strides sk,
              Strides sv, Strides sdo, Strides sdq, int H, int group, int S, int causal,
              int window, float scale, float softcap) {
   using C = Cfg<HD>;
@@ -393,8 +409,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     sL[i] = q0 + i < S ? lb[q0 + i] : 0.f;
     sD[i] = q0 + i < S ? Db[q0 + i] : 0.f;
   }
-  const T* kb = k + b * sk.b + kvh * sk.h;
-  const T* vb = v + b * sv.b + kvh * sv.h;
+  const float* kb = k + b * sk.b + kvh * sk.h;
+  const float* vb = v + b * sv.b + kvh * sv.h;
 
   // the key tiles some row of this query tile sees
   const int last_row = min(q0 + BT, S) - 1;
@@ -439,32 +455,42 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     }
   }
 
-  T* dqb = dq + b * sdq.b + h * sdq.h;
+  float* dqb = dq + b * sdq.b + h * sdq.h;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int row = q0 + ty * R + i;
     if (row >= S) continue;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) store(&dqb[row * sdq.s + column<HD>(tx, c)], acc[i][c] * scale);
+    for (int c = 0; c < CPT; ++c) dqb[row * sdq.s + column<HD>(tx, c)] = acc[i][c] * scale;
   }
 }
 
 // ------------------------------------------------------------ tensor-core route (wgmma)
 
 constexpr int kTcStages = 2;                   // ring depth of both passes
-constexpr int kTcConsumers = 256;              // two warpgroups of 64 rows
+constexpr int kTcConsumers = 256;              // two consumer warpgroups
 constexpr int kTcThreads = kTcConsumers + 128;  // and the producer's warpgroup
-constexpr int kTcRows = 2 * hopper::kRows;     // keys (dK/dV) or queries (dQ) a block owns
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128·24 + 256·240 ≤ 64 K
+constexpr size_t kMaxSmem = 232448;            // dynamic shared memory a block may use
 
+// The shape of a tensor-core block by head size. At hd <= 128 a block owns
+// 128 rows (keys in dK/dV, queries in dQ), 64 a warpgroup, and a warpgroup
+// all hd output columns of its rows. At hd = 256 (kSplit) it owns 64 rows,
+// which both warpgroups share, each keeping hd/2 of the output columns.
 template <int HD>
 struct Wg {
   using T = hopper::Tiles<HD>;
-  // own two tiles of each of two operands, the ring's two tiles a stage, the
+  static constexpr bool kSplit = HD > 128;
+  static constexpr int ROWS = kSplit ? hopper::kRows : 2 * hopper::kRows;
+  static constexpr int OWN = ROWS / hopper::kRows;   // tiles of each operand the block owns
+  static constexpr int COLS = kSplit ? HD / 2 : HD;  // output columns of a warpgroup
+  // the block's own tiles of two operands, the ring's two tiles a stage, the
   // ring's lse and D rows (dK/dV), barriers, and 1 KB to align the start
-  static constexpr size_t SMEM_DKDV =
-      size_t(4 + 2 * kTcStages) * T::TILE + 2 * kTcStages * hopper::kRows * 4 + 1024 + 128;
-  static constexpr size_t SMEM_DQ = size_t(4 + 2 * kTcStages) * T::TILE + 1024 + 128;
+  static constexpr size_t SMEM_DKDV = size_t(2 * OWN + 2 * kTcStages) * T::TILE +
+                                      2 * kTcStages * hopper::kRows * 4 + 1024 + 128;
+  static constexpr size_t SMEM_DQ = size_t(2 * OWN + 2 * kTcStages) * T::TILE + 1024 + 128;
+  static_assert(SMEM_DKDV <= kMaxSmem && SMEM_DQ <= kMaxSmem,
+                "a tensor-core backward block must fit the 227 KB of shared memory");
 };
 
 // the 64 × 16 A fragments of a 64 × 64 f32 accumulator tile, as bf16 hi + lo
@@ -597,10 +623,11 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmq,
                      int KV, int S, int causal, int window, float scale, float softcap) {
   using namespace hopper;
   using T = Tiles<HD>;
+  using W = Wg<HD>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sK = align1024(smem_raw);                 // two tiles: the block's keys
-  uint8_t* sV = sK + 2 * T::TILE;                    // two tiles
-  uint8_t* sQ = sV + 2 * T::TILE;                    // kTcStages tiles
+  uint8_t* sK = align1024(smem_raw);                 // W::OWN tiles: the block's keys
+  uint8_t* sV = sK + W::OWN * T::TILE;               // W::OWN tiles
+  uint8_t* sQ = sV + W::OWN * T::TILE;               // kTcStages tiles
   uint8_t* sdO = sQ + kTcStages * T::TILE;           // kTcStages tiles
   float* sL = reinterpret_cast<float*>(sdO + kTcStages * T::TILE);  // kTcStages × 64
   float* sD = sL + kTcStages * kRows;                // kTcStages × 64
@@ -611,9 +638,9 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmq,
   // key tiles nearest the start first (they see the most queries)
   const int group = H / KV, Sp = padded(S);
   const int kvh = blockIdx.x % KV, b = (blockIdx.x / KV) % B;
-  const int k0 = static_cast<int>(blockIdx.x / (KV * B)) * kTcRows;
+  const int k0 = static_cast<int>(blockIdx.x / (KV * B)) * W::ROWS;
   // the query tiles some row of which sees one of keys k0 .. k_last
-  const int k_last = min(k0 + kTcRows, S) - 1;
+  const int k_last = min(k0 + W::ROWS, S) - 1;
   const int qt_lo = causal ? k0 / kRows : 0;
   const int qt_hi = (window > 0 ? min(S - 1, k_last + window - 1) : S - 1) / kRows;
   const int nq = qt_hi - qt_lo + 1, n_iter = group * nq;
@@ -632,8 +659,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmq,
   if (warp >= kTcConsumers / 32) {  // the producer warpgroup: one thread issues every copy
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == kTcConsumers) {
-      mbar_expect_tx(bar_kv, 4 * T::TILE);
-      for (int c = 0; c < 2; ++c)
+      mbar_expect_tx(bar_kv, 2 * W::OWN * T::TILE);
+      for (int c = 0; c < W::OWN; ++c)
         for (int cb = 0; cb < T::NCB; ++cb) {
           tma_load(sK + c * T::TILE + cb * T::BLOCK, &tmk, bar_kv, cb * T::CB, k0 + kRows * c,
                    kvh, b);
@@ -659,18 +686,21 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmq,
   }
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-  // a consumer warpgroup: keys kw0 .. kw0 + 63; this thread holds keys key0
-  // and key0 + 8 (accumulator rows), queries 8j + 2·t4 + {0, 1} of a tile
+  // a consumer warpgroup: keys kw0 .. kw0 + 63 and output columns col0 ..
+  // col0 + W::COLS − 1; this thread holds keys key0 and key0 + 8
+  // (accumulator rows), queries 8j + 2·t4 + {0, 1} of a tile
   const int wg = warp / 4, g = lane / 4, t4 = lane % 4;
-  const int kw0 = k0 + kRows * wg, kw1 = min(kw0 + kRows - 1, S - 1);
+  const int own = W::kSplit ? 0 : wg, col0 = W::kSplit ? wg * W::COLS : 0;
+  const int kw0 = k0 + kRows * own, kw1 = min(kw0 + kRows - 1, S - 1);
   const int key0 = kw0 + 16 * (warp % 4) + g;
-  const uint8_t* k_tile = sK + wg * T::TILE;
-  const uint8_t* v_tile = sV + wg * T::TILE;
+  const uint8_t* k_tile = sK + own * T::TILE;
+  const uint8_t* v_tile = sV + own * T::TILE;
+  const int cols = col0 / T::CB * T::BLOCK;          // bytes to this warpgroup's columns
   const float c = scale * kLog2e;
 
-  float acc_k[HD / 2], acc_v[HD / 2];
+  float acc_k[W::COLS / 2], acc_v[W::COLS / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  for (int i = 0; i < W::COLS / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
   mbar_wait(bar_kv, 0);
 
   for (int i = 0; i < n_iter; ++i) {
@@ -703,17 +733,17 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmq,
       const auto use_p = [&] {
 #pragma unroll
         for (int kk = 0; kk < kRows / 16; ++kk) {
-          const uint64_t desc = T::row_desc(do_tile, kk);
-          wgmma_rs<HD>(acc_v, p_hi[kk], desc);
-          wgmma_rs<HD>(acc_v, p_lo[kk], desc);
+          const uint64_t desc = T::row_desc(do_tile + cols, kk);
+          wgmma_rs<W::COLS>(acc_v, p_hi[kk], desc);
+          wgmma_rs<W::COLS>(acc_v, p_lo[kk], desc);
         }
       };
       const auto use_ds = [&] {
 #pragma unroll
         for (int kk = 0; kk < kRows / 16; ++kk) {
-          const uint64_t desc = T::row_desc(q_tile, kk);
-          wgmma_rs<HD>(acc_k, ds_hi[kk], desc);
-          wgmma_rs<HD>(acc_k, ds_lo[kk], desc);
+          const uint64_t desc = T::row_desc(q_tile + cols, kk);
+          wgmma_rs<W::COLS>(acc_k, ds_hi[kk], desc);
+          wgmma_rs<W::COLS>(acc_k, ds_lo[kk], desc);
         }
       };
       if (all_visible(q0, kw0, S, causal, window))
@@ -734,10 +764,10 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmq,
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + 8 * r;
     if (key >= S) continue;
-    uint32_t* dst_k = reinterpret_cast<uint32_t*>(dkb + key * sdk.s + 2 * t4);
-    uint32_t* dst_v = reinterpret_cast<uint32_t*>(dvb + key * sdv.s + 2 * t4);
+    uint32_t* dst_k = reinterpret_cast<uint32_t*>(dkb + key * sdk.s + col0 + 2 * t4);
+    uint32_t* dst_v = reinterpret_cast<uint32_t*>(dvb + key * sdv.s + col0 + 2 * t4);
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < W::COLS / 8; ++j) {
       dst_k[4 * j] = pack_bf16(acc_k[4 * j + 2 * r] * scale, acc_k[4 * j + 2 * r + 1] * scale);
       dst_v[4 * j] = pack_bf16(acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
     }
@@ -754,26 +784,27 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constan
                    float softcap) {
   using namespace hopper;
   using T = Tiles<HD>;
+  using W = Wg<HD>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sQ = align1024(smem_raw);                 // two tiles: the block's queries
-  uint8_t* sdO = sQ + 2 * T::TILE;                   // two tiles
-  uint8_t* sK = sdO + 2 * T::TILE;                   // kTcStages tiles
+  uint8_t* sQ = align1024(smem_raw);                 // W::OWN tiles: the block's queries
+  uint8_t* sdO = sQ + W::OWN * T::TILE;              // W::OWN tiles
+  uint8_t* sK = sdO + W::OWN * T::TILE;              // kTcStages tiles
   uint8_t* sV = sK + kTcStages * T::TILE;            // kTcStages tiles
   uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + kTcStages * T::TILE);
   uint64_t* bar_full = bar_q + 1;                    // a stage's K and V landed
   uint64_t* bar_empty = bar_full + kTcStages;        // every consumer warp is done with it
 
   // longest query tiles first; the heads of one KV head adjacent
-  const int nq = (S + kTcRows - 1) / kTcRows, group = H / KV;
+  const int nq = (S + W::ROWS - 1) / W::ROWS, group = H / KV;
   const int h = blockIdx.x % H, b = (blockIdx.x / H) % B, kvh = h / group;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x / (H * B))) * kTcRows;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x / (H * B))) * W::ROWS;
   // the key tiles some row in [r0, r1] sees
   const auto tile_range = [&](int r0, int r1, int& lo, int& hi) {
     hi = causal ? r1 / kRows : (S - 1) / kRows;
     lo = (window > 0 && r0 - window + 1 > 0) ? (r0 - window + 1) / kRows : 0;
   };
   int kt_lo, kt_hi;
-  tile_range(q0, min(q0 + kTcRows, S) - 1, kt_lo, kt_hi);
+  tile_range(q0, min(q0 + W::ROWS, S) - 1, kt_lo, kt_hi);
   const int n_tiles = kt_hi - kt_lo + 1;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -790,8 +821,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constan
   if (warp >= kTcConsumers / 32) {  // the producer warpgroup: one thread issues every copy
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == kTcConsumers) {
-      mbar_expect_tx(bar_q, 4 * T::TILE);
-      for (int c = 0; c < 2; ++c)
+      mbar_expect_tx(bar_q, 2 * W::OWN * T::TILE);
+      for (int c = 0; c < W::OWN; ++c)
         for (int cb = 0; cb < T::NCB; ++cb) {
           tma_load(sQ + c * T::TILE + cb * T::BLOCK, &tmq, bar_q, cb * T::CB, q0 + kRows * c, h,
                    b);
@@ -814,14 +845,17 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constan
   }
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-  // a consumer warpgroup: queries wr0 .. wr0 + 63; this thread holds rows
-  // row0 and row0 + 8, keys 8j + 2·t4 + {0, 1} of a tile
+  // a consumer warpgroup: queries wr0 .. wr0 + 63 and output columns col0
+  // .. col0 + W::COLS − 1; this thread holds rows row0 and row0 + 8, keys
+  // 8j + 2·t4 + {0, 1} of a tile
   const int wg = warp / 4, g = lane / 4, t4 = lane % 4;
-  const int wr0 = q0 + kRows * wg, row0 = wr0 + 16 * (warp % 4) + g;
+  const int own = W::kSplit ? 0 : wg, col0 = W::kSplit ? wg * W::COLS : 0;
+  const int wr0 = q0 + kRows * own, row0 = wr0 + 16 * (warp % 4) + g;
   int w_lo = 0, w_hi = -1;  // the key tiles this warpgroup's rows see
   if (wr0 < S) tile_range(wr0, min(wr0 + kRows, S) - 1, w_lo, w_hi);
-  const uint8_t* q_tile = sQ + wg * T::TILE;
-  const uint8_t* do_tile = sdO + wg * T::TILE;
+  const uint8_t* q_tile = sQ + own * T::TILE;
+  const uint8_t* do_tile = sdO + own * T::TILE;
+  const int cols = col0 / T::CB * T::BLOCK;          // bytes to this warpgroup's columns
   const long long lrow = ((long long)b * H + h) * padded(S);
   float l2[2], dr[2];
 #pragma unroll
@@ -832,9 +866,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constan
   }
   const float c = scale * kLog2e;
 
-  float acc[HD / 2];
+  float acc[W::COLS / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < W::COLS / 2; ++i) acc[i] = 0.f;
   mbar_wait(bar_q, 0);
 
   for (int i = 0; i < n_tiles; ++i) {
@@ -863,9 +897,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constan
       const auto use_ds = [&] {
 #pragma unroll
         for (int kk = 0; kk < kRows / 16; ++kk) {
-          const uint64_t desc = T::row_desc(k_tile, kk);
-          wgmma_rs<HD>(acc, ds_hi[kk], desc);
-          wgmma_rs<HD>(acc, ds_lo[kk], desc);
+          const uint64_t desc = T::row_desc(k_tile + cols, kk);
+          wgmma_rs<W::COLS>(acc, ds_hi[kk], desc);
+          wgmma_rs<W::COLS>(acc, ds_lo[kk], desc);
         }
       };
       const auto none = [] {};
@@ -885,9 +919,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constan
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= S) continue;
-    uint32_t* dst = reinterpret_cast<uint32_t*>(dqb + row * sdq.s + 2 * t4);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(dqb + row * sdq.s + col0 + 2 * t4);
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
+    for (int j = 0; j < W::COLS / 8; ++j)
       dst[4 * j] = pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
   }
 }
@@ -896,8 +930,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constan
 
 // the route of a dK/dV or dQ launch, chosen by the wrapper
 constexpr int kRouteF32 = 0;           // f32: CUDA cores
-constexpr int kRouteBf16 = 1;          // bf16 at hd = 256: CUDA cores
-constexpr int kRouteTensorCores = 2;   // bf16 at hd <= 128: wgmma
+constexpr int kRouteTensorCores = 2;   // bf16: wgmma
 
 struct Args {
   const void *q, *k, *v, *dO;
@@ -909,32 +942,33 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int HD>
+template <int HD>
 int launch_dkdv(const Args& a) {
   constexpr size_t smem = Cfg<HD>::SMEM;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      flash_bwd_dkdv<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.S + Cfg<HD>::BT - 1) / Cfg<HD>::BT, a.KV, a.B);
-  flash_bwd_dkdv<T, HD><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dO), a.L, a.D, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sq,
-      a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.H, a.H / a.KV, a.S, a.causal, a.window, a.scale,
-      a.softcap);
+  flash_bwd_dkdv<HD><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dO), a.L, a.D,
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.sq, a.sk, a.sv, a.sdo, a.sdk,
+      a.sdv, a.H, a.H / a.KV, a.S, a.causal, a.window, a.scale, a.softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch_dq(const Args& a) {
   constexpr size_t smem = Cfg<HD>::SMEM;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      flash_bwd_dq<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.S + Cfg<HD>::BT - 1) / Cfg<HD>::BT, a.H, a.B);
-  flash_bwd_dq<T, HD><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dO), a.L, a.D, static_cast<T*>(a.dq), a.sq, a.sk, a.sv, a.sdo,
-      a.sdq, a.H, a.H / a.KV, a.S, a.causal, a.window, a.scale, a.softcap);
+  flash_bwd_dq<HD><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dO), a.L, a.D,
+      static_cast<float*>(a.dq), a.sq, a.sk, a.sv, a.sdo, a.sdq, a.H, a.H / a.KV, a.S, a.causal,
+      a.window, a.scale, a.softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -955,7 +989,7 @@ int launch_wgmma(int pass, const Args& a) {
                            T::SWIZZLE);
   if (err != 0) return err;
   using B16 = __nv_bfloat16;
-  const long long tiles = (a.S + kTcRows - 1) / kTcRows;
+  const long long tiles = (a.S + Wg<HD>::ROWS - 1) / Wg<HD>::ROWS;
   cudaError_t attr;
   if (pass == 0) {
     constexpr size_t smem = Wg<HD>::SMEM_DKDV;
@@ -984,19 +1018,18 @@ int launch_wgmma_hd(int pass, const Args& a) {
   return a.softcap > 0.f ? launch_wgmma<HD, true>(pass, a) : launch_wgmma<HD, false>(pass, a);
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch_pass(int pass, const Args& a) {
-  return pass == 0 ? launch_dkdv<T, HD>(a) : launch_dq<T, HD>(a);
+  return pass == 0 ? launch_dkdv<HD>(a) : launch_dq<HD>(a);
 }
 
-template <typename T>
-int dispatch(int pass, int hd, const Args& a) {
+int dispatch_f32(int pass, int hd, const Args& a) {
   switch (hd) {
-    case 16: return launch_pass<T, 16>(pass, a);
-    case 32: return launch_pass<T, 32>(pass, a);
-    case 64: return launch_pass<T, 64>(pass, a);
-    case 128: return launch_pass<T, 128>(pass, a);
-    case 256: return launch_pass<T, 256>(pass, a);
+    case 16: return launch_pass<16>(pass, a);
+    case 32: return launch_pass<32>(pass, a);
+    case 64: return launch_pass<64>(pass, a);
+    case 128: return launch_pass<128>(pass, a);
+    case 256: return launch_pass<256>(pass, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1007,6 +1040,7 @@ int dispatch_wgmma(int pass, int hd, const Args& a) {
     case 32: return launch_wgmma_hd<32>(pass, a);
     case 64: return launch_wgmma_hd<64>(pass, a);
     case 128: return launch_wgmma_hd<128>(pass, a);
+    case 256: return launch_wgmma_hd<256>(pass, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1023,8 +1057,7 @@ int run(int pass, const void* q, const void* k, const void* v, const void* dO, c
                {st[18], st[19], st[20]},
                B, H, KV, S, causal, window, scale, softcap, static_cast<cudaStream_t>(stream)};
   switch (route) {
-    case kRouteF32: return dispatch<float>(pass, hd, a);
-    case kRouteBf16: return dispatch<__nv_bfloat16>(pass, hd, a);
+    case kRouteF32: return dispatch_f32(pass, hd, a);
     case kRouteTensorCores: return dispatch_wgmma(pass, hd, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1070,9 +1103,8 @@ extern "C" int flash_attention_bwd_prep(const void* o, const void* dO, const flo
 // dk, dv (the entry writes only its own outputs), then the (batch, head,
 // sequence) element strides of q, k, v, dO, dq, dk and dv in that order, the
 // sizes, the mask, the scale, the soft-cap (0: none) and the route: 0 f32 on
-// the CUDA cores, 1 bf16 on the CUDA cores, 2 bf16 on the tensor cores (hd
-// <= 128; q, k, v and dO with strides in multiples of 8 elements on 16-byte
-// aligned bases).
+// the CUDA cores, 2 bf16 on the tensor cores (q, k, v and dO with strides in
+// multiples of 8 elements on 16-byte aligned bases).
 #define FLASH_BWD_ENTRY(NAME, PASS)                                                              \
   extern "C" int NAME(const void* q, const void* k, const void* v, const void* dO,               \
                       const float* L, const float* D, void* dq, void* dk, void* dv,              \

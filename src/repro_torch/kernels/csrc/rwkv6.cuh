@@ -1,7 +1,8 @@
 // rwkv6.cuh — building blocks shared by the RWKV6 scan's forward
 // (rwkv6_scan.cu) and backward (rwkv6_scan_bwd.cu): the 64-row chunk tile,
 // its loads, the column cumulative sum of the decays and the 3 × TF32
-// tensor-core products (mma.sync m16n8k8 with f32 accumulation).
+// tensor-core products (mma.sync m16n8k8 with f32 accumulation), with
+// operands read from shared memory by strides or formed by a functor.
 
 #pragma once
 
@@ -22,6 +23,11 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x) {
+  if constexpr (std::is_same<T, float>::value) return x;
+  else return __float2bfloat16(x);
+}
 
 struct Strides {
   long long b, h, s;
@@ -44,9 +50,10 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// c += A·B in about f32 precision: the small products first. B_EXACT: b
-// is exact in TF32 (a bf16 input), so its lo half is 0 and hi·lo is skipped.
-template <bool B_EXACT = false>
+// c += A·B in about f32 precision: the small products first. B_EXACT
+// (A_EXACT): b (a) is exact in TF32 (a bf16 input), so its lo half is 0 and
+// the product with it is skipped.
+template <bool B_EXACT = false, bool A_EXACT = false>
 __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const float (&a)[4],
                                            const float (&b)[2]) {
   uint32_t ah[4], al[4], bh[2], bl[2];
@@ -54,7 +61,7 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const float (&a)[4],
   for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
 #pragma unroll
   for (int i = 0; i < 2; ++i) split_tf32(b[i], bh[i], bl[i]);
-  mma_tf32(c, al, bh);
+  if (!A_EXACT) mma_tf32(c, al, bh);
   if (!B_EXACT) mma_tf32(c, ah, bl);
   mma_tf32(c, ah, bh);
 }
@@ -88,6 +95,17 @@ struct Tile {
                        : make_uint4(0u, 0u, 0u, 0u);
       else
         buf[j] = (t < n && c < hd) ? to_f32(src[(long long)(t0 + t) * ss + c]) : 0.f;
+    }
+  }
+
+  // into shared memory in the input's own type (row stride ld, 16-byte
+  // aligned rows where VEC)
+  __device__ __forceinline__ void put_raw(T* dst, int ld) const {
+#pragma unroll
+    for (int j = 0; j < ITERS; ++j) {
+      const int i = threadIdx.x + j * kThreads, t = i / (kN / PER), c = (i % (kN / PER)) * PER;
+      if constexpr (VEC) *reinterpret_cast<uint4*>(dst + t * ld + c) = buf[j];
+      else dst[t * ld + c] = from_f32<T>(buf[j]);
     }
   }
 
@@ -147,6 +165,30 @@ __device__ __forceinline__ void warp_mma(float (&acc)[4][4], const float* A, int
       const int n = n0 + 8 * j + g;
       const float b[2] = {B[(k0 + q) * bk + n * bn], B[(k0 + q + 4) * bk + n * bn]};
       mma_3xtf32<B_EXACT>(acc[j], a, b);
+    }
+  }
+}
+
+// acc[j] += Σ_{k0 <= k < k1} A(m, k)·B(k, n) over the warp's 16 × 8·NT
+// tile, in the layout of warp_mma (rows m0 + g, m0 + g + 8; columns n0 + 8j
+// + 2q, + 1), with the operands given by functors a(m, k) and b(k, n): any
+// layout, type or scale is the functor's (k1 − k0 a multiple of 8). The A
+// fragment of a k-step is formed once for the NT column tiles. Unrolled by
+// two only, unlike warp_mma: formed operands take registers that a block
+// of RWKV6's backward, two to an SM, does not have.
+template <int NT, bool A_EXACT, bool B_EXACT, typename FA, typename FB>
+__device__ __forceinline__ void warp_mma_fn(float (&acc)[NT][4], const FA& a, const FB& b, int m0,
+                                            int n0, int k0, int k1) {
+  const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+#pragma unroll 2
+  for (int kk = k0; kk < k1; kk += 8) {
+    const float af[4] = {a(m0 + g, kk + q), a(m0 + g + 8, kk + q), a(m0 + g, kk + q + 4),
+                         a(m0 + g + 8, kk + q + 4)};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n = n0 + 8 * j + g;
+      const float bf[2] = {b(kk + q, n), b(kk + q + 4, n)};
+      mma_3xtf32<B_EXACT, A_EXACT>(acc[j], af, bf);
     }
   }
 }

@@ -27,10 +27,10 @@ log-sum-exp, and the backward runs ``csrc/flash_attention_bwd.cu`` (D =
 rowsum(dO ∘ O), then dK and dV, then dQ: three launches), routed
 explicitly too:
 
-- bf16 at hd <= 128 -> the tensor cores (wgmma on a TMA-fed ring, P and
-  dS as bf16 hi + lo halves); counted in ``flash_attention.launches_bwd_tc``;
-- f32, or bf16 at hd = 256 -> CUDA-core f32 FMAs; counted in
-  ``flash_attention.launches_bwd_fma``;
+- bf16 -> the tensor cores (wgmma on a TMA-fed ring, P and dS as bf16 hi +
+  lo halves; at hd = 256 a block's two warpgroups split the head's
+  columns); counted in ``flash_attention.launches_bwd_tc``;
+- f32 -> CUDA-core f32 FMAs; counted in ``flash_attention.launches_bwd_fma``;
 
 ``flash_attention.launches_bwd`` is their sum. The TPU kernel has no
 backward (the reference differentiates its jnp attention);
@@ -64,9 +64,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12 + [ctypes.c_int] *
 # the backward's library: D = rowsum(dO ∘ O) beside lse·log2(e), both
 # (B, H, S) with S padded to BWD_ROW_PAD, then dK and dV, then dQ; the route
 # code the last two take, by input type and head_dim
-TC_BWD_MAX_HEAD_DIM = 128
+TC_BWD_MAX_HEAD_DIM = 256
 BWD_ROW_PAD = 64
-_BWD_ROUTE_F32, _BWD_ROUTE_BF16_FMA, _BWD_ROUTE_TC = 0, 1, 2
+_BWD_ROUTE_F32, _BWD_ROUTE_TC = 0, 2
 _BWD_PASSES = ("flash_attention_bwd_prep", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 _BWD_ENTRIES = {
     "flash_attention_bwd_prep": ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 6
@@ -250,7 +250,7 @@ def _backward(q, k, v, o, lse, do, causal: bool, window: int, scale: float, soft
     tc = bf16 and hd <= TC_BWD_MAX_HEAD_DIM
     if do.stride(-1) != 1 or (tc and not _tma_ok(do)):
         do = do.contiguous()
-    route = _BWD_ROUTE_TC if tc else _BWD_ROUTE_BF16_FMA if bf16 else _BWD_ROUTE_F32
+    route = _BWD_ROUTE_TC if tc else _BWD_ROUTE_F32
     dq, dk, dv = (_model_layout(B, n, S, hd, q) for n in (H, KV, KV))
     if dq.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()

@@ -548,6 +548,9 @@ def _flash_bwd_wgmma_model(q, k, v, o, lse, do, *, causal=True, window=0, scale=
     (through tanh with a soft-cap), dS = P ∘ (dP − D) (∘ 1 − tanh²), then
     dV += Pᵀ·dO and dK += dSᵀ·Q with P and dS as bf16 hi + lo. dQ: blocks of
     128 queries walk the key tiles their rows see, dQ += dS·K the same way.
+    At hd = 256 a block owns 64 rows (keys, then queries), which both
+    warpgroups share: each computes the tile's Sᵀ and dPᵀ over the full hd
+    (duplicated, not exchanged) and keeps its half of the output columns.
     """
     B, H, S, hd = q.shape
     KV = k.shape[1]
@@ -557,6 +560,12 @@ def _flash_bwd_wgmma_model(q, k, v, o, lse, do, *, causal=True, window=0, scale=
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     D = (dof * o.float()).sum(-1)
     L2 = lse.float() * log2e
+    split = hd > 128
+    rows_per_block = 64 if split else 128
+    # (first row, output columns) of each consumer warpgroup of a block at r0
+    halves = (slice(0, hd // 2), slice(hd // 2, hd))
+    warpgroups = ((lambda r0: [(r0, c) for c in halves]) if split
+                  else (lambda r0: [(r0, slice(None)), (r0 + 64, slice(None))]))
 
     def tile(h, kvh, q0, k0):
         """(P, dS) of queries q0 + [0, 64) and keys k0 + [0, 64) of head h."""
@@ -586,15 +595,15 @@ def _flash_bwd_wgmma_model(q, k, v, o, lse, do, *, causal=True, window=0, scale=
     dk = torch.zeros((B, KV, S, hd))
     dv = torch.zeros((B, KV, S, hd))
     for kvh in range(KV):
-        for k0 in range(0, S, 128):
-            k_last = min(k0 + 128, S) - 1
+        for k0 in range(0, S, rows_per_block):
+            k_last = min(k0 + rows_per_block, S) - 1
             qt_lo = k0 // 64 if causal else 0
             qt_hi = (min(S - 1, k_last + window - 1) if window else S - 1) // 64
             for h in range(kvh * g, kvh * g + g):
                 for qt in range(qt_lo, qt_hi + 1):
                     q0 = 64 * qt
                     q_last = min(q0 + 64, S) - 1
-                    for kw0 in (k0, k0 + 64):
+                    for kw0, cols in warpgroups(k0):
                         kw1 = min(kw0 + 63, S - 1)
                         if kw0 >= S or (causal and q_last < kw0) or (
                                 window and q0 - window + 1 > kw1):
@@ -603,13 +612,15 @@ def _flash_bwd_wgmma_model(q, k, v, o, lse, do, *, causal=True, window=0, scale=
                         kw_end = min(kw0 + 64, S)
                         rows = slice(q0, q_last + 1)
                         for half in _split(p):
-                            dv[:, kvh, kw0:kw_end] += half.transpose(-1, -2) @ dof[:, h, rows]
+                            dv[:, kvh, kw0:kw_end, cols] += (half.transpose(-1, -2)
+                                                             @ dof[:, h, rows, cols])
                         for half in _split(ds):
-                            dk[:, kvh, kw0:kw_end] += half.transpose(-1, -2) @ qf[:, h, rows]
+                            dk[:, kvh, kw0:kw_end, cols] += (half.transpose(-1, -2)
+                                                             @ qf[:, h, rows, cols])
     for h in range(H):
         kvh = h // g
-        for q0 in range(0, S, 128):
-            for wr0 in (q0, q0 + 64):
+        for q0 in range(0, S, rows_per_block):
+            for wr0, cols in warpgroups(q0):
                 if wr0 >= S:
                     continue
                 r1 = min(wr0 + 64, S) - 1
@@ -619,7 +630,7 @@ def _flash_bwd_wgmma_model(q, k, v, o, lse, do, *, causal=True, window=0, scale=
                     _, ds = tile(h, kvh, wr0, 64 * kt)
                     k_end = min(64 * kt + 64, S)
                     for half in _split(ds):
-                        dq[:, h, wr0:r1 + 1] += half @ kf[:, kvh, 64 * kt:k_end]
+                        dq[:, h, wr0:r1 + 1, cols] += half @ kf[:, kvh, 64 * kt:k_end, cols]
     return ((dq * scale).to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype))
 
 
@@ -630,15 +641,18 @@ BWD_CASES = [   # (B, H, KV, S, hd, window, softcap)
     (1, 4, 1, 200, 32, 70, 0.0),      # window
     (2, 4, 2, 77, 16, 0, 30.0),       # soft-cap
     (1, 2, 1, 300, 64, 100, 5.0),     # window and soft-cap over several tiles
+    (1, 16, 1, 300, 256, 128, 0.0),   # recurrentgemma: MQA, window, hd 256 split by warpgroup
+    (1, 4, 2, 200, 256, 0, 30.0),     # hd 256 with a soft-cap, GQA, ragged S
 ]
 
 
 @pytest.mark.parametrize("B,H,KV,S,hd,win,softcap", BWD_CASES)
 def test_flash_bwd_wgmma_model_matches_plain_version(B, H, KV, S, hd, win, softcap):
     """The wgmma backward's design (tile walk, per-warpgroup skips, masks
-    only on the tiles that need one, P in base 2, P and dS as bf16 hi + lo)
-    stays within chip_smoke's bound of the plain version: one bf16 rounding,
-    2^-7·|plain| + 1e-4·max|plain|."""
+    only on the tiles that need one, P in base 2, P and dS as bf16 hi + lo;
+    at hd 256 64-row blocks whose warpgroups split the columns and both
+    compute the tile's scores) stays within chip_smoke's bound of the plain
+    version: one bf16 rounding, 2^-7·|plain| + 1e-4·max|plain|."""
     _, (q, k, v) = _qkv(B, H, KV, S, hd, "bfloat16", seed=S + hd + 1)
     do = torch.from_numpy(np.random.default_rng(S).normal(size=(B, H, S, hd))
                           .astype(np.float32)).bfloat16()
@@ -650,7 +664,7 @@ def test_flash_bwd_wgmma_model_matches_plain_version(B, H, KV, S, hd, win, softc
         _within(g, w, 2.0 ** -7, 1e-4 * float(w.float().abs().max()))
 
 
-@pytest.mark.parametrize("B,H,KV,S,hd,win,softcap", BWD_CASES[::2])
+@pytest.mark.parametrize("B,H,KV,S,hd,win,softcap", BWD_CASES[::2] + BWD_CASES[7:])
 def test_flash_bwd_wgmma_model_matches_jax_grad(jx, B, H, KV, S, hd, win, softcap):
     """… and ``jax.grad`` of the reference's attention on the same bf16
     inputs in f32, at chip_smoke's autograd bound (the reference's D reads
@@ -779,6 +793,62 @@ def test_rwkv6_chunked_model_chains_decode_steps():
     _within(st, want_s, RWKV_TOL, RWKV_TOL)
 
 
+def _e2(x):
+    """2^x of an exponent that is ≤ 0 in exact arithmetic (clamped at 0)."""
+    return torch.exp2(x.clamp_max(0))
+
+
+def _rwkv6_pair_sums(R, K, P, C, up, in_r=None, in_k=None):
+    """Pass C's three pair sums as the kernel factors them, on (…, 64, 64)
+    tiles: r, k, P = do·vᵀ and the inclusive log2 decays C. Four sub-chunks
+    of 16 rows, b the first and e the last row of one; for t in sub-chunk i
+    and j in m < i, e^{ce_t − c_j} splits into factors with exponents ≤ 0:
+
+    - the pair matrix's off-diagonal block (i, m) is (r ⊙ 2^{ce_t −
+      c_{e_m}})·(k ⊙ 2^{c_{e_m} − c_j})ᵀ, i.e. (r̂_i ⊙ g_im)·k̂_mᵀ;
+    - dr's sum of rows i is 2^{ce_t − ce_{b_i}} ⊙ P_{i, <b_i}·(k ⊙ 2^{ce_{b_i}
+      − c_j}), dk's sum of rows m is 2^{c_{e_m} − c_j} ⊙ P_{>e_m, m}ᵀ·(r ⊙
+      2^{ce_t − c_{e_m}});
+    - the four diagonal blocks take one exponential a pair and channel, the
+      u-bonus on the pair matrix's diagonal.
+
+    ``in_r`` (S_in·do) and ``in_k`` (dS_out·v), the terms of dr^w and dk^w
+    through the chunk's states, enter as the kernel folds them: under the
+    same outer factor, scaled by 2^{ce_{b_i}} and 2^{c_63 − c_{e_m}}.
+    Returns (A, (dr^w, dk^w)), or (A, (dr's sum, dk's sum)) without them."""
+    Ce = torch.nn.functional.pad(C[..., :-1, :], (0, 0, 1, 0))
+    A = torch.zeros(P.shape)
+    off_r, off_k = torch.zeros(R.shape), torch.zeros(R.shape)
+    diag_r, diag_k = torch.zeros(R.shape), torch.zeros(R.shape)
+    outer_r, outer_k = torch.ones(R.shape), torch.ones(R.shape)
+    in_r = torch.zeros(R.shape) if in_r is None else in_r
+    in_k = torch.zeros(R.shape) if in_k is None else in_k
+    tri = torch.tril(torch.ones((16, 16), dtype=torch.bool), -1)
+    for i in range(4):
+        ri, b, e = slice(16 * i, 16 * i + 16), 16 * i, 16 * i + 15
+        E = torch.where(tri[..., None], _e2(Ce[..., ri, None, :] - C[..., None, ri, :]), 0.0)
+        A[..., ri, ri] = (R[..., ri, None, :] * K[..., None, ri, :] * E).sum(-1) + \
+            torch.diag_embed((R[..., ri, :] * up * K[..., ri, :]).sum(-1))
+        Pi = P[..., ri, ri]
+        diag_r[..., ri, :] = (Pi[..., None] * K[..., None, ri, :] * E).sum(-2)
+        diag_k[..., ri, :] = (Pi[..., None] * R[..., ri, None, :] * E).sum(-3)
+        for m in range(i):
+            rm, em = slice(16 * m, 16 * m + 16), 16 * m + 15
+            A[..., ri, rm] = (R[..., ri, :] * _e2(Ce[..., ri, :] - C[..., em:em + 1, :])) @ (
+                K[..., rm, :] * _e2(C[..., em:em + 1, :] - C[..., rm, :])).transpose(-1, -2)
+        if i > 0:
+            off_r[..., ri, :] = P[..., ri, :b] @ (K[..., :b, :] * _e2(Ce[..., b:b + 1, :]
+                                                                       - C[..., :b, :]))
+        if i < 3:
+            off_k[..., ri, :] = P[..., e + 1:, ri].transpose(-1, -2) @ (
+                R[..., e + 1:, :] * _e2(Ce[..., e + 1:, :] - C[..., e:e + 1, :]))
+        outer_r[..., ri, :] = _e2(Ce[..., ri, :] - Ce[..., b:b + 1, :])
+        outer_k[..., ri, :] = _e2(C[..., e:e + 1, :] - C[..., ri, :])
+        in_r[..., ri, :] = in_r[..., ri, :] * _e2(Ce[..., b:b + 1, :])
+        in_k[..., ri, :] = in_k[..., ri, :] * _e2(C[..., -1:, :] - C[..., e:e + 1, :])
+    return A, (outer_r * (in_r + off_r) + diag_r, outer_k * (in_k + off_k) + diag_k)
+
+
 def _rwkv6_bwd_kernel_model(r, k, v, logw, u, do, *, chunk=64, s0=None, ds_final=None):
     """The backward kernel's three passes in plain torch, f32 products (the
     kernel's 3 × TF32 split carries about 21 bits of each operand).
@@ -788,11 +858,12 @@ def _rwkv6_bwd_kernel_model(r, k, v, logw, u, do, *, chunk=64, s0=None, ds_final
     chunk states as its passes 1-2 leave them in the scratch. Pass A: every
     chunk's dU = (r ⊙ 2^{ce})ᵀ·do and decay; pass B: dS_out of each chunk
     from the last to the first, dS_in = 2^{c_63} ⊙ dS_out + dU, and dS0;
-    pass C: P = do·vᵀ, the pair matrix and the pair sums of dr and dk with
-    one exponential a pair and channel (clamped at 0), the products with
-    S_in and dS_out, dv = Aᵀ·do + k̃·dS_out, X from the next chunk's S_in (or
-    S_final), dlogw as the reverse sum over the chunk's 64 rows, du from one
-    partial per chunk and batch row.
+    pass C: P = do·vᵀ, the pair matrix and the pair sums of dr and dk
+    factored over 16-token sub-chunks (``_rwkv6_pair_sums``), the products
+    with S_in and dS_out folded into them as the kernel folds them, dv =
+    Aᵀ·do + k̃·dS_out, X from the next chunk's S_in (or S_final), dlogw as
+    the reverse sum over the chunk's 64 rows, du from one partial per chunk
+    and batch row.
     """
     B, H, S, hd = r.shape
     W = min(chunk, S)
@@ -830,16 +901,9 @@ def _rwkv6_bwd_kernel_model(r, k, v, logw, u, do, *, chunk=64, s0=None, ds_final
     s_next = torch.cat([s_in[:, :, 1:], st[:, :, None]], 2)
     X = (G * s_next).sum(-1)                                      # (B, H, nc, 64)
     P = D @ V.transpose(-1, -2)
-    tri = torch.tril(torch.ones((64, 64), dtype=torch.bool), -1)
-    E = torch.where(tri[..., None],
-                    torch.exp2((Ce[..., :, None, :] - C[..., None, :, :]).clamp_max(0)), 0.0)
-    A = (R[..., :, None, :] * K[..., None, :, :] * E).sum(-1) + torch.diag_embed(
-        (R * up * K).sum(-1))
-    T1 = (P[..., None] * K[..., None, :, :] * E).sum(-2)
-    T2 = (P[..., None] * R[..., :, None, :] * E).sum(-3)
+    A, (drw, dkw) = _rwkv6_pair_sums(R, K, P, C, up, D @ s_in.transpose(-1, -2),
+                                     V @ G.transpose(-1, -2))
     Ptt = torch.diagonal(P, dim1=-2, dim2=-1)[..., None]
-    drw = (D @ s_in.transpose(-1, -2)) * torch.exp2(Ce.clamp_max(0)) + T1
-    dkw = (V @ G.transpose(-1, -2)) * torch.exp2((last - C).clamp_max(0)) + T2
     dr, dk = drw + up * K * Ptt, dkw + up * R * Ptt
     dv = A.transpose(-1, -2) @ D + (K * torch.exp2((last - C).clamp_max(0))) @ G
     q, kap = R * drw, K * dkw
@@ -874,6 +938,45 @@ def test_rwkv6_bwd_kernel_model_matches_plain_version(B, H, S, hd, chunk, strong
     for g, w in zip(got, want):
         assert bool(torch.isfinite(g).all())
         _within(g, w, RWKV_TOL, 1e-3 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("B,H,S,hd,chunk,strong", [
+    (1, 2, 128, 32, 64, False),
+    (2, 2, 100, 16, 64, True),      # strong decays, ragged last chunk
+    (1, 3, 77, 64, 64, True),
+    (1, 2, 45, 16, 8, False),       # the reduced configs' chunk of 8
+    (1, 1, 1, 64, 64, False),       # one token
+])
+def test_rwkv6_bwd_factored_pair_sums_match_per_pair_sums(B, H, S, hd, chunk, strong):
+    """Pass C's factored pair sums (sub-chunk products off the diagonal
+    blocks, per-pair exponentials only on them) equal the three sums taken
+    with one exponential a pair and channel, on the chunk tiles of the
+    same inputs, strong decays included: each within 1e-5 of its largest
+    value (f32 arithmetic in another order; nothing overflows)."""
+    arrs = (_strong_rkvwu if strong else _rkvwu)(B, H, S, hd, seed=S + hd)
+    r, k, v, logw, u = (torch.from_numpy(x) for x in arrs)
+    do = torch.from_numpy(np.random.default_rng(S).normal(size=(B, H, S, hd)).astype(np.float32))
+    W, F = min(chunk, S), torch.nn.functional
+    nc = -(-S // W)
+
+    def tile(t):
+        t = F.pad(t.float(), (0, 0, 0, nc * W - S)).reshape(B, H, nc, W, hd)
+        return F.pad(t, (0, 64 - hd, 0, 64 - W))
+    R, K, V, D, L = (tile(t) for t in (r, k, v, do, logw))
+    up = F.pad(u, (0, 64 - hd))[None, :, None, None, :]
+    C = torch.cumsum(L / math.log(2), dim=-2)
+    Ce = F.pad(C[..., :-1, :], (0, 0, 1, 0))
+    P = D @ V.transpose(-1, -2)
+    A, (sum_r, sum_k) = _rwkv6_pair_sums(R, K, P, C, up)
+    tri = torch.tril(torch.ones((64, 64), dtype=torch.bool), -1)
+    E = torch.where(tri[..., None], _e2(Ce[..., :, None, :] - C[..., None, :, :]), 0.0)
+    want = ((R[..., :, None, :] * K[..., None, :, :] * E).sum(-1)
+            + torch.diag_embed((R * up * K).sum(-1)),
+            (P[..., None] * K[..., None, :, :] * E).sum(-2),
+            (P[..., None] * R[..., :, None, :] * E).sum(-3))
+    for got, w in zip((A, sum_r, sum_k), want):
+        assert bool(torch.isfinite(got).all())
+        _within(got, w, 1e-5, 1e-5 * float(w.abs().max()))
 
 
 def test_kernel_routes_by_type_and_length(monkeypatch):
@@ -1082,18 +1185,20 @@ def test_scan_backwards_take_the_forward_s_tensors(monkeypatch):
     assert libs["rwkv6_scan_bwd"].bound == {"rwkv6_scan_bwd": 1}
 
 
-@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, 2), (torch.float32, 0)])
-def test_flash_backward_hands_its_passes_padded_rows(monkeypatch, dtype, route):
+@pytest.mark.parametrize("dtype,route,hd", [(torch.bfloat16, 2, 64), (torch.float32, 0, 64),
+                                            (torch.bfloat16, 2, 256)],
+                         ids=["dtype0-2", "dtype1-0", "bf16-hd256"])
+def test_flash_backward_hands_its_passes_padded_rows(monkeypatch, dtype, route, hd):
     """The backward's three launches through a stand-in library: prep reads
     the forward's lse and writes L (lse in log2 units) and D, both (B, H, S)
     with S padded to a multiple of 64, from one allocation; both passes
-    read those two; the bf16 (wgmma) route hands q, k, v and dO over with
-    TMA-legal strides (a batch of one steps by 8 elements), the f32 route
-    with their own."""
+    read those two; the bf16 (wgmma) route, hd 256 included, hands q, k, v
+    and dO over with TMA-legal strides (a batch of one steps by 8
+    elements), the f32 route with their own."""
     import importlib
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     libs = stub_libraries(monkeypatch)
-    B, H, KV, S, hd = 1, 4, 2, 70, 64
+    B, H, KV, S = 1, 4, 2, 70
     q, o, do = (torch.zeros((B, S, H, hd), dtype=dtype).transpose(1, 2) for _ in range(3))
     k = torch.zeros((B, S, KV, hd), dtype=dtype).transpose(1, 2)
     lse = torch.zeros((B, H, S))
@@ -1106,7 +1211,7 @@ def test_flash_backward_hands_its_passes_padded_rows(monkeypatch, dtype, route):
     assert D - L == B * H * fa.BWD_ROW_PAD * 2 * 4          # S = 70 padded to 128
     assert dkdv[4:6] == dq[4:6] == (L, D)
     assert dkdv[:4] == dq[:4] == (q.data_ptr(), k.data_ptr(), k.data_ptr(), do.data_ptr())
-    assert dkdv[-2] == dq[-2] == route
+    assert dkdv[-2] == dq[-2] == route and dkdv[34] == dq[34] == hd
     want = (8 if route == 2 else S * H * hd, hd, H * hd)   # q's (batch, head, sequence)
     assert dkdv[9:12] == dq[9:12] == want
 
@@ -1275,8 +1380,9 @@ def test_cuda_rwkv6_routes_match_plain_version(card):
 
 @pytest.mark.cuda
 def test_cuda_flash_backward_matches_plain_versions(card):
-    """The backward kernel's routes (wgmma for bf16 at hd <= 128, CUDA cores
-    otherwise) at every head_dim, f32 and bf16, GQA, MQA, window, soft-cap,
+    """The backward kernel's routes (wgmma for bf16, hd 256 split over the
+    warpgroups; CUDA cores for f32) at every head_dim, f32 and bf16, GQA,
+    MQA, window, soft-cap,
     ragged S, the model's strided views, and qwen2-0.5b's and olmo-1b's
     train shapes at batch 1: against ``flash_attention_bwd_plain`` on the
     same o and lse (f32 1e-4, bf16 one rounding: 2^-7·|plain| +
@@ -1300,8 +1406,7 @@ def test_cuda_flash_backward_matches_plain_versions(card):
         q, k, v, do = (torch.randn((B, S, n, hd), generator=gen, device="cuda").to(dt)
                        .transpose(1, 2) for n in (H, KV, KV, H))
         qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
-        counter = ("launches_bwd_tc" if dt == torch.bfloat16 and hd <= 128
-                   else "launches_bwd_fma")
+        counter = "launches_bwd_tc" if dt == torch.bfloat16 else "launches_bwd_fma"
         before = (flash_attention.launches, getattr(flash_attention, counter))
         out = flash_attention(qa, ka, va, window=win, softcap=cap)
         dq, dk, dv = torch.autograd.grad(out, (qa, ka, va), do)
