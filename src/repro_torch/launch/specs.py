@@ -1,7 +1,8 @@
 """The LM train step on one card — port of ``repro/launch/specs.py``'s
-``weighted_loss_fn``, ``unnormalized_loss_fn`` and ``make_train_step``,
-without the mesh: the reference's sharding rules and its collective
-schedules have no single-card counterpart (ROADMAP.md Queue 1, item 1b).
+``weighted_loss_fn``, ``unnormalized_loss_fn`` and ``make_train_step``
+(the MoE load-balance term included), without the mesh: the reference's
+sharding rules and its collective schedules have no single-card
+counterpart (ROADMAP.md Queue 1, item 1b).
 """
 from __future__ import annotations
 
@@ -15,32 +16,38 @@ from repro_torch.optim import make_optimizer, tree_map
 
 
 def _weighted_pieces(params, batch, cfg: ModelConfig):
-    """(Σ weighted nll, Σ weight): the loss mask with each row scaled by its
-    ``client_weight`` (k_ij · mask, the FL weight folded into the batch)."""
-    x, labels, _ = transformer.forward(params, batch, cfg)
+    """(Σ weighted nll, Σ weight, aux): the loss mask with each row scaled
+    by its ``client_weight`` (k_ij · mask, the FL weight folded into the
+    batch), and the MoE router's load-balance loss."""
+    x, labels, aux = transformer.forward(params, batch, cfg)
     B, S, _ = x.shape
     mask = transformer.loss_mask(cfg, B, S, x.device)
     w = batch.get("client_weight")
     if w is not None:
         mask = mask * w[:, None]
-    return transformer.chunked_xent(params, x, labels, mask, cfg)
+    return (*transformer.chunked_xent(params, x, labels, mask, cfg), aux)
 
 
 def weighted_loss_fn(params, batch, cfg: ModelConfig):
-    """FL-weighted loss: per-row ``client_weight``, normalised by its sum K.
+    """FL-weighted loss: per-row ``client_weight``, normalised by its sum K,
+    plus the MoE load-balance term.
 
     With one local step its gradient is the SFL aggregate Σ k·mask·g / K.
     The denominator floor is 1e-6 here and 1.0 in ``loss_fn``, as in the
-    reference."""
-    tot, cnt = _weighted_pieces(params, batch, cfg)
-    loss = tot / torch.clamp(cnt, min=1e-6)
-    return loss, {"xent": loss, "aux": 0.0}
+    reference; its "xent" metric holds the whole loss, as the reference's."""
+    tot, cnt, aux = _weighted_pieces(params, batch, cfg)
+    loss = tot / torch.clamp(cnt, min=1e-6) + transformer.aux_loss(cfg, aux)
+    return loss, {"xent": loss, "aux": aux}
 
 
 def unnormalized_loss_fn(params, batch, cfg: ModelConfig):
     """(Σ weighted nll, Σ weight): the SFL objective before normalisation,
-    for transports that normalise after the cross-pod reduce."""
-    return _weighted_pieces(params, batch, cfg)
+    for transports that normalise after the cross-pod reduce; the MoE term
+    enters the sum scaled by max(Σ weight, 1)."""
+    tot, cnt, aux = _weighted_pieces(params, batch, cfg)
+    if cfg.n_experts:
+        tot = tot + transformer.aux_loss(cfg, aux) * torch.clamp(cnt, min=1.0)
+    return tot, cnt
 
 
 def _leaves(tree):

@@ -1,7 +1,9 @@
 """Unified model configuration — a copy of ``repro.models.config.ModelConfig``.
 
 The port keeps its own copy (pure dataclasses, no framework code) so it
-imports nothing of the JAX package: every field, the language-model layer-plan properties and ``reduced()``.
+imports nothing of the JAX package: every field, the language-model
+layer-plan properties (parameter counts, active ones too) and
+``reduced()``.
 ``tests/test_torch_femnist_cnn.py`` and ``tests/test_torch_lm.py`` hold
 the two copies field for field.
 """
@@ -125,6 +127,16 @@ class ModelConfig:
         total += n_rglru * (rglru_p + mlp_total)
         total += n_rwkv * rwkv_p
         return int(total)
+
+    @property
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of n_experts)."""
+        if not self.n_experts:
+            return self.param_count
+        d, ff = self.d_model, self.d_ff
+        mlp_p = 3 * d * ff if self.mlp == "swiglu" else 2 * d * ff
+        inactive = (self.n_experts - self.top_k) * mlp_p * self.n_layers
+        return int(self.param_count - inactive)
 
     def reduced(self, **overrides) -> "ModelConfig":
         """A smoke-test-sized config of the same family (CPU-runnable)."""

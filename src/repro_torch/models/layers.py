@@ -1,12 +1,14 @@
 """Core language-model layers — port of ``repro/models/layers.py``: norms,
-RoPE, causal attention (GQA / MQA / sliding window) and dense MLPs.
+RoPE, causal attention (GQA / MQA / sliding window), cross-attention to
+media embeddings and dense MLPs.
 
 Parameters are the reference's nested dicts (built by ``ParamBuilder``),
 activations keep its (B, S, heads, hd) layout, and each function keeps
 its name and arguments, without the sharding ``rules``: the reference's
 ``constrain`` calls have no single-card counterpart. ``causal_attention``
-runs through the flash-attention kernel; ``_decode_attention`` is plain
-torch, as the reference computes it in jnp outside any kernel.
+runs through the flash-attention kernel; ``_decode_attention`` and
+``cross_attention`` are plain torch, as the reference computes them in
+jnp outside any kernel.
 """
 from __future__ import annotations
 
@@ -219,8 +221,30 @@ def _decode_attention(q, k_new, v_new, cache, cfg, window: int):
 
 
 def cross_attention(x, p, cfg, media_kv):
-    raise NotImplementedError(
-        "cross-attention (the VLM family) is not ported yet: ROADMAP.md Queue 1")
+    """Cross-attend text queries to (stub) media embeddings.
+
+    media_kv: (B, T_media, d_model), the frontend's output. Every query
+    sees the whole media sequence (no mask, no RoPE). The query rows go in
+    blocks of ``cfg.q_chunk``, which bounds the f32 scores at (B, Hp,
+    q_chunk, T) (the reference's are (B, Hp, S, T)); each row's softmax is
+    the same either way.
+    """
+    Hp = p["wq"].shape[1]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    k = torch.einsum("btd,dhk->bthk", media_kv, p["wk"])
+    v = torch.einsum("btd,dhk->bthk", media_kv, p["wv"])
+    kf = _expand_kv(k, Hp, H, KV)
+    vf = _expand_kv(v, Hp, H, KV)
+    n = max(1, cfg.q_chunk)
+    o = torch.cat([_attend_block(q[:, i:i + n], kf, vf, None, 1.0 / np.sqrt(hd),
+                                 cfg.logit_softcap) for i in range(0, q.shape[1], n)], dim=1)
+    hm = _head_mask(Hp, H, o.dtype, o.device)
+    if hm is not None:
+        o = o * hm
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
 
 
 # ---------------------------------------------------------------------------

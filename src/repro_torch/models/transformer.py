@@ -1,17 +1,27 @@
 """Decoder assembly for the ported language models — port of
 ``repro/models/transformer.py``: init, forward, training's ``loss_fn``
-and serving (prefill + decode) for the ``attn``, ``rglru`` and ``rwkv``
-sublayer kinds.
+and serving (prefill + decode) for every sublayer kind of the reference:
+
+  * ``attn``  — self-attention (GQA/MQA, optional sliding window, optional
+                QKV bias) + MLP or MoE (optionally with arctic's parallel
+                dense residual MLP)
+  * ``cross`` — cross-attention to stub media embeddings (VLM) + MLP
+  * ``rglru`` — Griffin recurrent block + MLP
+  * ``rwkv``  — RWKV6 time-mix + channel-mix
+
+and its three frontends: tokens, precomputed frames (``frame_proj``, the
+labels from the batch) and tokens with precomputed patches
+(``patch_proj``, the media every ``cross`` sublayer attends to; decode
+re-projects ``batch["media"]`` every step).
 
 A model is a repeating unit of sublayers (``cfg.block_pattern``) applied
 ``cfg.n_units`` times, then a short tail. Parameters and caches keep the
 reference's nested-dict layout, unit leaves stacked ``(n_units, …)``; a
 Python loop over the units replaces ``lax.scan``. The reference's
 sharding rules have no single-card counterpart and are left out of every
-signature. MoE, cross-attention and the frame / patch frontends raise
-``NotImplementedError`` (ROADMAP.md Queue 1). Under grad, ``remat="full"``
-recomputes each unit in the backward (``torch.utils.checkpoint``), as the
-reference's ``jax.checkpoint`` does.
+signature. Under grad, ``remat="full"`` recomputes each unit in the
+backward (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint`` does; ``remat="dots"`` is not ported.
 
 The cache is mutable: ``decode_step`` writes the new token's K/V into the
 rings and the new recurrent states into the stacked buffers in place, and
@@ -33,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import rwkv6 as W
 from repro_torch.models.config import ModelConfig
@@ -45,22 +56,21 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def _unported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md Queue 1")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
 def _sublayer_params(pb: ParamBuilder, cfg: ModelConfig, kind: str, tp: int):
-    if kind == "attn":
-        if cfg.n_experts:
-            _unported("the MoE MLP")
+    if kind in ("attn", "cross"):
         L.norm_params(pb, "norm1", cfg.d_model, cfg.norm)
         L.attn_params(pb, cfg, tp)
         L.norm_params(pb, "norm2", cfg.d_model, cfg.norm)
-        L.mlp_params(pb, cfg)
+        if cfg.n_experts:
+            M.moe_params(pb, cfg)
+            if cfg.dense_residual:
+                L.mlp_params(pb, cfg)
+        else:
+            L.mlp_params(pb, cfg)
     elif kind == "rglru":
         L.norm_params(pb, "norm1", cfg.d_model, cfg.norm)
         R.rglru_params(pb, cfg)
@@ -71,8 +81,6 @@ def _sublayer_params(pb: ParamBuilder, cfg: ModelConfig, kind: str, tp: int):
         W.rwkv_time_params(pb, cfg)
         L.norm_params(pb, "norm2", cfg.d_model, cfg.norm)
         W.rwkv_channel_params(pb, cfg)
-    elif kind == "cross":
-        _unported("cross-attention (the VLM family)")
     else:
         raise ValueError(kind)
 
@@ -96,11 +104,13 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 def _build_params(cfg: ModelConfig, generator, dev: torch.device, tp: int = 16):
     """``init_params`` on any device (``meta`` gives the shapes alone)."""
-    if cfg.frontend != "tokens":
-        _unported(f"the {cfg.frontend!r} frontend")
     pb = ParamBuilder(generator, _dtype(cfg), dev)
     V, d = cfg.vocab_size, cfg.d_model
     pb.param("embed", (V, d), scale=1.0)
+    if cfg.frontend == "frames":
+        pb.param("frame_proj", (d, d))
+    if cfg.frontend == "patches":
+        pb.param("patch_proj", (d, d))
     unit = ParamBuilder(generator, _dtype(cfg), dev, stack=cfg.n_units)
     pb.params["unit"] = unit.params
     for i, kind in enumerate(cfg.block_pattern):
@@ -125,18 +135,28 @@ def _index(tree, i: int):
 # sublayer application
 # ---------------------------------------------------------------------------
 
-def _apply_sublayer(x, p, cfg: ModelConfig, kind: str, positions, cache=None):
+def _apply_sublayer(x, p, cfg: ModelConfig, kind: str, positions, cache=None, media=None):
     """Returns (x, new_cache, aux). With cache=None an attention sublayer
-    hands back its (k, v) for prefill's cache."""
-    if kind == "attn":
-        if cfg.n_experts:
-            _unported("the MoE MLP")
+    hands back its (k, v) for prefill's cache; a ``cross`` sublayer keeps
+    its cache as it is. ``aux`` is the MoE router's load-balance loss (0.0
+    without experts)."""
+    aux = 0.0
+    if kind in ("attn", "cross"):
         h = L.norm(x, p["norm1"], cfg.norm)
-        a, new_cache = L.self_attention(h, p["attn"], cfg, positions, window=cfg.window,
-                                        cache=cache)
+        if kind == "attn":
+            a, new_cache = L.self_attention(h, p["attn"], cfg, positions, window=cfg.window,
+                                            cache=cache)
+        else:
+            a, new_cache = L.cross_attention(h, p["attn"], cfg, media), cache
         x = x + a
         h = L.norm(x, p["norm2"], cfg.norm)
-        x = x + L.mlp_block(h, p["mlp"], cfg)
+        if cfg.n_experts:
+            mo, aux = M.moe_block(h, p["moe"], cfg)
+            if cfg.dense_residual:
+                mo = mo + L.mlp_block(h, p["mlp"], cfg)
+        else:
+            mo = L.mlp_block(h, p["mlp"], cfg)
+        x = x + mo
     elif kind == "rglru":
         h = L.norm(x, p["norm1"], cfg.norm)
         a, new_cache = R.rglru_block(h, p["rglru"], cfg, state=cache)
@@ -153,20 +173,19 @@ def _apply_sublayer(x, p, cfg: ModelConfig, kind: str, positions, cache=None):
                                        state=None if cache is None else cache["channel"])
         x = x + c
         new_cache = {"time": tstate, "channel": cstate}
-    elif kind == "cross":
-        _unported("cross-attention (the VLM family)")
     else:
         raise ValueError(kind)
-    return x, new_cache, 0.0
+    return x, new_cache, aux
 
 
-def _apply_unit(x, unit_p, cfg: ModelConfig, positions, unit_cache=None):
+def _apply_unit(x, unit_p, cfg: ModelConfig, positions, unit_cache=None, media=None):
     new_cache = {}
     aux_total = 0.0
     for i, kind in enumerate(cfg.block_pattern):
         key = f"{i}_{kind}"
         c = None if unit_cache is None else unit_cache.get(key)
-        x, nc, aux = _apply_sublayer(x, unit_p[key], cfg, kind, positions, cache=c)
+        x, nc, aux = _apply_sublayer(x, unit_p[key], cfg, kind, positions, cache=c,
+                                     media=media)
         new_cache[key] = nc
         aux_total = aux_total + aux
     return x, new_cache, aux_total
@@ -183,16 +202,30 @@ def _embed_tokens(params, tokens, cfg: ModelConfig):
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
 
 
+def _project(params, name: str, emb, cfg: ModelConfig):
+    """Precomputed frame or patch embeddings through ``frame_proj`` /
+    ``patch_proj``, in the model's type."""
+    return torch.einsum("bsd,de->bse", emb.to(_dtype(cfg)), params[name])
+
+
 def embed_inputs(params, batch: Dict[str, Any], cfg: ModelConfig):
-    """Returns (x (B, S, d), media (None), labels (B, S), positions (B, S))."""
-    if cfg.frontend != "tokens":
-        _unported(f"the {cfg.frontend!r} frontend")
-    tokens = batch["tokens"]
-    x = _embed_tokens(params, tokens, cfg)
-    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
-    B, S = tokens.shape
+    """Returns (x (B, S, d), media (B, T, d) or None, labels (B, S),
+    positions (B, S)). Frames bring their labels; tokens are their own,
+    shifted by one."""
+    media = None
+    if cfg.frontend == "frames":
+        # musicgen: precomputed EnCodec frame embeddings (stub frontend)
+        x = _project(params, "frame_proj", batch["frames"], cfg)
+        labels = batch["labels"]
+    else:
+        tokens = batch["tokens"]
+        x = _embed_tokens(params, tokens, cfg)
+        labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+        if cfg.frontend == "patches":
+            media = _project(params, "patch_proj", batch["patches"], cfg)
+    B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    return x, None, labels, positions
+    return x, media, labels, positions
 
 
 def unembed(params, x, cfg: ModelConfig):
@@ -206,13 +239,13 @@ def unembed(params, x, cfg: ModelConfig):
 # forward
 # ---------------------------------------------------------------------------
 
-def _unit_step(cfg: ModelConfig, positions):
+def _unit_step(cfg: ModelConfig, positions, media=None):
     """One unit as the forward applies it: under grad with ``remat="full"``
     its activations are recomputed in the backward instead of kept (the
     reference's ``nothing_saveable`` policy). The unit draws no random
     numbers, so no RNG state is saved for the recompute."""
     def step(x, unit_p):
-        return _apply_unit(x, unit_p, cfg, positions)[::2]
+        return _apply_unit(x, unit_p, cfg, positions, media=media)[::2]
     if cfg.remat == "dots":
         raise NotImplementedError(
             "remat='dots' (save the matmul outputs) is not ported: no ported config uses "
@@ -225,14 +258,15 @@ def _unit_step(cfg: ModelConfig, positions):
 
 def forward(params, batch, cfg: ModelConfig):
     """Full forward: returns (pre-head activations, labels, aux)."""
-    x, _, labels, positions = embed_inputs(params, batch, cfg)
-    step = _unit_step(cfg, positions)
+    x, media, labels, positions = embed_inputs(params, batch, cfg)
+    step = _unit_step(cfg, positions, media)
     aux_total = 0.0
     for i in range(cfg.n_units):
         x, aux = step(x, _index(params["unit"], i))
         aux_total = aux_total + aux
     for i, kind in enumerate(cfg.tail_pattern):
-        x, _, aux = _apply_sublayer(x, params["tail"][f"{i}_{kind}"], cfg, kind, positions)
+        x, _, aux = _apply_sublayer(x, params["tail"][f"{i}_{kind}"], cfg, kind, positions,
+                                    media=media)
         aux_total = aux_total + aux
     return x, labels, aux_total
 
@@ -279,17 +313,23 @@ def loss_mask(cfg: ModelConfig, B: int, S: int, device) -> torch.Tensor:
     return mask
 
 
+def aux_loss(cfg: ModelConfig, aux):
+    """The MoE load-balance term added to the loss: 0.01 · aux / n_layers
+    (0.0 without experts)."""
+    return 0.01 * aux / max(1, cfg.n_layers) if cfg.n_experts else 0.0
+
+
 def loss_fn(params, batch, cfg: ModelConfig):
     """Scalar mean loss (+ metrics dict), the head applied in sequence
-    chunks."""
+    chunks; with experts, plus the router's load-balance term."""
     x, labels, aux = forward(params, batch, cfg)
     B, S, _ = x.shape
     mask = batch.get("loss_mask")
     if mask is None:
         mask = loss_mask(cfg, B, S, x.device)
     tot, cnt = chunked_xent(params, x, labels, mask, cfg)
-    loss = tot / torch.clamp(cnt, min=1.0)
-    return loss, {"xent": loss, "aux": aux}
+    xent = tot / torch.clamp(cnt, min=1.0)
+    return xent + aux_loss(cfg, aux), {"xent": xent, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +351,8 @@ def _cache_struct(cfg: ModelConfig, kind: str, batch: int, cache_len: int, dtype
     if kind == "rwkv":
         return W.rwkv_init_state(cfg, batch, dtype, device)
     if kind == "cross":
-        _unported("cross-attention (the VLM family)")
+        # the media comes with every step (batch["media"]): no per-layer K/V
+        return {"pos": torch.zeros((), dtype=torch.int32)}
     raise ValueError(kind)
 
 
@@ -350,13 +391,15 @@ def _attn_prefill_cache(cfg: ModelConfig, kv, S: int, batch: int, cache_len: int
 
 def prefill(params, batch, cfg: ModelConfig, cache_len: int):
     """Process a full prompt: returns (last-position logits (B, V), cache)."""
-    x, _, _, positions = embed_inputs(params, batch, cfg)
+    x, media, _, positions = embed_inputs(params, batch, cfg)
     B, S = positions.shape
 
     def run(x, p, kind):
-        x, nc, _ = _apply_sublayer(x, p, cfg, kind, positions)
+        x, nc, _ = _apply_sublayer(x, p, cfg, kind, positions, media=media)
         if kind == "attn":
             nc = _attn_prefill_cache(cfg, nc, S, B, cache_len)
+        elif kind == "cross":
+            nc = {"pos": torch.tensor(S, dtype=torch.int32)}
         return x, nc
 
     units = []
@@ -385,19 +428,28 @@ def _write_back(dst, src):
 
 
 def decode_step(params, batch, cache, cfg: ModelConfig):
-    """One-token decode: batch = {'tokens': (B, 1), 'pos': (B, 1)}.
+    """One-position decode: batch = {'tokens': (B, 1)} or {'frames': (B, 1,
+    d)}, with 'pos' (B, 1) and, for the patch frontend, 'media' (B, T, d),
+    projected through ``patch_proj`` again at every step.
 
     Returns (logits (B, V), cache), the cache updated in place."""
-    x = _embed_tokens(params, batch["tokens"], cfg)
+    if cfg.frontend == "frames":
+        x = _project(params, "frame_proj", batch["frames"], cfg)
+    else:
+        x = _embed_tokens(params, batch["tokens"], cfg)
     pos = batch["pos"]
+    media = batch.get("media")
+    if media is not None:
+        media = _project(params, "patch_proj", media, cfg)
     for i in range(cfg.n_units):
         unit_c = _index(cache["unit"], i)
-        x, nc, _ = _apply_unit(x, _index(params["unit"], i), cfg, pos, unit_cache=unit_c)
+        x, nc, _ = _apply_unit(x, _index(params["unit"], i), cfg, pos, unit_cache=unit_c,
+                               media=media)
         _write_back(unit_c, nc)
     for j, kind in enumerate(cfg.tail_pattern):
         key = f"{j}_{kind}"
         x, nc, _ = _apply_sublayer(x, params["tail"][key], cfg, kind, pos,
-                                   cache=cache["tail"][key])
+                                   cache=cache["tail"][key], media=media)
         _write_back(cache["tail"][key], nc)
     logits = unembed(params, x, cfg)[:, -1]
     return logits, cache

@@ -345,8 +345,19 @@ def test_serve_without_a_card_raises(monkeypatch):
 
 
 def test_unported_kinds_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(configs.get_smoke("rwkv6-3b", block_pattern=("cross",)),
+    """Every sublayer kind and frontend of the reference is ported (the MoE
+    MLP, ``cross`` and the frame and patch frontends since ROADMAP.md item
+    1c; ``tests/test_torch_families.py`` holds them against JAX). What is
+    left raises: ``remat="dots"`` names the ROADMAP, a kind the reference
+    lacks is refused."""
+    for arch in ("qwen3-moe-30b-a3b", "musicgen-large", "llama-3.2-vision-90b"):
+        params = transformer.init_params(configs.get_smoke(arch), device="cpu")
+        assert ("frame_proj" in params) == (arch == "musicgen-large")
+    with pytest.raises(ValueError):
+        transformer.init_params(configs.get_smoke("rwkv6-3b", block_pattern=("conv",)),
                                 device="cpu")
+    cfg = configs.get_smoke("qwen2-0.5b", remat="dots")
+    params = transformer.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        L.cross_attention(None, None, None, None)
+        with torch.enable_grad():
+            transformer.loss_fn(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)}, cfg)
