@@ -146,8 +146,27 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              every parameter within 1e-4 in f32 and 0.08 in bf16; on the
              card each backward kernel launched as the routing table says.
 
-Phases 4, 7, 10, 10b and 13 are the main paths (the FEMNIST round
-uncompressed and compressed, LM serving, LM training). The last lines are the
+15. collectives — the SFL aggregation's collective forms on NCCL, a world
+             of one (init_process_group("nccl") through a file rendezvous, a
+             (1, 1) ("pod", "data") mesh on the card; no gloo): the
+             one-row quantize and dequantize at qwen2-0.5b's largest gradient
+             leaf (the 151,936 x 896 embedding) against their plain versions;
+             make_weighted_gradient_aggregator on qwen2-0.5b's full-width
+             gradient shapes (499,540,864 elements, bf16): two_step and
+             classical equal local / K bit for bit (every collective the
+             identity), two_step int8 within one level of it, one quantize
+             launch a leaf; the median of 20 CUDA-event timings of each mode;
+             then qwen2-0.5b at full width, batch 8 x 2048, adamw, seed 0, 3
+             steps with mesh=None, with gspmd on the mesh (its losses the
+             mesh=None losses bit for bit) and with two_step_int8 on the mesh
+             (its step-0 loss gspmd's to f32 rounding, the later ones within
+             1e-2; one quantize and one dequantize launch a gradient leaf and
+             step): warm step times, peak memory, and the int8 transport's
+             added ms a step from 6 more steps of each mesh run in turns.
+
+Phases 4, 7, 10, 10b, 13 and 15 are the main paths (the FEMNIST round
+uncompressed and compressed, LM serving, LM training, the LM gradient
+exchange). The last lines are the
 ``kernels`` JSON object and then ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 
@@ -2064,6 +2083,199 @@ def phase_train_parity(devices=("cuda", "cpu")) -> None:
                       f"(<= {tol} + {tol}·|CPU|)")
 
 
+def _leaf_shapes(cfg):
+    """The shapes of ``cfg``'s parameters (its gradient leaves), on the meta device."""
+    from repro_torch.common.tree import flatten
+    from repro_torch.models import transformer
+    return [tuple(t.shape) for t in flatten(transformer._build_params(cfg, None,
+                                                                      torch.device("meta")))]
+
+
+def _lm_gradient_leaf_kernels(N: int):
+    """The one-row quantize and dequantize at the LM gradient path's largest
+    leaf (N elements), against their plain versions; returns their rows."""
+    from repro_torch.kernels import quantize as kq
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    x = torch.randn((1, N), generator=gen, device="cuda") * 1e-3
+    u = torch.rand((1, N), generator=gen, device="cuda")
+    s = x.abs().amax(1).clamp_min(1e-12) / 127.0
+    q = kq.quantize_rows(x, u, s, 127.0)
+    check(torch.equal(q, kq.quantize_rows_plain(x, u, s, 127.0)),
+          "quantize_rows differs [LM gradient leaf]")
+    what = f"qwen2-0.5b embedding gradient, one row N={N} int8"
+    rows = {"quantize_rows": _report(
+        "quantize_rows", what, 0.0, time_ms(lambda: kq.quantize_rows(x, u, s, 127.0)),
+        time_ms(lambda: kq.quantize_rows_plain(x, u, s, 127.0)), None,
+        *bound(N * 9 + 4, 6 * N), note=" (bit for bit)")}
+    check(torch.equal(kq.dequantize_rows(q, s), kq.dequantize_rows_plain(q, s)),
+          "dequantize_rows differs [LM gradient leaf]")
+    rows["dequantize_rows"] = _report(
+        "dequantize_rows", what, 0.0, time_ms(lambda: kq.dequantize_rows(q, s)),
+        time_ms(lambda: kq.dequantize_rows_plain(q, s)),
+        time_ms(lambda: torch.mul(q, s[:, None])), *bound(N * 5 + 4, 2 * N),
+        note=" (bit for bit; library: torch.mul(q, s))")
+    del x, u, q
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _collective_aggregator(mesh, shapes) -> None:
+    """make_weighted_gradient_aggregator at full width on a world of one."""
+    from repro_torch.core import aggregation
+    from repro_torch.kernels import dequantize_rows, quantize_rows
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    local = {f"{i:03d}": torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+             for i, s in enumerate(shapes)}
+    K = 12345.0
+    want = {k: x.float() / torch.tensor(K, device="cuda") for k, x in local.items()}
+    for mode, comp in (("two_step", None), ("classical", None), ("two_step", "int8")):
+        agg = aggregation.make_weighted_gradient_aggregator(mesh, mode, comp)
+        noise = torch.Generator(device="cuda").manual_seed(17) if comp else None
+        before = (quantize_rows.launches, dequantize_rows.launches)
+        mean, k = agg(local, K, noise)
+        torch.cuda.synchronize()
+        check(float(k) == K, f"aggregator {mode} {comp}: K {float(k)}, want {K}")
+        label = f"aggregator {mode}{' int8' if comp else ''}"
+        if comp:
+            ran = (quantize_rows.launches - before[0], dequantize_rows.launches - before[1])
+            check(ran == (len(local), len(local)),
+                  f"{label}: quantize, dequantize launches {ran}, want {len(local)} each")
+            worst = 0.0
+            for key, x in local.items():
+                level = float(x.float().abs().max()) / 127.0 / K
+                err = float((mean[key] - want[key]).abs().max())
+                check(err <= level * (1 + 1e-5), f"{label}: leaf {key} off by {err:.3e}, "
+                                                 f"one level {level:.3e}")
+                worst = max(worst, err / level)
+            note = f"within {worst:.3f} of one level of local / K"
+        else:
+            check(all(torch.equal(mean[key], want[key]) for key in local),
+                  f"{label}: not local / K bit for bit")
+            note = "local / K bit for bit"
+        del mean
+        ms = time_ms(lambda: agg(local, K, noise))
+        print(f"{label} [qwen2-0.5b gradient shapes, {len(local)} bf16 leaves, "
+              f"{sum(math.prod(s) for s in shapes):,} elements, NCCL world of one]: {note}; "
+              f"ms {ms:.4f} (median of 20, CUDA events)")
+    del local, want
+    torch.cuda.empty_cache()
+
+
+def _collective_train(mesh):
+    """qwen2-0.5b at full width, 3 adamw steps three ways; returns the
+    quantize and dequantize launches of the two_step_int8 run."""
+    from repro_torch import configs
+    from repro_torch.data import lm as lm_data
+    from repro_torch.kernels import dequantize_rows, quantize_rows
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer
+    from repro_torch.optim import make_optimizer
+    cfg = configs.get("qwen2-0.5b")
+    B, S, steps = TRAIN["batch"], TRAIN["seq"], 3
+    weights = torch.from_numpy(
+        np.random.default_rng(0).integers(50, 400, B).astype(np.float32)).cuda()
+    batches = [{"tokens": torch.from_numpy(b["tokens"]).cuda(), "client_weight": weights}
+               for b in lm_data.lm_batches(0, steps, B, S, cfg.vocab_size)]
+    ways = {"mesh=None": {}, "gspmd on the mesh": {"mesh": mesh},
+            "two_step_int8 on the mesh": {"mesh": mesh, "transport": "two_step_int8"}}
+
+    def start(kw):
+        params = transformer.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                         "cuda")
+        return [params, make_optimizer("adamw").init(params),
+                specs.make_train_step(cfg, "adamw", TRAIN["lr"], seed=0, **kw)]
+
+    runs = {}
+    for label, kw in ways.items():
+        params, state, step = start(kw)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        quantize_rows.launches = dequantize_rows.launches = 0
+        losses, dts = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, batch)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t0)
+        runs[label] = dict(losses=losses, warm=statistics.median(dts[1:]),
+                           launches=(quantize_rows.launches, dequantize_rows.launches),
+                           peak=torch.cuda.max_memory_allocated() / 2**30)
+        r = runs[label]
+        print(f"collectives train qwen2-0.5b {label}: losses {losses}; step s cold "
+              f"{dts[0]:.3f} warm {r['warm']:.4f} ({B * S / r['warm']:.0f} tokens/s); peak "
+              f"{r['peak']:.2f} GiB; quantize, dequantize launches {r['launches']}")
+        check(all(math.isfinite(x) for x in losses), f"collectives train {label}: a loss "
+                                                     "is not finite")
+        del params, state, step
+    # the int8 transport's added time: the two mesh ways afresh, one step
+    # each to warm up, then 6 steps each in turns (gspmd, int8, int8, gspmd, ...)
+    order = list(ways)[1:]
+    live = {label: start(ways[label]) for label in order}
+    turns = {label: [] for label in order}
+    for i, label in enumerate(order + (order + order[::-1]) * 3):
+        params, state, step = live[label]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        live[label][:2] = step(params, state, batches[i % steps])[:2]
+        torch.cuda.synchronize()
+        if i >= len(order):
+            turns[label].append(time.perf_counter() - t0)
+    del live, params, state, step
+    n_leaves = len(_leaf_shapes(cfg))
+    base, gspmd, int8 = (runs[k] for k in runs)
+    check(gspmd["losses"] == base["losses"],
+          f"gspmd on a world of one: losses {gspmd['losses']}, mesh=None {base['losses']}")
+    check(base["launches"] == gspmd["launches"] == (0, 0),
+          "the gspmd step launched a quantize kernel")
+    check(int8["launches"] == (steps * n_leaves,) * 2,
+          f"two_step_int8: quantize, dequantize launches {int8['launches']}, want "
+          f"{steps * n_leaves} each ({n_leaves} leaves x {steps} steps)")
+    rel0 = abs(int8["losses"][0] - gspmd["losses"][0]) / abs(gspmd["losses"][0])
+    check(rel0 <= 1e-6, f"two_step_int8 step 0 loss rel {rel0:.2e} from gspmd's")
+    for i, (a, b) in enumerate(zip(int8["losses"], gspmd["losses"])):
+        check(abs(a - b) <= 1e-2 * abs(b), f"two_step_int8 step {i} loss {a} vs gspmd {b}")
+    g_ms, i_ms = ([round(1e3 * t, 2) for t in ts] for ts in turns.values())
+    print(f"collectives train: two_step_int8 adds "
+          f"{statistics.median(i_ms) - statistics.median(g_ms):.2f} ms a warm step to gspmd's "
+          f"({statistics.median(g_ms):.2f} ms; medians of 6 steps each in turns: gspmd {g_ms}, "
+          f"two_step_int8 {i_ms} ms); step-0 loss rel "
+          f"{rel0:.2e}, later losses rel "
+          f"{[f'{abs(a - b) / abs(b):.2e}' for a, b in zip(int8['losses'], gspmd['losses'])]}"
+          " (held to 1e-2)")
+    return int8["launches"]
+
+
+def phase_collectives():
+    """Phase 15: the collective forms on NCCL with a world of one; returns
+    the quantize and dequantize rows at the LM gradient leaf and their
+    launches on the two_step_int8 train path."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_mod
+    shapes = _leaf_shapes(configs.get("qwen2-0.5b"))
+    rows = _lm_gradient_leaf_kernels(max(math.prod(s) for s in shapes))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as d:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(d, "rendezvous"),
+                                rank=0, world_size=1)
+        try:
+            mesh = mesh_mod.make_test_mesh((1, 1), ("pod", "data"), "cuda")
+            backends = {dist.get_backend(), *(dist.get_backend(mesh.get_group(a))
+                                              for a in ("pod", "data"))}
+            check(backends == {"nccl"}, f"collectives: backends {backends}, want nccl alone")
+            print(f"collectives: NCCL world of one, mesh {mesh_mod.mesh_shape(mesh)} on "
+                  f"{torch.cuda.get_device_name(0)}")
+            _collective_aggregator(mesh, shapes)
+            launches = _collective_train(mesh)
+        finally:
+            dist.destroy_process_group()
+    return rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2108,6 +2320,10 @@ def main() -> int:
         launches[name] += trained[name]
         launches[name + "_bwd"] = trained[name + "_bwd"]
     phase(phase_train_parity)
+    lm_rows, (n_quantize, n_dequantize) = phase(phase_collectives)
+    for name, n in (("quantize_rows", n_quantize), ("dequantize_rows", n_dequantize)):
+        rows[name]["lm_gradient_leaf"] = dict(lm_rows[name], launches=n)
+        launches[name] += n
     print(f"total {time.perf_counter() - t0:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     table = (("agg_reduce", csrc + "agg_reduce.cu", "src/repro/kernels/agg_reduce.py:60"),

@@ -26,25 +26,33 @@ call for int8/int4, never for top-k), and every uniform number of one
 call is drawn by :meth:`CompressionState.uniform_noise`, which takes the
 leaf shapes in the reference's leaf order (sorted keys, as
 ``jax.tree.flatten`` orders a dict) — the one method to override to feed
-other noise. The per-leaf API (``quantize_tree``,
-``compress_with_error_feedback``) belongs to the language-model collective
-path and is not ported yet (ROADMAP.md).
+other noise. The per-leaf API (:func:`quantize_tree`,
+:func:`dequantize_tree`, :func:`compress_with_error_feedback`), one scale
+per leaf of a nested tree, is the one-row case of the same kernel
+wrappers; its noise (:func:`uniform_noise`) comes from an explicit
+``torch.Generator`` or an injected ``uniform_noise(shapes)``, leaf by leaf
+in the reference's order, and the collective forms of
+``core.aggregation`` and ``launch.specs`` draw theirs the same way.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.common.tree import flatten, unflatten
 from repro_torch.kernels.agg_reduce import segment_agg_reduce, segment_agg_reduce_quant
 from repro_torch.kernels.quantize import (dequantize_rows as _dequantize_kernel,
                                           qmax_of, quantize_rows as _quantize_kernel,
                                           topk_k, topk_mask_rows, topk_thresholds)
 
 Tree = Dict[str, torch.Tensor]
+# U[0, 1) noise for a stochastic rounding: a generator to draw from, or a
+# callable shapes -> one f32 tensor per shape (the reference's noise fed in)
+Noise = Union[torch.Generator, Callable[[Sequence[Tuple[int, ...]]], Sequence[torch.Tensor]]]
 
 SCHEMES = ("none", "int8", "int4", "topk")
 
@@ -72,7 +80,7 @@ def _numel(x) -> int:
 
 def raw_bytes(tree: Tree) -> int:
     """Uncompressed f32 wire size (the ``--compress none`` baseline)."""
-    return 4 * sum(_numel(x) for x in tree.values())
+    return 4 * sum(_numel(x) for x in flatten(tree))
 
 
 def compressed_bytes(tree: Tree, scheme: str = "int8", *,
@@ -86,7 +94,7 @@ def compressed_bytes(tree: Tree, scheme: str = "int8", *,
         raise ValueError(f"unknown compression scheme {scheme!r}; "
                          f"expected one of {SCHEMES}")
     total = 0
-    for x in tree.values():
+    for x in flatten(tree):
         n = _numel(x)
         if scheme == "none":
             total += 4 * n
@@ -100,11 +108,12 @@ def compressed_bytes(tree: Tree, scheme: str = "int8", *,
     return int(total)
 
 
-def init_residual(tree: Tree) -> Tree:
-    """Zero f32 EF residual matching ``tree``'s shapes and device (f32:
-    the residual accumulates sub-step corrections that bf16 would lose)."""
-    return {k: torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-            for k, x in tree.items()}
+def init_residual(tree: Tree, dtype: torch.dtype = torch.float32) -> Tree:
+    """Zero EF residual matching ``tree``'s structure, shapes and device
+    (f32 by default: the residual accumulates sub-step corrections that
+    bf16 would lose)."""
+    return unflatten(tree, [torch.zeros(x.shape, dtype=dtype, device=x.device)
+                            for x in flatten(tree)])
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +162,80 @@ def topk_rows(x: torch.Tensor, frac: float,
     flat = _rows(x)
     thresh = topk_thresholds(flat, topk_k(flat.shape[1], frac))
     return topk_mask_rows(flat, thresh, row_mask).reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# per-leaf forms over a nested tree: one scale per leaf, each the one-row
+# call of the row kernels
+# ---------------------------------------------------------------------------
+
+def uniform_noise(noise: Optional[Noise], shapes: Sequence[Tuple[int, ...]],
+                  device) -> Iterator[torch.Tensor]:
+    """U[0, 1) f32 noise on ``device``, one tensor per shape in the order
+    given: drawn from ``noise`` when it is a ``torch.Generator`` (lazily, a
+    leaf at a time), else ``noise(shapes)`` (the reference's own noise, fed
+    in). Ranks that must draw the same noise hold generators seeded alike.
+    None raises: a fixed default would repeat the same rounding every
+    call and bias the sum."""
+    if noise is None:
+        raise ValueError("stochastic rounding needs explicit noise: a torch.Generator "
+                         "seeded per call, or a uniform_noise(shapes) callable")
+    if isinstance(noise, torch.Generator):
+        for s in shapes:
+            yield torch.rand(tuple(s), generator=noise, dtype=torch.float32,
+                             device=noise.device).to(device)
+        return
+    for s, u in zip(shapes, noise(shapes), strict=True):
+        u = torch.as_tensor(u, dtype=torch.float32, device=device)
+        if tuple(u.shape) != tuple(s):
+            raise ValueError(f"noise of shape {tuple(u.shape)} for a leaf of {tuple(s)}")
+        yield u
+
+
+def quantize_leaf(x: torch.Tensor, noise: torch.Tensor, bits: int = 8
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One leaf at one scale, max(max|x|, 1e-12) / qmax: (q int8 of x's
+    shape, 0-d f32 scale), through the quantize kernel's wrapper."""
+    q, s = quantize_rows(x.reshape(1, -1), noise.reshape(1, -1), bits)
+    return q.reshape(x.shape), s[0]
+
+
+def quantize_tree(tree, noise: Optional[Noise], bits: int = 8):
+    """Unbiased per-leaf stochastic-rounding quantization (int8 or int4):
+    (a tree of int8 — int4 values unpacked in [-7, 7] — and a tree of 0-d
+    f32 scales). Noise is drawn leaf by leaf in the reference's order
+    (sorted keys). An empty tree short-circuits, needing no noise."""
+    leaves = flatten(tree)
+    if not leaves:
+        return unflatten(tree, []), unflatten(tree, [])
+    dev = leaves[0].device
+    out = [quantize_leaf(x, u, bits) for x, u in
+           zip(leaves, uniform_noise(noise, [tuple(x.shape) for x in leaves], dev))]
+    return unflatten(tree, [q for q, _ in out]), unflatten(tree, [s for _, s in out])
+
+
+def dequantize_tree(qtree, scales):
+    """float(q) · s leaf by leaf, through the dequantize kernel's wrapper."""
+    return unflatten(qtree, [dequantize_rows(q.reshape(1, -1), s.reshape(1)).reshape(q.shape)
+                             for q, s in zip(flatten(qtree), flatten(scales), strict=True)])
+
+
+def compress_with_error_feedback(tree, err, noise: Optional[Noise], bits: int = 8):
+    """EF-SGD style: quantize (tree + err); the residual becomes the new
+    err. ``err=None`` starts from :func:`init_residual`. Returns (qtree,
+    scales, new_err); an empty tree short-circuits."""
+    if not flatten(tree):
+        empty = unflatten(tree, [])
+        return empty, empty, (err if err is not None else empty)
+    if err is None:
+        err = init_residual(tree)
+    corrected = unflatten(tree, [x.float() + e for x, e in
+                                 zip(flatten(tree), flatten(err), strict=True)])
+    q, s = quantize_tree(corrected, noise, bits)
+    deq = dequantize_tree(q, s)
+    new_err = unflatten(tree, [c - d for c, d in
+                               zip(flatten(corrected), flatten(deq), strict=True)])
+    return q, s, new_err
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """RoundLoop backends — port of ``repro.fl.backends``'s
 ``ClientStackedBackend`` (the paper regime) and ``GradientBackend`` (the
-LM gradient regime, on one card).
+LM gradient regime, on one card or data parallel over a mesh).
 
 A backend owns model state and the learning side of a round; the RoundLoop
 owns selection, failures and PON transport. Contract:
@@ -132,20 +132,23 @@ class GradientBackend:
     """One global model; the round's (k_ij · mask) folds into the batch's
     ``client_weight``, so one gradient step is the K-normalised aggregate.
 
-    Port of ``repro.fl.backends.GradientBackend`` without the mesh and the
-    sharding rules: one card, so the aggregation's collective form (two-step
-    or flat, by ``strategy.transport``) has nothing to reduce across
-    (ROADMAP.md Queue 1, item 1b). Owns the parameters (random, from
-    ``seed``, or ``params``) and the optimizer's state, both on ``device``.
-    Its rounds draw nothing from the loop's RNG: each round's tokens are
-    ``lm_batches(seed * 1000 + rnd, ...)``.
+    Port of ``repro.fl.backends.GradientBackend``: on a ``mesh``, the
+    ``rules`` (``launch.train.build_rules`` of the strategy's transport)
+    pick how the ranks' gradients are reduced — FSDP's two-step schedule or
+    the flat all-reduce — so the collective form of the paper's
+    aggregation is induced by the same Strategy the client-stacked regime
+    uses. ``mesh=None`` is one process. Owns the parameters (random, from
+    ``seed``, or ``params``) and the optimizer's state, both on ``device``,
+    full replicas on every rank. Its rounds draw nothing from the loop's
+    RNG: every rank builds each round's tokens, ``lm_batches(seed * 1000 +
+    rnd, ...)``, and the train step keeps the rank's rows.
     """
 
     def __init__(self, model_cfg, strategy: Strategy, opt_name: str = "adamw",
                  lr: float = 3e-4, batch: int = 8, seq: int = 128, microbatches: int = 1,
                  seed: int = 0, sample_counts: Optional[np.ndarray] = None,
                  onu_ids: Optional[np.ndarray] = None, n_clients: Optional[int] = None,
-                 device: str | torch.device = "cuda", params=None):
+                 device: str | torch.device = "cuda", params=None, mesh=None, rules=None):
         # lazy: `import repro_torch.fl` stays light for the client-stacked path
         from repro_torch import device as device_mod
         from repro_torch.launch import specs
@@ -169,7 +172,9 @@ class GradientBackend:
             if params is None else params)
         self.opt = make_optimizer(opt_name)
         self.opt_state = self.opt.init(self.params)
-        self.train_step = specs.make_train_step(model_cfg, opt_name, lr, microbatches)
+        self.mesh = mesh
+        self.train_step = specs.make_train_step(model_cfg, opt_name, lr, microbatches,
+                                                mesh=mesh, rules=rules, seed=seed)
 
     def round_weights(self, selected: np.ndarray, mask: np.ndarray) -> np.ndarray:
         """The batch rows' client weights, k_ij · mask, ``batch`` of them."""

@@ -148,14 +148,16 @@ def causal_attention(q, k, v, cfg, *, window: int = 0):
     q (B, S, Hp, hd); k, v (B, S, KV, hd) -> (B, S, Hp, hd). The kernel runs
     on the H real query heads, head h reading KV head h // (H // KV) — the
     reference's ``_expand_kv`` map on the real heads — and the padded heads'
-    output is zero, which is what the reference's head mask leaves.
+    output is zero, which is what the reference's head mask leaves. Where KV
+    does not divide H, K and V are first expanded to H heads by that map,
+    min(h // max(1, H // KV), KV - 1).
     """
     B, S, Hp, hd = q.shape
     H, KV = cfg.n_heads, cfg.n_kv_heads
     if H % KV:
-        raise NotImplementedError(
-            f"n_heads {H} is not a multiple of n_kv_heads {KV}: the kernel's GQA map "
-            "needs whole groups (no ported config has one)")
+        # uneven groups: expand K and V by the reference's map, so the
+        # kernel sees one KV head per query head
+        k, v = _expand_kv(k, H, H, KV), _expand_kv(v, H, H, KV)
     o = flash_attention(q[:, :, :H].transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                         causal=True, window=window, scale=1.0 / math.sqrt(hd),
                         softcap=cfg.logit_softcap).transpose(1, 2)

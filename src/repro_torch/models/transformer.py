@@ -21,7 +21,9 @@ Python loop over the units replaces ``lax.scan``. The reference's
 sharding rules have no single-card counterpart and are left out of every
 signature. Under grad, ``remat="full"`` recomputes each unit in the
 backward (``torch.utils.checkpoint``), as the reference's
-``jax.checkpoint`` does; ``remat="dots"`` is not ported.
+``jax.checkpoint`` does, and ``remat="dots"`` keeps only the outputs of
+the matmuls with no batch dimension (selective checkpointing), as its
+``checkpoint_dots_with_no_batch_dims`` policy does.
 
 The cache is mutable: ``decode_step`` writes the new token's K/V into the
 rings and the new recurrent states into the stacked buffers in place, and
@@ -39,7 +41,8 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import device as device_mod
 from repro_torch.models import layers as L
@@ -239,21 +242,37 @@ def unembed(params, x, cfg: ModelConfig):
 # forward
 # ---------------------------------------------------------------------------
 
+_aten = torch.ops.aten
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``'s policy, the reference's
+    ``checkpoint_dots_with_no_batch_dims``: keep the outputs of the matmuls
+    with no batch dimension (``mm``, ``addmm``, and the batch-1 ``bmm`` an
+    einsum such as "bsd,dhk->bshk" lowers to: the projections), recompute
+    the rest (attention's batched products, flash, the scans, elementwise
+    work)."""
+    if op in (_aten.mm.default, _aten.addmm.default) or (
+            op is _aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _unit_step(cfg: ModelConfig, positions, media=None):
-    """One unit as the forward applies it: under grad with ``remat="full"``
-    its activations are recomputed in the backward instead of kept (the
-    reference's ``nothing_saveable`` policy). The unit draws no random
-    numbers, so no RNG state is saved for the recompute."""
+    """One unit as the forward applies it. Under grad, ``remat="full"``
+    recomputes its activations in the backward instead of keeping them (the
+    reference's ``nothing_saveable`` policy) and ``remat="dots"`` keeps the
+    outputs of its matmuls with no batch dimension (:func:`_save_dots`).
+    The unit draws no random numbers, so no RNG state is saved for the
+    recompute."""
     def step(x, unit_p):
         return _apply_unit(x, unit_p, cfg, positions, media=media)[::2]
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save the matmul outputs) is not ported: no ported config uses "
-            "it; ROADMAP.md Queue 1")
-    if cfg.remat == "full" and torch.is_grad_enabled():
-        return lambda x, unit_p: checkpoint(step, x, unit_p, use_reentrant=False,
-                                            preserve_rng_state=False)
-    return step
+    if cfg.remat not in ("full", "dots") or not torch.is_grad_enabled():
+        return step
+    kw = ({"context_fn": lambda: create_selective_checkpoint_contexts(_save_dots)}
+          if cfg.remat == "dots" else {})
+    return lambda x, unit_p: checkpoint(step, x, unit_p, use_reentrant=False,
+                                        preserve_rng_state=False, **kw)
 
 
 def forward(params, batch, cfg: ModelConfig):

@@ -191,6 +191,8 @@ CASES = [  # (arch, config overrides, prompt length)
     ("rwkv6-3b", dict(rwkv_chunk=8), 16),
     ("rwkv6-3b", dict(rwkv_chunk=8), 13),
     ("qwen2-0.5b", dict(), 16),
+    # uneven GQA: 6 query heads over 4 KV heads, K and V expanded before the kernel
+    ("qwen2-0.5b", dict(n_heads=6, n_kv_heads=4), 16),
 ]
 
 
@@ -347,17 +349,41 @@ def test_serve_without_a_card_raises(monkeypatch):
 def test_unported_kinds_raise():
     """Every sublayer kind and frontend of the reference is ported (the MoE
     MLP, ``cross`` and the frame and patch frontends since ROADMAP.md item
-    1c; ``tests/test_torch_families.py`` holds them against JAX). What is
-    left raises: ``remat="dots"`` names the ROADMAP, a kind the reference
-    lacks is refused."""
+    1c; ``tests/test_torch_families.py`` holds them against JAX), and
+    ``remat="dots"`` since item 1d (``test_remat_dots_matches_reference``).
+    A kind the reference lacks is refused."""
     for arch in ("qwen3-moe-30b-a3b", "musicgen-large", "llama-3.2-vision-90b"):
         params = transformer.init_params(configs.get_smoke(arch), device="cpu")
         assert ("frame_proj" in params) == (arch == "musicgen-large")
     with pytest.raises(ValueError):
         transformer.init_params(configs.get_smoke("rwkv6-3b", block_pattern=("conv",)),
                                 device="cpu")
-    cfg = configs.get_smoke("qwen2-0.5b", remat="dots")
-    params = transformer.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        with torch.enable_grad():
-            transformer.loss_fn(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)}, cfg)
+
+
+@pytest.mark.parametrize("arch,kw", [("qwen2-0.5b", {}), ("rwkv6-3b", dict(rwkv_chunk=8)),
+                                     ("qwen2-0.5b", dict(n_heads=6, n_kv_heads=4))])
+def test_remat_dots_matches_reference(jx, arch, kw):
+    """``remat="dots"`` (the matmuls with no batch dimension saved, the rest
+    recomputed): loss and every gradient of ``loss_fn`` against
+    ``jax.value_and_grad`` of the reference's with the same policy, f32
+    1e-4; uneven GQA (6 heads over 4 KV heads) through the same check."""
+    cfg, over = _cfg(arch, "float32", remat="dots", **kw)
+    jcfg, jparams, ref = _jax_model(jx, arch, over)
+    params = lm_params_from_jax(ref)
+    toks = _tokens(cfg, 12, seed=4)
+    (jloss, _), jgrads = jx.jax.value_and_grad(
+        lambda p: jx.tf.loss_fn(p, {"tokens": jx.jnp.asarray(toks)}, jcfg, jx.rules),
+        has_aux=True)(jparams)
+    leaves = list(_flat(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = transformer.loss_fn(params, {"tokens": torch.from_numpy(toks)}, cfg)
+    grads = iter(torch.autograd.grad(loss, leaves))
+    got = lm_params_to_jax(_rebuild(params, grads))
+    assert float(loss.detach()) == pytest.approx(float(jloss), rel=1e-4, abs=1e-4)
+    _tree_close(got, jx.jax.tree.map(np.asarray, jgrads), 1e-4, f"{arch} {kw} grads")
+
+
+def _rebuild(tree, it):
+    return {k: _rebuild(v, it) if isinstance(v, dict) else next(it).detach()
+            for k, v in tree.items()}

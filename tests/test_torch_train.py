@@ -254,21 +254,50 @@ def test_weighted_loss_pieces_match_reference(jx):
 
 
 def test_remat_changes_nothing_but_memory():
-    """remat='full' (checkpointed units) and 'none' give the same loss and
-    gradient bit for bit on the CPU; 'dots' is not ported."""
+    """remat='full' (checkpointed units), 'dots' (the projections' outputs
+    kept) and 'none' give the same loss and gradient bit for bit on the
+    CPU; the backward recomputes the units' projections under 'full' and
+    none of them under 'dots' (``mm``, ``addmm`` and the batch-1 ``bmm`` an
+    einsum such as "bsd,dhk->bshk" lowers to), attention's batched products
+    under both."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountMatmuls(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.counts = {"projection": 0, "batched": 0}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+                self.counts["projection"] += 1
+            elif func is torch.ops.aten.bmm.default:
+                self.counts["projection" if args[0].shape[0] == 1 else "batched"] += 1
+            return func(*args, **(kwargs or {}))
+
     cfg = configs.get_smoke("qwen2-0.5b", dtype="float32")
     params = transformer.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
     toks = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 12)))
-    out = []
-    for remat in ("full", "none"):
+    out, recomputed = [], {}
+    for remat in ("full", "dots", "none"):
         c = dataclasses.replace(cfg, remat=remat)
         step = specs.make_train_step(c, "sgd", 0.1)
         p, _, loss = step(params, {}, {"tokens": toks})
         out.append((float(loss), lm_params_to_jax(p)))
-    assert out[0][0] == out[1][0]
-    _tree_close(out[0][1], out[1][1], 0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.loss_fn(params, {"tokens": toks}, dataclasses.replace(cfg, remat="dots"))
+        leaves = [t.requires_grad_(True) for t in specs._leaves(params)]
+        loss, _ = transformer.loss_fn(params, {"tokens": toks}, c)
+        with CountMatmuls() as mode:
+            torch.autograd.grad(loss, leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        recomputed[remat] = mode.counts
+    for loss, p in out[1:]:
+        assert loss == out[0][0]
+        _tree_close(p, out[0][1], 0.0)
+    # the units' projections run again in the backward under 'full' only
+    assert recomputed["full"]["projection"] > recomputed["none"]["projection"]
+    assert recomputed["dots"]["projection"] == recomputed["none"]["projection"]
+    assert recomputed["full"]["batched"] == recomputed["dots"]["batched"] > \
+        recomputed["none"]["batched"]
 
 
 # ------------------------------------------------------------ the train step
@@ -307,9 +336,42 @@ def test_train_step_matches_reference(jx, arch, opt_name, tol, micro):
     assert bool(torch.isfinite(step.grad_norm)) and float(step.grad_norm) > 0
 
 
-def test_two_step_int8_transport_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        specs.make_train_step(configs.get_smoke("qwen2-0.5b"), transport="two_step_int8")
+def _int8_world_of_one(rank, world):
+    """two_step_int8 and gspmd on a (1, 1) ("pod", "data") gloo world,
+    adamw (the step's own noise from seed and step counter), 3 steps."""
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh((1, 1), ("pod", "data"), "cpu")
+    cfg = configs.get_smoke("qwen2-0.5b", dtype="float32")
+    out = {}
+    for transport in ("gspmd", "two_step_int8"):
+        params = transformer.init_params(cfg, torch.Generator().manual_seed(2), device="cpu")
+        opt = make_optimizer("adamw")
+        state = opt.init(params)
+        step = specs.make_train_step(cfg, "adamw", 3e-4, transport=transport, mesh=mesh)
+        losses = []
+        for b in lm.lm_batches(4, 3, 4, 16, cfg.vocab_size):
+            params, state, loss = step(params, state, {"tokens": torch.from_numpy(b["tokens"]),
+                                                       "client_weight": torch.ones(4)})
+            losses.append(float(loss))
+        out[transport] = losses
+    with pytest.raises(ValueError, match="'pod' axis"):
+        specs.make_train_step(cfg, transport="two_step_int8",
+                              mesh=make_test_mesh((1, 1), ("data", "model"), "cpu"))
+    return out
+
+
+def test_two_step_int8_transport_on_a_world_of_one(tmp_path):
+    """The int8 transport on one gloo rank (every collective the identity;
+    its parity with the reference on 8 ranks is in
+    tests/test_torch_collectives.py): step 0's loss equals gspmd's to f32
+    rounding (the same parameters), the later ones stay within 1e-3 (the
+    rounding noise moves the parameters a little); and without a 'pod'
+    axis the transport raises."""
+    from test_torch_collectives import _spawn
+    (out,) = _spawn(tmp_path, 1, _int8_world_of_one)
+    assert out["two_step_int8"][0] == pytest.approx(out["gspmd"][0], rel=1e-6)
+    for a, b in zip(out["two_step_int8"], out["gspmd"]):
+        assert a == pytest.approx(b, rel=1e-3)
 
 
 def test_train_loss_decreases():
@@ -393,11 +455,37 @@ def test_train_resume_equals_an_uninterrupted_run(tmp_path, capsys):
 def test_train_cli_refuses_unported_flags(capsys):
     for flag, value, item in (("--dba", "fl_priority", "item 2"), ("--bg-load", "0.5", "item 2"),
                               ("--trace-out", "t.json", "item 5"),
-                              ("--compress", "int8", "item 1b"), ("--driver", "runtime",
-                                                                  "item 4")):
+                              ("--driver", "runtime", "item 4")):
         with pytest.raises(SystemExit):
             train.main(["--smoke", "--device", "cpu", flag, value])
         assert f"ROADMAP.md Queue 1 {item}" in capsys.readouterr().err, flag
+
+
+@pytest.mark.parametrize("scheme", ["int8", "topk"])
+def test_train_compress_bills_the_reference_wire(jx, scheme, capsys):
+    """``--compress`` on the gradient regime scales the wire the PON
+    transport bills, as the reference's: each round's ``wire_mbits``,
+    ``upstream_mbits`` and involvement equal the reference RoundLoop's over
+    a backend holding the same parameter tree (top-k's ratio is exact from
+    it)."""
+    kw = dict(steps=3, batch=4, seq=8, opt="sgd", p_transient=0.2, onus=4, clients_per_onu=5,
+              log_every=1, device="cpu")
+    res = train.run("qwen2-0.5b", smoke=True, compress=scheme, **kw)
+    jflc = jx.FLConfig(n_onus=4, clients_per_onu=5,
+                       pon=jx.PonConfig(n_onus=4, clients_per_onu=5), n_selected=4)
+    counts = np.random.default_rng(0).integers(50, 400, jflc.n_clients).astype(np.float32)
+    backend = types.SimpleNamespace(
+        strategy=jx.fl.make_strategy("sfl_two_step", compress=scheme),
+        params=lm_params_to_jax(res["backend"].params), sample_counts=counts,
+        onu_ids=np.arange(jflc.n_clients) // 5, run_round=lambda *a: {})
+    jloop = jx.fl.RoundLoop(jx.fl.ExperimentConfig(fl=jflc, seed=0, p_transient=0.2), backend)
+    jloop.run(3)
+    for r, j in zip(res["history"], jloop.history, strict=True):
+        for key in ("wire_mbits", "upstream_mbits", "involved", "compress"):
+            assert r[key] == j[key], (scheme, key, r[key], j[key])
+    train.main(["--smoke", "--steps", "1", "--batch", "2", "--seq", "8", "--device", "cpu",
+                "--opt", "sgd", "--compress", scheme])
+    assert "step 0: loss" in capsys.readouterr().out
 
 
 def test_train_cli_smoke_and_no_card(monkeypatch, capsys):
