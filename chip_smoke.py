@@ -164,9 +164,39 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              step): warm step times, peak memory, and the int8 transport's
              added ms a step from 6 more steps of each mesh run in turns.
 
-Phases 4, 7, 10, 10b, 13 and 15 are the main paths (the FEMNIST round
+16. transport — the event-simulator transport and the strategies that
+             ride it, through ``launch.femnist.run`` at full width (the
+             FEMNIST CNN, H = 8, batch 10, lr 0.06, seed 0, N = 128): (a)
+             the paper's PON of 16 ONUs × 20 clients with ``fl_priority``
+             grants, 2 wavelengths and background load 0.3, 3 rounds each
+             of sfl_two_step and classical, then one round of each under
+             fifo, tdma and ipact; the transport columns (involved,
+             upstream_mbits, uplink_models, grant_delay_s, n_fl_grants,
+             bg_mbits_served) equal, exactly, a run of the same config on
+             the CPU at reduced width. (b) The forest of 4 PONs × 16 ONUs ×
+             20 clients (1,280 clients, 64 ONUs), the same transport
+             knobs: 3 rounds each of hier_sfl, sfl_two_step and classical,
+             then hier_sfl with int8 tiers; per-segment Mbits against the
+             closed-form budget (hier_sfl's trunk one model, its wire size
+             when compressed); launches against the routing table (24 a
+             trained hier_sfl round: θ, Φ and Ψ on every leaf; under int8
+             the fused θ route and the Φ and Ψ row quantizers); one round of
+             H = 1 at reduced width card vs CPU (1e-4; int8 within one
+             level of every row it sums, the same noise on both). (c) The
+             fast and hybrid engines: hier_sfl's forest round under each
+             (fast equal to the event engine exactly), and the forest's
+             transport alone for each strategy and engine, each engine's
+             host ms a round beside the rounds' wall_s, train_s and
+             aggregate_s. (d) agg_reduce at the forest's shapes at the
+             fc1_w leaf: θ (128 rows, 64 segments), Φ (64 rows, 4), Ψ (4
+             rows, 1), beside ``torch.mm`` by the segment matrix; the fused
+             form at θ, quantize and dequantize at Φ and Ψ (dequantize at θ
+             too). ``femnist.generate`` of 320 and 1,280 clients is timed
+             on the host and each population made once.
+
+Phases 4, 7, 10, 10b, 13, 15 and 16 are the main paths (the FEMNIST round
 uncompressed and compressed, LM serving, LM training, the LM gradient
-exchange). The last lines are the
+exchange, the event-simulator transport and hier_sfl). The last lines are the
 ``kernels`` JSON object and then ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 
@@ -2276,6 +2306,437 @@ def phase_collectives():
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the event-simulator transport and the strategies that ride it
+# ---------------------------------------------------------------------------
+
+N_FC1 = 3136 * 2048                    # fc1_w of the full-width CNN
+PAPER_PON = dict(n_onus=16, clients_per_onu=20)
+LOADED = dict(dba="fl_priority", n_wavelengths=2, background_load=0.3)
+FOREST = dict(n_pons=4, **PAPER_PON)   # 1,280 clients, 64 ONUs
+# transport columns held card = CPU: the History row's, then the transport's own
+ROW_COLUMNS = ("involved", "upstream_mbits", "uplink_models", "sim_engine", "metro_mbits",
+               "trunk_mbits", "pon_mbits_max", "metro_mbits_max", "n_pons")
+RT_COLUMNS = ("grant_delay_s", "n_fl_grants", "bg_mbits_served")
+
+
+class _TransportTap:
+    """While active, records every round's transport dict and its host time
+    (the simulator's share of the round) by wrapping the RoundLoop's
+    ``round_transport``."""
+
+    def __enter__(self):
+        from repro_torch.fl import loop
+        self.loop, self.saved = loop, loop.round_transport
+        self.rts, self.ms = [], []
+
+        def tapped(*args, **kw):
+            t = time.perf_counter()
+            rt = self.saved(*args, **kw)
+            self.ms.append(1e3 * (time.perf_counter() - t))
+            self.rts.append(rt)
+            return rt
+
+        loop.round_transport = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.round_transport = self.saved
+
+
+def _columns(res, modes, tap):
+    """Per mode, per round: the transport columns of the row and of the
+    transport's dict (rounds in run order, as the tap saw them)."""
+    out, i = {}, 0
+    for mode in modes:
+        rows = list(res[mode]["loop"].history)
+        out[mode] = [tuple(r.get(k) for k in ROW_COLUMNS)
+                     + tuple(rt[k] for k in RT_COLUMNS)
+                     for r, rt in zip(rows, tap.rts[i:i + len(rows)], strict=True)]
+        i += len(rows)
+    return out
+
+
+def _zero(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _run_both(label, kw, modes, data):
+    """launch.run at full width on the card and at reduced width on the CPU
+    from the same data and seed; the card's launches by kernel, both
+    runs' transport columns held equal. Returns (card result, tap, counts)."""
+    from repro_torch.launch import femnist as launch
+    counters = _counters()
+    _zero(counters)
+    with _TransportTap() as tap:
+        t0 = time.perf_counter()
+        res = launch.run(**kw, modes=modes, full=True, device="cuda", data=data)
+        wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    with _TransportTap() as cpu_tap:
+        cpu = launch.run(**kw, modes=modes, full=False, device="cpu", data=data)
+    got, want = _columns(res, modes, tap), _columns(cpu, modes, cpu_tap)
+    for mode in modes:
+        check(got[mode] == want[mode],
+              f"transport [{label} {mode}]: card {got[mode]} vs CPU {want[mode]}")
+    print(f"transport [{label}]: {' '.join(modes)}, card full width vs CPU reduced width: "
+          f"transport columns equal ({sum(len(v) for v in got.values())} rounds), "
+          f"wall {wall:.2f} s on the card")
+    return res, tap, counts
+
+
+def _print_rounds(label, res, modes, tap):
+    i = 0
+    for mode in modes:
+        for r in res[mode]["loop"].history:
+            rt, ms = tap.rts[i], tap.ms[i]
+            i += 1
+            seg = "".join(f" {k} {r[k]:.3f}" for k in ("metro_mbits", "trunk_mbits") if k in r)
+            print(f"transport [{label}] {mode} round {r['round']}: involved "
+                  f"{r['involved']:.0f}/{r['n_selected']} upstream_mbits "
+                  f"{r['upstream_mbits']:.3f}{seg} uplink_models "
+                  f"{r.get('uplink_models', 0):.0f} grant_delay_s {rt['grant_delay_s']:.6f} "
+                  f"n_fl_grants {rt['n_fl_grants']} bg_mbits_served "
+                  f"{rt['bg_mbits_served']:.3f} acc {r['acc']:.4f} wall_s {r['wall_s']:.3f} "
+                  f"train_s {r.get('train_s', 0):.3f} aggregate_s "
+                  f"{r.get('aggregate_s', 0):.4f} simulator host ms {ms:.2f}")
+            check(0.0 <= r["acc"] <= 1.0, f"{label} {mode} acc {r['acc']}")
+            if r["involved"] > 0:
+                check(math.isfinite(r["eval_loss"]), f"{label} {mode} eval_loss")
+        params = res[mode]["loop"].backend.params
+        check(all(bool(torch.isfinite(v).all()) for v in params.values()),
+              f"{label} {mode} params not finite")
+
+
+def _trained(res, mode) -> int:
+    return sum(1 for r in res[mode]["loop"].history if r["involved"] > 0)
+
+
+def _check_launches(label, counts, want) -> None:
+    want = {k: want.get(k, 0) for k in counts}
+    print(f"transport [{label}]: launches {counts} (routing table: {want})")
+    check(counts == want, f"{label}: launches {counts}, want {want}")
+
+
+def _check_segments(label, res, mode, tap, start, wire) -> None:
+    """Each round's per-segment Mbits against the closed-form budget
+    (pon.expected_segment_mbits): hier_sfl's trunk is one model."""
+    from repro_torch.pon import expected_segment_mbits
+    transport = {"hier_sfl": "hier", "sfl_two_step": "sfl", "classical": "classical"}[mode]
+    for r, rt in zip(res[mode]["loop"].history, tap.rts[start:], strict=False):
+        want = expected_segment_mbits(transport, wire, r["n_selected"], rt["n_fl_jobs"],
+                                      rt["n_metro_jobs"])
+        got = {"pon": r["upstream_mbits"], "metro": r["metro_mbits"], "trunk": r["trunk_mbits"]}
+        if transport == "hier" and r["trunk_mbits"] == 0.0:
+            want["trunk"] = 0.0         # no Φ reached the metro node in time
+        check(got == want, f"{label} {mode} round {r['round']}: segments {got} vs {want}")
+        if transport == "hier":
+            check(r["trunk_mbits"] in (0.0, wire) and r["n_pons"] == FOREST["n_pons"],
+                  f"{label}: hier trunk {r['trunk_mbits']}, wire {wire}")
+
+
+class _HierLevels:
+    """While active, records the scales each tier's dequantize uses and
+    each round's K: one quantization level of an aggregated element is
+    Σ over the θ, Φ and Ψ rows of its leaf of the row's scale, / K."""
+
+    def __enter__(self):
+        from repro_torch.core import aggregation, compression
+        self.mods = (compression, aggregation)
+        self.saved = (compression._dequantize_kernel, aggregation.hier_aggregate)
+        self.rows, self.K = [], []
+        real_dq, real_hier = self.saved
+
+        def dq(q, s, mask=None):
+            self.rows.append(float(s.double().sum()))
+            return real_dq(q, s, mask)
+
+        def hier(*args, **kw):
+            out = real_hier(*args, **kw)
+            self.K.append(float(out[1]))
+            return out
+
+        compression._dequantize_kernel, aggregation.hier_aggregate = dq, hier
+        return self
+
+    def __exit__(self, *exc):
+        compression, aggregation = self.mods
+        compression._dequantize_kernel, aggregation.hier_aggregate = self.saved
+
+    def bounds(self, names):
+        n = len(names)
+        return {name: sum(self.rows[t * n + i] for t in range(3)) / self.K[0]
+                for i, name in enumerate(sorted(names))}
+
+
+def _forest_parity(data) -> None:
+    """One hier_sfl round of H = 1 over the forest at reduced width, card
+    against CPU: uncompressed within 1e-4; int8 with the same noise on both
+    (drawn on the CPU per call) within one level of every θ, Φ and Ψ row it
+    sums, at most 0.1% of a leaf (at least one element) past 1e-5."""
+    from repro_torch import configs
+    from repro_torch.bridge import params_to_jax
+    from repro_torch.core import compression
+    from repro_torch.launch import femnist as launch
+    from repro_torch.models import femnist_cnn
+    from repro_torch.pon import PonConfig
+
+    def cpu_noise(self, call, shapes):
+        g = torch.Generator().manual_seed(2000 + call)
+        return [torch.rand(tuple(s), generator=g).to(self.device) for s in shapes]
+
+    p0 = femnist_cnn.init_params(configs.get("femnist_cnn").reduced(),
+                                 torch.Generator().manual_seed(0), device="cpu")
+    saved = compression.CompressionState.uniform_noise
+    compression.CompressionState.uniform_noise = cpu_noise
+    try:
+        for compress in ("none", "int8"):
+            kw = dict(n_rounds=1, n_selected=128, seed=0, modes=("hier_sfl",), local_steps=1,
+                      pon=PonConfig(**FOREST, **LOADED), params=p0, data=data,
+                      strategy_kwargs={"n_pons": FOREST["n_pons"]}, compress=compress)
+            card = launch.run(**kw, device="cuda")["hier_sfl"]["loop"]
+            with _HierLevels() as levels:
+                cpu = launch.run(**kw, device="cpu")["hier_sfl"]["loop"]
+            check(card.history.column("involved") == cpu.history.column("involved"),
+                  f"forest parity {compress}: involvement differs")
+            a, b = params_to_jax(card.backend.params), params_to_jax(cpu.backend.params)
+            bounds = (levels.bounds(list(a)) if compress == "int8"
+                      else dict.fromkeys(a, 1e-4 - 1e-5))
+            worst, flips = 0.0, 0
+            for k, lvl in bounds.items():
+                diff = np.abs(a[k] - b[k])
+                off = int((diff > 1e-5).sum())
+                check(float(diff.max()) <= lvl + 1e-5
+                      and (compress == "none" or off <= max(1, math.floor(1e-3 * diff.size))),
+                      f"forest parity {compress} {k}: max |diff| {float(diff.max())} vs "
+                      f"{lvl}, {off} elements past 1e-5")
+                worst, flips = max(worst, float(diff.max())), flips + off
+            print(f"transport [forest parity]: hier_sfl {compress}, reduced, H=1, card vs CPU: "
+                  f"involved {card.history.column('involved')} equal, params max |diff| "
+                  f"{worst:.3e} ({'atol 1e-4' if compress == 'none' else 'each within one level'}"
+                  f"), {flips} elements past 1e-5")
+    finally:
+        compression.CompressionState.uniform_noise = saved
+
+
+def _engine_sweep(data) -> None:
+    """The forest's transport alone (no model) under each engine, 3 rounds
+    of each strategy from one seed: fast equals event exactly, hybrid's
+    difference printed; each engine's host ms a round."""
+    from repro_torch import fl
+    from repro_torch.core.fedavg import FLConfig
+    from repro_torch.data import femnist
+    from repro_torch.pon import PonConfig
+    counts = femnist.sample_counts(data[0])
+    onu = np.arange(len(counts)) // FOREST["clients_per_onu"]
+    for mode in ("hier_sfl", "sfl_two_step", "classical"):
+        rows, ms = {}, {}
+        for engine in ("event", "fast", "hybrid"):
+            pon = PonConfig(**FOREST, **LOADED, sim_engine=engine)
+            exp = fl.ExperimentConfig(fl=FLConfig(n_selected=128, pon=pon, **FOREST), seed=0)
+            skw = fl.filter_strategy_kwargs(mode, {"n_pons": FOREST["n_pons"]})
+            loop = fl.RoundLoop(exp, fl.TransportBackend(fl.make_strategy(mode, **skw),
+                                                         counts, onu))
+            with _TransportTap() as tap:
+                loop.run(3)
+            rows[engine] = [(tuple(r.get(k) for k in ROW_COLUMNS if k != "sim_engine")
+                             + tuple(rt[k] for k in RT_COLUMNS)
+                             + (tuple(rt["t_done"]),))
+                            for r, rt in zip(loop.history, tap.rts, strict=True)]
+            ms[engine] = tap.ms
+            check(loop.history.column("sim_engine") == [engine] * 3, f"{engine} stamp")
+        check(rows["fast"] == rows["event"], f"engines [{mode}]: fast differs from event")
+        diff = [sum(a != b for a, b in zip(h, e)) for h, e in zip(rows["hybrid"], rows["event"])]
+        inv = [(h[0], e[0]) for h, e in zip(rows["hybrid"], rows["event"])]
+        print(f"transport [engines] {mode}: fast == event exactly; hybrid differs from event "
+              f"in {diff} of {len(ROW_COLUMNS) + len(RT_COLUMNS)} columns a round (involved "
+              f"hybrid/event {inv}); host ms a round: "
+              + ", ".join(f"{e} {' '.join(f'{t:.2f}' for t in ms[e])}" for e in ms))
+
+
+def _forest_kernels(gen):
+    """agg_reduce, the fused aggregate + quantize, quantize and dequantize at
+    the forest's shapes at the fc1_w leaf: θ (128 rows, 64 segments), Φ (64
+    θ rows, 4 segments, unit weights), Ψ (4 Φ rows, 1 segment); against
+    their plain versions, timed, beside their bounds and ``torch.mm`` by the
+    segment matrix. Returns each kernel's rows by shape."""
+    from repro_torch.kernels import quantize as kq
+    from repro_torch.kernels.agg_reduce import (segment_agg_reduce, segment_agg_reduce_plain,
+                                                segment_agg_reduce_quant,
+                                                segment_agg_reduce_quant_plain)
+    N = N_FC1
+    out = {k: {} for k in ("agg_reduce", "agg_reduce_quant", "quantize_rows",
+                           "dequantize_rows")}
+    rng = np.random.default_rng(16)
+    for tier, C, n_seg in (("θ", 128, 64), ("Φ", 64, 4), ("Ψ", 4, 1)):
+        x = torch.randn((C, N), generator=gen, device="cuda") * 1e-2
+        if tier == "θ":
+            keep = (torch.rand(C, generator=gen, device="cuda") > 0.2).float()
+            wm = (torch.rand(C, generator=gen, device="cuda") * 400 * keep).contiguous()
+            seg = rng.integers(0, n_seg, C)                  # selection order
+        else:
+            wm = torch.ones(C, device="cuda")
+            seg = np.arange(C) // (C // n_seg)               # θ rows by PON, Φ rows
+        what = f"fc1_w, hier {tier} tier C={C} N={N} n_seg={n_seg}"
+        got = segment_agg_reduce(x, wm, seg, n_seg)
+        want = segment_agg_reduce_plain(x, wm, seg, n_seg)
+        abs_sum = segment_agg_reduce_plain(x.abs(), wm.abs(), seg, n_seg)
+        err = float((got - want).abs().max())
+        check(bool(((got - want).abs() <= ATOL + RTOL_OF_ABS_SUM * abs_sum).all()),
+              f"agg_reduce disagrees with its plain version [{what}]: {err}")
+        check(torch.equal(got, segment_agg_reduce(x, wm, seg, n_seg)),
+              f"agg_reduce does not repeat bit for bit [{what}]")
+        del abs_sum, want
+        S = torch.zeros((n_seg, C), device="cuda")
+        S[torch.as_tensor(seg, device="cuda"), torch.arange(C, device="cuda")] = wm
+        out["agg_reduce"][tier] = _report(
+            "agg_reduce", what, err, time_ms(lambda: segment_agg_reduce(x, wm, seg, n_seg)),
+            time_ms(lambda: segment_agg_reduce_plain(x, wm, seg, n_seg)),
+            time_ms(lambda: torch.mm(S, x)), *agg_bound(C, N, n_seg, 4),
+            note=f" (<= {ATOL} + {RTOL_OF_ABS_SUM}·Σ|w·x|; library: torch.mm by the "
+                 f"{n_seg}×{C} segment matrix)")
+        if tier == "θ":
+            u = torch.rand((n_seg, N), generator=gen, device="cuda")
+            q, s = segment_agg_reduce_quant(x, wm, seg, n_seg, u, 8)
+            qp, _ = segment_agg_reduce_quant_plain(x, wm, seg, n_seg, u, 8)
+            s_theta = got.abs().amax(1).clamp_min(1e-12) / 127.0
+            check(torch.equal(s, s_theta)
+                  and torch.equal(q, kq.quantize_rows_plain(got, u, s_theta, 127.0)),
+                  f"fused q differs from the unfused port route [{what}]")
+            lvl = int((q.int() - qp.int()).abs().max())
+            check(lvl <= 1, f"fused q off by {lvl} levels [{what}]")
+            nbytes = C * N * 4 + C * 4 + (2 * C + n_seg + 1) * 4 + n_seg * N * 5 + n_seg * 4
+            out["agg_reduce_quant"][tier] = _report(
+                "agg_reduce_quant", what + " int8", float(lvl),
+                time_ms(lambda: segment_agg_reduce_quant(x, wm, seg, n_seg, u, 8)),
+                time_ms(lambda: segment_agg_reduce_quant_plain(x, wm, seg, n_seg, u, 8)), None,
+                *bound(nbytes, 2 * C * N + 6 * n_seg * N), note=" levels (θ bit for bit)")
+            m = (torch.arange(n_seg, device="cuda") % 7 != 0).float()   # silent ONUs
+            del qp, u
+        else:
+            m = None
+            u = torch.rand(got.shape, generator=gen, device="cuda")
+            s = got.abs().amax(1).clamp_min(1e-12) / 127.0
+            q = kq.quantize_rows(got, u, s, 127.0)
+            check(torch.equal(q, kq.quantize_rows_plain(got, u, s, 127.0)),
+                  f"quantize_rows differs [{what}]")
+            R = got.shape[0]
+            out["quantize_rows"][tier] = _report(
+                "quantize_rows", f"fc1_w, hier {tier} rows R={R} N={N} int8", 0.0,
+                time_ms(lambda: kq.quantize_rows(got, u, s, 127.0)),
+                time_ms(lambda: kq.quantize_rows_plain(got, u, s, 127.0)), None,
+                *bound(R * N * 9 + R * 4, 6 * R * N), note=" (bit for bit)")
+            del u
+        R = q.shape[0]
+        check(torch.equal(kq.dequantize_rows(q, s, m), kq.dequantize_rows_plain(q, s, m)),
+              f"dequantize_rows differs [{tier}]")
+        out["dequantize_rows"][tier] = _report(
+            "dequantize_rows", f"fc1_w, hier {tier} rows R={R} N={N}", 0.0,
+            time_ms(lambda: kq.dequantize_rows(q, s, m)),
+            time_ms(lambda: kq.dequantize_rows_plain(q, s, m)),
+            time_ms(lambda: torch.mul(q, s[:, None])), *bound(R * N * 5 + R * 8, 2 * R * N),
+            note=" (bit for bit; library: torch.mul(q, s))")
+        del x, got, q, S
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_transport():
+    """Phase 16; returns (the kernels' rows at the forest's shapes, the
+    main path's launches by kernel)."""
+    from repro_torch.data import femnist
+    from repro_torch.pon import MODEL_UPDATE_MBITS, PonConfig
+
+    launches = dict.fromkeys(_counters(), 0)
+    t0 = time.perf_counter()
+    paper = femnist.generate(femnist.FemnistConfig(n_clients=320, seed=7))
+    t1 = time.perf_counter()
+    forest = femnist.generate(femnist.FemnistConfig(n_clients=1280, seed=7))
+    print(f"transport: femnist.generate on the host, 320 clients {t1 - t0:.2f} s, 1,280 "
+          f"clients {time.perf_counter() - t1:.2f} s")
+
+    # (a) the paper's PON under the event simulator, then one round a DBA
+    kw = dict(n_rounds=3, n_selected=128, seed=0, pon=PonConfig(**PAPER_PON, **LOADED))
+    modes = ("sfl_two_step", "classical")
+    res, tap, counts = _run_both("paper PON fl_priority", kw, modes, paper)
+    _print_rounds("paper PON fl_priority", res, modes, tap)
+    _check_launches("paper PON fl_priority", counts,
+                    {"agg_reduce": 8 * sum(_trained(res, m) for m in modes)})
+    launches["agg_reduce"] += counts["agg_reduce"]
+    for dba in ("fifo", "tdma", "ipact"):
+        kw = dict(n_rounds=1, n_selected=128, seed=0,
+                  pon=PonConfig(**PAPER_PON, **dict(LOADED, dba=dba)))
+        res, tap, counts = _run_both(f"paper PON {dba}", kw, modes, paper)
+        _print_rounds(f"paper PON {dba}", res, modes, tap)
+        launches["agg_reduce"] += counts["agg_reduce"]
+
+    # (b) the forest: hier_sfl against the flat strategies, then int8 tiers
+    from repro_torch.launch import femnist as launch
+    pon = PonConfig(**FOREST, **LOADED)
+    skw = {"n_pons": FOREST["n_pons"]}
+    modes = ("hier_sfl", "sfl_two_step", "classical")
+    counters = _counters()
+    _zero(counters)
+    with _TransportTap() as tap:
+        t = time.perf_counter()
+        res = launch.run(n_rounds=3, n_selected=128, full=True, seed=0, modes=modes, pon=pon,
+                         device="cuda", data=forest, strategy_kwargs=skw)
+        wall = time.perf_counter() - t
+    counts = {k: fn.launches for k, fn in counters.items()}
+    _print_rounds("forest", res, modes, tap)
+    for i, mode in enumerate(modes):
+        _check_segments("forest", res, mode, tap, 3 * i, MODEL_UPDATE_MBITS)
+    trained = {m: _trained(res, m) for m in modes}
+    print(f"transport [forest]: 4 PONs x 16 ONUs x 20 clients, wall {wall:.2f} s, trained "
+          f"rounds {trained}")
+    _check_launches("forest", counts, {"agg_reduce": 8 * (3 * trained["hier_sfl"]
+                                                          + trained["sfl_two_step"]
+                                                          + trained["classical"])})
+    check(trained["hier_sfl"] > 0, "forest: hier_sfl never trained")
+    for k in launches:
+        launches[k] += counts[k]
+    event_rows = [tuple(r.get(k) for k in ROW_COLUMNS if k != "sim_engine")
+                  for r in res["hier_sfl"]["loop"].history]
+    _zero(counters)
+    with _TransportTap() as tap:
+        res = launch.run(n_rounds=3, n_selected=128, full=True, seed=0, modes=("hier_sfl",),
+                         pon=pon, device="cuda", data=forest, strategy_kwargs=skw,
+                         compress="int8")
+    counts = {k: fn.launches for k, fn in counters.items()}
+    _print_rounds("forest int8", res, ("hier_sfl",), tap)
+    wire = MODEL_UPDATE_MBITS / 4
+    _check_segments("forest int8", res, "hier_sfl", tap, 0, wire)
+    n = _trained(res, "hier_sfl")
+    _check_launches("forest int8", counts, {"agg_reduce_quant": 8 * n, "agg_reduce": 16 * n,
+                                            "quantize_rows": 16 * n, "dequantize_rows": 24 * n})
+    check(n > 0 and all(r["wire_mbits"] == wire for r in res["hier_sfl"]["loop"].history),
+          "forest int8: wire")
+    for k in launches:
+        launches[k] += counts[k]
+    _forest_parity(forest)
+
+    # (c) the engines: the forest's hier_sfl round under fast and hybrid
+    for engine in ("fast", "hybrid"):
+        with _TransportTap() as tap:
+            res = launch.run(n_rounds=3, n_selected=128, full=True, seed=0,
+                             modes=("hier_sfl",), device="cuda", data=forest,
+                             pon=PonConfig(**FOREST, **LOADED, sim_engine=engine),
+                             strategy_kwargs=skw)
+        _print_rounds(f"forest {engine}", res, ("hier_sfl",), tap)
+        rows = [tuple(r.get(k) for k in ROW_COLUMNS if k != "sim_engine")
+                for r in res["hier_sfl"]["loop"].history]
+        check(engine == "hybrid" or rows == event_rows,
+              f"forest {engine}: transport {rows} vs event {event_rows}")
+        print(f"transport [forest {engine}]: hier_sfl transport columns "
+              f"{'equal' if rows == event_rows else 'differ from'} the event engine's")
+    _engine_sweep(forest)
+
+    # (d) the kernels at the forest's shapes
+    rows = _forest_kernels(torch.Generator(device="cuda").manual_seed(16))
+    return rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2323,6 +2784,11 @@ def main() -> int:
     lm_rows, (n_quantize, n_dequantize) = phase(phase_collectives)
     for name, n in (("quantize_rows", n_quantize), ("dequantize_rows", n_dequantize)):
         rows[name]["lm_gradient_leaf"] = dict(lm_rows[name], launches=n)
+        launches[name] += n
+    forest_rows, transport_launches = phase(phase_transport)
+    for name, by_tier in forest_rows.items():
+        rows[name]["forest_shapes"] = by_tier
+    for name, n in transport_launches.items():
         launches[name] += n
     print(f"total {time.perf_counter() - t0:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"

@@ -89,6 +89,47 @@ def compressed_segment_aggregate(client_tree: Tree, weights, mask, onu_ids,
     return agg, thetas, K
 
 
+def hier_aggregate(client_tree: Tree, weights, mask, onu_ids, n_onus: int,
+                   n_pons: int, comp=None):
+    """The k-step hierarchical aggregation over a forest of ``n_pons`` PONs
+    (global ONU ids PON-major, ``n_onus`` in all):
+
+        θ_o = Σ_{j∈o} k·δ  →  Φ_p = Σ_{o∈p} θ_o  →  Ψ = Σ_p Φ_p  →  Ψ / K
+
+    Every tier is the segmented ``agg_reduce``: θ over the clients (or,
+    with an active ``comp``, its fused aggregate + quantize route), Φ over
+    the θ rows with unit weights, Ψ over the Φ rows in one segment. With an
+    active ``comp`` each tier compresses what it sends: θ by its ONU, Φ by
+    its OLT, Ψ by the metro node, one noise call a tier in that order, as
+    the reference's. Returns (aggregated leaves, K, (n_onus,) bool active
+    ONUs, (n_pons,) bool active PONs)."""
+    w, K = _folded(client_tree, weights, mask)
+    onu_act = onu_active(onu_ids, mask, n_onus)
+    pon_of_onu = np.arange(n_onus) // (n_onus // n_pons)
+    pon_act = np.bincount(pon_of_onu, weights=onu_act, minlength=n_pons) > 0
+    compressing = comp is not None and comp.active
+    if compressing:
+        thetas = comp.roundtrip_segments("theta", client_tree, w, onu_ids, n_onus,
+                                         row_mask=onu_act)
+    else:
+        thetas = {k: segment_agg_reduce(x.reshape(x.shape[0], -1), w, onu_ids, n_onus)
+                  .reshape((n_onus,) + tuple(x.shape[1:])) for k, x in client_tree.items()}
+
+    def tier(rows: Tree, seg_ids, n_seg: int) -> Tree:
+        ones = torch.ones(len(seg_ids), dtype=torch.float32, device=w.device)
+        return {k: segment_agg_reduce(x.reshape(x.shape[0], -1), ones, seg_ids, n_seg)
+                .reshape((n_seg,) + tuple(x.shape[1:])) for k, x in rows.items()}
+
+    phis = tier(thetas, pon_of_onu, n_pons)
+    if compressing:
+        phis = comp.roundtrip("phi", phis, row_mask=pon_act)
+    psi = tier(phis, np.zeros(n_pons, np.int64), 1)
+    if compressing:
+        psi = comp.roundtrip("psi", psi)
+    agg = {k: x[0] / K.clamp_min(1e-9) for k, x in psi.items()}
+    return agg, K, onu_act, pon_act
+
+
 def classical_aggregate(client_tree: Tree, weights, mask):
     """FedAvg without the ONU step (benchmark): w_g = Σ k·mask·w / K."""
     weights, mask = _on_device(client_tree, weights, mask)

@@ -30,8 +30,9 @@ Params = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class FLConfig:
-    n_onus: int = 16                # ONUs of the PON tree
+    n_onus: int = 16                # ONUs per PON tree
     clients_per_onu: int = 20
+    n_pons: int = 1                 # PON trees (the metro forest, pon.metro)
     n_selected: int = 48            # N in the paper (48 / 128 in Fig. 2)
     local_steps: int = 5            # H: minibatch SGD steps per round
     local_batch: int = 10           # LEAF defaults
@@ -45,17 +46,30 @@ class FLConfig:
 
     @property
     def n_clients(self) -> int:
-        return self.n_onus * self.clients_per_onu
+        """Total population across the PON forest."""
+        return self.n_pons * self.n_onus * self.clients_per_onu
+
+    @property
+    def total_onus(self) -> int:
+        """ONUs across all PON trees — the segment count for aggregation."""
+        return self.n_pons * self.n_onus
 
     def pon_config(self) -> PonConfig:
+        """The PON transport config: transport knobs (dba, wavelengths,
+        traffic, rates, engine) from ``self.pon``; the topology (n_pons,
+        n_onus, clients_per_onu) and the deadline always from this
+        FLConfig, so the client→ONU map the simulator is handed cannot
+        disagree with the simulated tree."""
         base = self.pon if self.pon is not None else PonConfig()
         return dataclasses.replace(base, n_onus=self.n_onus,
                                    clients_per_onu=self.clients_per_onu,
+                                   n_pons=self.n_pons,
                                    sync_threshold_s=self.sync_threshold_s)
 
 
 def onu_of_client(fl: FLConfig) -> np.ndarray:
-    """Static topology: client c hangs off ONU c // clients_per_onu."""
+    """Static topology: client c hangs off GLOBAL ONU c // clients_per_onu
+    (PON-major numbering — ids run across the whole forest)."""
     return np.arange(fl.n_clients) // fl.clients_per_onu
 
 
@@ -65,7 +79,7 @@ def round_transport(fl: FLConfig, rng: np.random.Generator,
                     mode: str, wire_scale: Optional[float] = None
                     ) -> Dict[str, Any]:
     """One round of the PON transport under ``fl``'s config; ``mode`` is
-    what crosses the upstream ("sfl" | "classical", a Strategy's
+    what crosses the upstream ("sfl" | "classical" | "hier", a Strategy's
     ``transport``). The mask ``apply_round`` expects is ``["involved"]``.
 
     ``wire_scale`` (compressed ÷ raw payload) scales ``model_mbits``: the
@@ -93,6 +107,24 @@ def local_sgd(params: Params, batches: Dict[str, torch.Tensor],
     for t in range(steps):
         g, (loss, _) = step_fn(p, {k: v[t] for k, v in batches.items()})
         p = {k: p[k] - lr * g[k] for k in p}
+        losses.append(loss)
+    return p, torch.stack(losses).mean()
+
+
+def local_sgd_prox(params: Params, batches: Dict[str, torch.Tensor],
+                   loss_fn: Callable, lr: float, steps: int, mu: float,
+                   ref_params: Params):
+    """H steps of proximal SGD (FedProx): grad += mu · (w − w_global).
+
+    ``ref_params`` is the round's global model; the proximal term pulls each
+    local trajectory back toward it (client-drift control):
+    w ← w − lr · (g + mu · (w − w_ref)), as the reference's.
+    """
+    step_fn = grad_and_value(loss_fn, has_aux=True)
+    p, losses = params, []
+    for t in range(steps):
+        g, (loss, _) = step_fn(p, {k: v[t] for k, v in batches.items()})
+        p = {k: p[k] - lr * (g[k] + mu * (p[k] - ref_params[k])) for k in p}
         losses.append(loss)
     return p, torch.stack(losses).mean()
 

@@ -1,6 +1,7 @@
 """RoundLoop backends — port of ``repro.fl.backends``'s
-``ClientStackedBackend`` (the paper regime) and ``GradientBackend`` (the
-LM gradient regime, on one card or data parallel over a mesh).
+``ClientStackedBackend`` (the paper regime), ``GradientBackend`` (the
+LM gradient regime, on one card or data parallel over a mesh) and
+``TransportBackend`` (no model: transport-only sweeps).
 
 A backend owns model state and the learning side of a round; the RoundLoop
 owns selection, failures and PON transport. Contract:
@@ -108,7 +109,7 @@ class ClientStackedBackend:
             local_update=self.strategy.local_update)
         (agg, stats), aggregate_s = timed(
             self.strategy.aggregate, deltas, w, row_mask, self.onu_ids[padded],
-            fl.n_onus, comp=self._comp, client_ids=padded)
+            fl.total_onus, comp=self._comp, client_ids=padded)
         self.params, self.server_state = self.strategy.server_update(
             self.params, agg, self.server_state)
         out = {"uplink_models": float(stats["uplink_models"]),
@@ -201,3 +202,19 @@ class GradientBackend:
             self.train_step, self.params, self.opt_state, batch)
         return {"loss": float(loss), "dt": dt,
                 "grad_norm": float(self.train_step.grad_norm)}
+
+
+class TransportBackend:
+    """Transport only: the RoundLoop records involvement and the upstream,
+    no model is trained (DBA, wavelength and background-load sweeps). The
+    reference's asynchronous seam comes with the runtime (ROADMAP.md Queue
+    1 item 4)."""
+
+    def __init__(self, strategy: Strategy, sample_counts: np.ndarray,
+                 onu_ids: np.ndarray):
+        self.strategy = strategy
+        self.sample_counts = sample_counts
+        self.onu_ids = onu_ids
+
+    def run_round(self, rnd, selected, mask, rt, rng) -> Dict[str, float]:
+        return {}

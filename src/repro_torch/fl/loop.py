@@ -7,10 +7,11 @@ Every synchronous round is the same five stages:
     → backend training + strategy aggregation → eval / History row
 
 The RNG stream is one ``np.random.default_rng(seed)`` consumed in a fixed
-order — selection draw, transport draws for the live clients, then one
-minibatch draw per padded row — exactly the reference's, so the transport
-columns of the History (``involved``, ``upstream_mbits``,
-``uplink_models``) equal the reference's round for round. A crashed
+order — selection draw, transport draws for the live clients (the
+wireless legs, then the background bursts), then one minibatch draw per
+padded row — exactly the reference's, so the transport columns of the
+History (``involved``, ``upstream_mbits``, ``uplink_models`` and a
+forest's per-segment Mbits) equal the reference's round for round. A crashed
 client is removed before transport (never billed upstream); a transient
 failure is billed but masked out of the aggregate.
 """
@@ -93,14 +94,22 @@ def _transport_stage(cfg: ExperimentConfig, backend, failures,
     return sel, mask, rt
 
 
+# the per-segment accounting a forest's transport returns (pon.metro), in
+# the reference's row order; each is recorded whenever the transport has it
+_SEGMENT_KEYS = ("upstream_mbits", "metro_mbits", "trunk_mbits",
+                 "pon_mbits_max", "metro_mbits_max", "n_pons")
+
+
 def sync_round(cfg: ExperimentConfig, backend, failures,
                rng: np.random.Generator, rnd: int) -> Dict[str, Any]:
-    """One synchronous deadline round; returns the History record."""
+    """One synchronous deadline round; returns the History record, whose
+    transport values are the transport's floats, as the reference's."""
     sel, mask, rt = _transport_stage(cfg, backend, failures, rng, rnd)
     metrics = backend.run_round(rnd, sel, mask, rt, rng)
     rec = {"round": rnd, "n_selected": len(sel),
-           "involved": float(mask.sum()),
-           "upstream_mbits": float(rt["upstream_mbits"])}
+           "sim_engine": rt.get("sim_engine", "event"),
+           "involved": float(mask.sum())}
+    rec.update({k: float(rt[k]) for k in _SEGMENT_KEYS if k in rt})
     if "wire_mbits" in rt:
         # the compressed per-model wire size; absent in an uncompressed run
         rec["wire_mbits"] = float(rt["wire_mbits"])

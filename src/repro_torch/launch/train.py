@@ -10,8 +10,10 @@ ranks of a ``torch.distributed`` world.
         --steps 3 --batch 4 --seq 32 --device cpu
 
 Each round selects ``--batch`` clients (one per batch row, with
-``--overselect`` backups), runs the closed-form PON transport and the
-synthetic failures, folds k_ij · mask into the rows' ``client_weight``
+``--overselect`` backups), runs the PON transport (the reference's flags:
+``--dba``, ``--wavelengths``, ``--bg-load``, ``--n-pons`` and the rest of
+``pon.add_pon_cli_args``) and the synthetic failures, folds k_ij · mask
+into the rows' ``client_weight``
 and takes one optimizer step on the card; ``--ckpt`` saves every
 ``--ckpt-every`` steps and at the end, and a run resumes from the latest
 step, replaying the skipped rounds' draws, so a resumed run equals an
@@ -20,9 +22,12 @@ if there is none. Under an initialized process group (``torchrun``
 starts one: gloo on the CPU, NCCL on cards) the mesh is (world, 1)
 ("data", "model"), as the reference's, and the strategy's transport picks
 the gradients' schedule (:func:`build_rules`); rank 0 alone prints and
-checkpoints. ``--compress`` scales the wire the PON transport bills, as in
-the reference's gradient regime. Flags of machinery the port does not have
-yet are refused, naming the ROADMAP.md item that brings it.
+checkpoints. ``--strategy`` takes any registered strategy (``hier_sfl``
+with ``--n-pons`` bills the metro forest's k-step transport) with
+``--fedprox-mu``, ``--server-opt`` and ``--server-lr`` as the reference's.
+``--compress`` scales the wire the PON transport bills, as in the
+reference's gradient regime. Flags of machinery the port does not have yet
+are refused, naming the ROADMAP.md item that brings it.
 """
 from __future__ import annotations
 
@@ -41,14 +46,10 @@ from repro_torch.core.compression import SCHEMES
 from repro_torch.core.fedavg import FLConfig
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models.config import ModelConfig
-from repro_torch.pon import PonConfig
+from repro_torch.pon import PonConfig, add_pon_cli_args, pon_config_from_args
 
 # reference flags the port refuses, with the ROADMAP.md item that ports their machinery
-_REFUSED = {"dba": "Queue 1 item 2 (the event-simulator transport)",
-            "wavelengths": "Queue 1 item 2 (the event-simulator transport)",
-            "bg_load": "Queue 1 item 2 (the event-simulator transport)",
-            "n_pons": "Queue 1 items 2-3 (metro transport, hier_sfl)",
-            "trace_out": "Queue 1 item 5 (repro.obs)",
+_REFUSED = {"trace_out": "Queue 1 item 5 (repro.obs)",
             "metrics_out": "Queue 1 item 5 (repro.obs)"}
 
 
@@ -69,14 +70,21 @@ def run(arch: Union[str, ModelConfig] = "qwen2-0.5b", *, smoke: bool = False, st
         seq: int = 128, lr: float = 3e-4, opt: str = "adamw", micro: int = 1, ckpt: str = "",
         ckpt_every: int = 50, seed: int = 0, log_every: int = 5,
         strategy: str = "sfl_two_step", onus: int = PonConfig.n_onus,
-        clients_per_onu: int = PonConfig.clients_per_onu, overselect: float = 0.0,
-        p_crash: float = 0.0, p_transient: float = 0.0, mean_recovery_rounds: float = 3.0,
-        failure_seed: Optional[int] = None, compress: str = "none",
-        device: str = "cuda") -> Dict[str, Any]:
+        clients_per_onu: int = PonConfig.clients_per_onu, n_pons: int = PonConfig.n_pons,
+        pon: Optional[PonConfig] = None, strategy_kwargs: Optional[dict] = None,
+        overselect: float = 0.0, p_crash: float = 0.0, p_transient: float = 0.0,
+        mean_recovery_rounds: float = 3.0, failure_seed: Optional[int] = None,
+        compress: str = "none", device: str = "cuda") -> Dict[str, Any]:
     """Train ``steps`` rounds (fewer when resuming from ``ckpt``) of ``arch``,
     a config name or a ``ModelConfig`` (a named config cut to size, taken as
     it is: ``smoke`` does not apply). Under an initialized process group
     every rank calls it alike, and rank 0 alone prints and checkpoints.
+
+    The topology is ``n_pons`` trees of ``onus`` ONUs × ``clients_per_onu``
+    clients; ``pon`` gives the transport's other knobs (DBA, wavelengths,
+    background load, engine). ``strategy_kwargs`` (the shared CLI's dict,
+    ``fl.strategy_kwargs_from_args``) are filtered to what ``strategy``
+    takes, with ``compress``.
 
     Returns {"history", "backend" (params, opt_state), "cfg", "start_step"}.
     """
@@ -87,9 +95,12 @@ def run(arch: Union[str, ModelConfig] = "qwen2-0.5b", *, smoke: bool = False, st
         cfg = arch
     else:
         cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
-    flc = FLConfig(n_onus=onus, clients_per_onu=clients_per_onu,
-                   pon=PonConfig(n_onus=onus, clients_per_onu=clients_per_onu))
-    exp = fl.ExperimentConfig(fl=flc, overselect=overselect, p_crash=p_crash,
+    flc = FLConfig(n_onus=onus, clients_per_onu=clients_per_onu, n_pons=n_pons,
+                   pon=pon if pon is not None else PonConfig())
+    name = fl.canonical_name(strategy)
+    skw = fl.filter_strategy_kwargs(name, dict(strategy_kwargs or {}, compress=compress))
+    exp = fl.ExperimentConfig(fl=flc, strategy=name, strategy_kwargs=tuple(sorted(skw.items())),
+                              overselect=overselect, p_crash=p_crash,
                               p_transient=p_transient,
                               mean_recovery_rounds=mean_recovery_rounds,
                               failure_seed=failure_seed, n_rounds=steps, seed=seed)
@@ -98,7 +109,7 @@ def run(arch: Union[str, ModelConfig] = "qwen2-0.5b", *, smoke: bool = False, st
     rng = np.random.default_rng(seed)
     onu_ids = np.arange(flc.n_clients) // flc.clients_per_onu
     sample_counts = rng.integers(50, 400, flc.n_clients).astype(np.float32)
-    strat = fl.make_strategy(strategy, compress=compress)
+    strat = exp.make_strategy()
     mesh = rules = None
     if dist.is_initialized():
         mesh = make_test_mesh((dist.get_world_size(), 1), ("data", "model"), dev.type)
@@ -155,9 +166,9 @@ def main(argv=None):
     ap.add_argument("--driver", default="loop",
                     help="loop (the RoundLoop); runtime is ROADMAP.md Queue 1 item 4")
     ap.add_argument("--strategy", default="sfl_two_step",
-                    help=f"{'|'.join(fl.strategy_names())} (alias: sfl)")
-    ap.add_argument("--onus", type=int, default=PonConfig.n_onus)
-    ap.add_argument("--clients-per-onu", type=int, default=PonConfig.clients_per_onu)
+                    help=f"{'|'.join(fl.strategy_names())} (aliases: sfl, hier)")
+    add_pon_cli_args(ap)
+    fl.add_strategy_cli_args(ap)
     ap.add_argument("--overselect", type=float, default=0.0,
                     help="extra backup clients per round, fraction of N")
     ap.add_argument("--p-crash", type=float, default=0.0)
@@ -189,7 +200,8 @@ def main(argv=None):
             lr=args.lr, opt=args.opt, micro=args.micro, ckpt=args.ckpt,
             ckpt_every=args.ckpt_every, seed=args.seed, log_every=args.log_every,
             strategy=args.strategy, onus=args.onus, clients_per_onu=args.clients_per_onu,
-            overselect=args.overselect, p_crash=args.p_crash, p_transient=args.p_transient,
+            n_pons=args.n_pons, pon=pon_config_from_args(args),
+            strategy_kwargs=fl.strategy_kwargs_from_args(args), overselect=args.overselect, p_crash=args.p_crash, p_transient=args.p_transient,
             mean_recovery_rounds=args.mean_recovery_rounds, failure_seed=args.failure_seed,
             compress=args.compress, device=args.device)
     finally:

@@ -1,24 +1,28 @@
-"""PON round-timing model — the paper's fixed-slice FIFO upstream.
+"""PON round-timing model — port of ``repro.pon.timing``.
 
-Port of the closed form in ``repro.pon.timing`` (``round_times_fifo``).
 One-round synchronization time for client (i,j):
     T_ij = T^d + T^r_ij + T^w_ij + T^u_ij
 with the paper's constants: T^d = 2 s broadcast, T^r ∈ [3, 20] s
-proportional to |D_ij|, T^w ~ U[1, 5] s wireless, and the model crossing a
-reserved 100 Mb/s upstream slice; a client done after the 25 s deadline is
-a straggler, excluded from aggregation.
+proportional to |D_ij|, T^w ~ U[1, 5] s wireless, and the model crossing
+the PON upstream; a client done after the 25 s deadline is a straggler,
+excluded from aggregation.
 
-Under the paper defaults (one wavelength, FIFO grants, no background load,
-one PON) the reference's event simulator is bit for bit this closed form
-and consumes the same RNG draws; ``tests/test_torch_transport.py`` pins
-the port against it. The event simulator's DBA policies, wavelengths,
-background traffic and metro tier come with a later slice, so this
-``PonConfig`` holds only the fields the closed form reads.
+The model update is 26.416 MBytes (211.3 Mbit, 2.113 s per model on the
+reserved 100 Mb/s slice; DESIGN.md §8's unit correction). With
+``sfl_queueing=False`` (the paper-consistent default) each ONU's θ sees a
+contention-free slice; ``True`` queues the θs through the DBA.
+
+:func:`round_times` is the event simulator (``pon.events``), whose
+``PonConfig`` knobs pick the DBA policy, the TWDM wavelengths, the
+background load, the metro forest and the engine; :func:`round_times_fifo`
+is the closed form it equals bit for bit under the defaults (one
+wavelength, FIFO grants, no background load, one PON). A numpy module,
+like the reference's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -40,15 +44,125 @@ class PonConfig:
     sync_threshold_s: float = SYNC_THRESHOLD_S
     downlink_s: float = DOWNLINK_S  # repro: noqa(REPRO501) paper constant T^d
     onu_agg_s: float = ONU_AGG_S    # repro: noqa(REPRO501) paper constant
-    sfl_queueing: bool = False      # True = θ uploads queue FIFO on the slice
+    sfl_queueing: bool = False      # True = θ uploads queue through the DBA
+    # --- event-simulator knobs (events.py); the defaults reproduce the
+    # paper's fixed-slice FIFO model bit for bit ---
+    n_wavelengths: int = 1          # TWDM upstream wavelengths
+    dba: str = "fifo"               # grant policy (see pon/dba.py)
+    background_load: float = 0.0    # offered bg load ÷ total capacity
+    bg_burst_mbits: float = 5.0     # mean background burst size
+    onu_link_mbps: Optional[float] = None   # per-ONU drop-link cap
+    # --- multi-PON hierarchy (pon/metro.py). n_pons == 1 is the single-OLT
+    # paper setting: the metro tier exists only for n_pons >= 2 ---
+    n_pons: int = 1                 # PON trees feeding the metro node
+    metro_rate_mbps: float = 1000.0  # OLT→metro shared-segment channel rate
+    metro_latency_ms: float = 0.5   # per-hop metro propagation latency
+    metro_wavelengths: int = 1      # channels on the OLT→metro segment
+    # --- simulator engine (pon/fast/). "event" is the exact heap
+    # simulator; "fast" vectorizes the schedules it can compute exactly and
+    # falls back to the event sim otherwise; "hybrid" also serves
+    # unpackable uncongested PONs with the closed-form fluid model (ipact
+    # always stays exact) ---
+    sim_engine: str = "event"       # event | fast | hybrid
+    fluid_threshold: float = 0.8    # hybrid: offered ÷ capacity·deadline
+                                    # above this flags a PON congested
 
     @property
     def n_clients(self) -> int:
-        return self.n_onus * self.clients_per_onu
+        """Total client population (across all PON trees)."""
+        return self.n_pons * self.n_onus * self.clients_per_onu
+
+    @property
+    def total_onus(self) -> int:
+        return self.n_pons * self.n_onus
 
     @property
     def upload_s(self) -> float:
         return self.model_mbits / self.slice_mbps
+
+    @property
+    def metro_upload_s(self) -> float:
+        """One model crossing an OLT→metro channel."""
+        return self.model_mbits / self.metro_rate_mbps
+
+    @property
+    def metro_latency_s(self) -> float:
+        return self.metro_latency_ms / 1e3
+
+
+def add_pon_cli_args(ap) -> None:
+    """Attach the event-simulator transport flags to an argparse parser
+    (the reference's flag set and defaults, read off PonConfig)."""
+    d = PonConfig()
+    ap.add_argument("--dba", default=d.dba,
+                    help="grant scheduler: fifo|tdma|ipact|fl_priority")
+    ap.add_argument("--wavelengths", type=int, default=d.n_wavelengths,
+                    help="TWDM upstream wavelength count")
+    ap.add_argument("--bg-load", type=float, default=d.background_load,
+                    help="background upstream load ÷ total PON capacity")
+    ap.add_argument("--onus", type=int, default=d.n_onus)
+    ap.add_argument("--clients-per-onu", type=int, default=d.clients_per_onu)
+    ap.add_argument("--sfl-queueing", action="store_true",
+                    help="θ uploads queue through the DBA (strict)")
+    ap.add_argument("--slice-mbps", type=float, default=d.slice_mbps,
+                    help="reserved FL upstream slice rate (paper: 100)")
+    ap.add_argument("--model-mbits", type=float, default=d.model_mbits,
+                    help="model-update size on the wire in Mbits (paper "
+                         "CNN: 26.416 MBytes = 211.3 Mbit, DESIGN.md §8)")
+    ap.add_argument("--deadline-s", type=float, default=d.sync_threshold_s,
+                    help="round sync deadline; later arrivals straggle "
+                         "(paper: 25 s)")
+    ap.add_argument("--bg-burst-mbits", type=float, default=d.bg_burst_mbits,
+                    help="mean background-traffic burst size")
+    ap.add_argument("--onu-link-mbps", type=float, default=d.onu_link_mbps,
+                    help="per-ONU drop-link cap (default: uncapped)")
+    ap.add_argument("--metro-wavelengths", type=int,
+                    default=d.metro_wavelengths,
+                    help="channels on the OLT→metro segment")
+    ap.add_argument("--n-pons", type=int, default=d.n_pons,
+                    help="PON trees feeding the metro node (1: single-OLT "
+                         "paper setting, no metro tier)")
+    ap.add_argument("--metro-rate-mbps", type=float, default=d.metro_rate_mbps,
+                    help="OLT→metro shared-segment channel rate")
+    ap.add_argument("--metro-latency-ms", type=float,
+                    default=d.metro_latency_ms,
+                    help="per-hop metro propagation latency")
+    ap.add_argument("--sim-engine", default=d.sim_engine,
+                    choices=("event", "fast", "hybrid"),
+                    help="upstream simulator: event (exact heap), fast "
+                         "(vectorized, exact-or-event-fallback), hybrid "
+                         "(fluid model on uncongested PONs)")
+    ap.add_argument("--fluid-threshold", type=float,
+                    default=d.fluid_threshold,
+                    help="hybrid engine: offered/capacity ratio above which "
+                         "a PON is flagged congested and routed to the "
+                         "exact event sim")
+
+
+def pon_config_from_args(args) -> PonConfig:
+    """Build the PonConfig selected by ``add_pon_cli_args`` flags."""
+    d = PonConfig()
+    return PonConfig(n_onus=args.onus, clients_per_onu=args.clients_per_onu,
+                     dba=args.dba, n_wavelengths=args.wavelengths,
+                     background_load=args.bg_load,
+                     sfl_queueing=args.sfl_queueing,
+                     n_pons=args.n_pons,
+                     metro_rate_mbps=args.metro_rate_mbps,
+                     metro_latency_ms=args.metro_latency_ms,
+                     sim_engine=args.sim_engine,
+                     fluid_threshold=args.fluid_threshold,
+                     # physical-layer axes (getattr: parsers built without
+                     # these flags keep working)
+                     slice_mbps=getattr(args, "slice_mbps", d.slice_mbps),
+                     model_mbits=getattr(args, "model_mbits", d.model_mbits),
+                     sync_threshold_s=getattr(args, "deadline_s",
+                                              d.sync_threshold_s),
+                     bg_burst_mbits=getattr(args, "bg_burst_mbits",
+                                            d.bg_burst_mbits),
+                     onu_link_mbps=getattr(args, "onu_link_mbps",
+                                           d.onu_link_mbps),
+                     metro_wavelengths=getattr(args, "metro_wavelengths",
+                                               d.metro_wavelengths))
 
 
 def train_times(sample_counts: np.ndarray) -> np.ndarray:
@@ -64,8 +178,23 @@ def round_times(cfg: PonConfig, rng: np.random.Generator,
                 sample_counts: np.ndarray, mode: str) -> Dict[str, np.ndarray]:
     """Simulate one round; returns per-selected-client completion/involvement.
 
+    The event-driven simulator (``pon.events.simulate_round``): ``cfg``
+    picks the DBA policy, wavelengths, background load, the forest and the
+    engine. Under the defaults it is bit for bit :func:`round_times_fifo`.
+    """
+    from repro_torch.pon import events
+    return events.simulate_round(cfg, rng, selected, onu_ids, sample_counts,
+                                 mode)
+
+
+def round_times_fifo(cfg: PonConfig, rng: np.random.Generator,
+                     selected: np.ndarray, onu_ids: np.ndarray,
+                     sample_counts: np.ndarray, mode: str,
+                     ) -> Dict[str, np.ndarray]:
+    """Closed-form FIFO oracle (the paper's fixed 100 Mb/s slice model).
+
     mode='classical': every selected client's full model crosses the shared
-    upstream slice, serialized FIFO in arrival order.
+    upstream slice, serialized FIFO in arrival (DBA grant) order.
     mode='sfl': clients cross only the wireless leg; each active ONU sends
     one θ upstream.
     """
@@ -84,7 +213,7 @@ def round_times(cfg: PonConfig, rng: np.random.Generator,
             t_done[idx] = t
         involved = t_done <= cfg.sync_threshold_s
         upstream_mbits = float(n) * cfg.model_mbits
-    elif mode == "sfl":
+    else:
         onus = onu_ids[selected]
         cutoff = cfg.sync_threshold_s - up - cfg.onu_agg_s
         in_time = ready <= cutoff
@@ -107,8 +236,6 @@ def round_times(cfg: PonConfig, rng: np.random.Generator,
         involved = t_done <= cfg.sync_threshold_s
         # only ONUs that actually transmit a θ consume upstream
         upstream_mbits = float(len(active)) * cfg.model_mbits
-    else:
-        raise ValueError(f"unknown transport {mode!r}; expected 'sfl' or 'classical'")
 
     return {
         "ready": ready,

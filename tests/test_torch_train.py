@@ -453,12 +453,45 @@ def test_train_resume_equals_an_uninterrupted_run(tmp_path, capsys):
 
 
 def test_train_cli_refuses_unported_flags(capsys):
-    for flag, value, item in (("--dba", "fl_priority", "item 2"), ("--bg-load", "0.5", "item 2"),
-                              ("--trace-out", "t.json", "item 5"),
+    for flag, value, item in (("--trace-out", "t.json", "item 5"),
+                              ("--metrics-out", "m.jsonl", "item 5"),
                               ("--driver", "runtime", "item 4")):
         with pytest.raises(SystemExit):
             train.main(["--smoke", "--device", "cpu", flag, value])
         assert f"ROADMAP.md Queue 1 {item}" in capsys.readouterr().err, flag
+
+
+def test_train_cli_bills_the_reference_driver_s_forest(jx, monkeypatch):
+    """``--dba fl_priority --bg-load 0.5 --n-pons 2 --strategy hier_sfl``:
+    every round's transport columns (the forest's per-segment Mbits
+    included) equal those the reference's driver bills — its
+    ExperimentConfig from the same flags, N = --batch, its sample counts —
+    over a backend that trains nothing (the gradient regime's rounds draw
+    nothing from the loop's RNG)."""
+    import argparse
+    flags = ["--dba", "fl_priority", "--bg-load", "0.5", "--n-pons", "2", "--strategy",
+             "hier_sfl", "--onus", "4", "--clients-per-onu", "5", "--wavelengths", "2"]
+    real_run, out = train.run, {}
+    monkeypatch.setattr(train, "run", lambda *a, **k: out.setdefault("res", real_run(*a, **k)))
+    train.main(["--smoke", "--steps", "3", "--batch", "4", "--seq", "8", "--device", "cpu",
+                "--opt", "sgd", "--log-every", "1"] + flags)
+    ap = argparse.ArgumentParser()
+    jx.fl.add_experiment_cli_args(ap)
+    jexp = jx.fl.experiment_config_from_args(ap.parse_known_args(flags)[0]).with_fl(
+        n_selected=4)
+    n = jexp.fl.n_clients
+    backend = types.SimpleNamespace(
+        strategy=jexp.make_strategy(), onu_ids=np.arange(n) // 5, run_round=lambda *a: {},
+        sample_counts=np.random.default_rng(0).integers(50, 400, n).astype(np.float32))
+    jloop = jx.fl.RoundLoop(jexp, backend)
+    jloop.run(3)
+    assert backend.strategy.transport == "hier" and n == 40
+    keys = ("round", "n_selected", "sim_engine", "involved", "upstream_mbits", "metro_mbits",
+            "trunk_mbits", "pon_mbits_max", "metro_mbits_max", "n_pons")
+    for r, j in zip(out["res"]["history"], jloop.history, strict=True):
+        for key in keys:
+            assert r[key] == j[key], (key, r[key], j[key])
+    assert out["res"]["backend"].strategy == fl.HierSfl(n_pons=2)
 
 
 @pytest.mark.parametrize("scheme", ["int8", "topk"])
