@@ -194,9 +194,39 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              too). ``femnist.generate`` of 320 and 1,280 clients is timed
              on the host and each population made once.
 
-Phases 4, 7, 10, 10b, 13, 15 and 16 are the main paths (the FEMNIST round
+17. runtime — the event-driven runtime (``runtime.Orchestrator``) through
+             ``launch.femnist_async.run`` at full width (the FEMNIST CNN,
+             H = 8, batch 10, lr 0.06, seed 0, N = 128): (a) 3 rounds of
+             phase 4's setting through the sync policy and through the
+             RoundLoop (twice: whether the card repeats itself bit for bit
+             is printed; if it does, every column but the host-time keys
+             and the parameters equal, else the transport columns equal and
+             the rest within twice the two loops' spread); t_s 25 s a
+             round. (b) The paper PON under fl_priority, 2 wavelengths, load
+             0.3: semi_sync 3 windows of sfl_two_step and classical; fedbuff
+             (buffer 8, N in flight) to 10 updates of sfl_two_step, fedopt
+             (yogi) and sfl_two_step int8; fedbuff hier_sfl over phase 16's
+             forest. (c) Each run's transport columns and upstream total
+             equal a run of the same config on the CPU at reduced width.
+             (d) Launches against the routing table: 8 agg_reduce an update
+             with an arrival (24 under hier_sfl; int8 the fused route and
+             dequantize_rows). (e) fedbuff to 3 updates at reduced width,
+             H = 1, card vs CPU, uncompressed and int8 with the same noise:
+             parameters within 1e-4. (f) fedbuff under the fluid engine
+             (``sim_engine="fast"``), card = CPU, beside the event engine's.
+             (g) ``launch.train.run`` with the runtime driver against the
+             loop driver: qwen2-0.5b at full width, batch 8 × 2048, adamw, 2
+             steps, transport columns equal and losses within 1e-2
+             relative. (h) ms a dispatch and an ``apply_updates`` (host
+             clock, card synchronised), the simulator's host ms an update,
+             simulated against wall seconds, peak memory; agg_reduce at fc1_w
+             for 8 rows into 16, 64 and 1 segments beside its bound,
+             ``torch.mm`` by the segment matrix and its plain version.
+
+Phases 4, 7, 10, 10b, 13, 15, 16 and 17 are the main paths (the FEMNIST round
 uncompressed and compressed, LM serving, LM training, the LM gradient
-exchange, the event-simulator transport and hier_sfl). The last lines are the
+exchange, the event-simulator transport and hier_sfl, the event-driven
+runtime). The last lines are the
 ``kernels`` JSON object and then ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 
@@ -207,6 +237,7 @@ run if they miss a launch of the port's kernels.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -2645,16 +2676,10 @@ def _forest_kernels(gen):
 def phase_transport():
     """Phase 16; returns (the kernels' rows at the forest's shapes, the
     main path's launches by kernel)."""
-    from repro_torch.data import femnist
     from repro_torch.pon import MODEL_UPDATE_MBITS, PonConfig
 
     launches = dict.fromkeys(_counters(), 0)
-    t0 = time.perf_counter()
-    paper = femnist.generate(femnist.FemnistConfig(n_clients=320, seed=7))
-    t1 = time.perf_counter()
-    forest = femnist.generate(femnist.FemnistConfig(n_clients=1280, seed=7))
-    print(f"transport: femnist.generate on the host, 320 clients {t1 - t0:.2f} s, 1,280 "
-          f"clients {time.perf_counter() - t1:.2f} s")
+    paper, forest = _population(320), _population(1280)
 
     # (a) the paper's PON under the event simulator, then one round a DBA
     kw = dict(n_rounds=3, n_selected=128, seed=0, pon=PonConfig(**PAPER_PON, **LOADED))
@@ -2737,6 +2762,346 @@ def phase_transport():
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the event-driven runtime
+# ---------------------------------------------------------------------------
+
+# the columns of a runtime row held card = CPU, and its host-time keys
+RUNTIME_COLUMNS = ("t_s", "version", "involved", "upstream_mbits", "metro_mbits",
+                   "staleness_mean", "staleness_max", "in_flight", "n_selected", "wire_mbits")
+HOST_KEYS = ("wall_s", "dispatch_s", "train_s", "aggregate_s")
+_POPULATIONS: dict = {}
+
+
+def _population(n_clients: int):
+    """``femnist.generate`` of ``n_clients`` at seed 7, made once a process
+    (1,280 clients take seconds on the host)."""
+    from repro_torch.data import femnist
+    if n_clients not in _POPULATIONS:
+        t = time.perf_counter()
+        _POPULATIONS[n_clients] = femnist.generate(
+            femnist.FemnistConfig(n_clients=n_clients, seed=7))
+        print(f"femnist.generate of {n_clients} clients on the host: "
+              f"{time.perf_counter() - t:.2f} s")
+    return _POPULATIONS[n_clients]
+
+
+def _runtime_exp(policy, mode, pon_kw, skw=None, compress="none", local_steps=8, **pon_extra):
+    """The paper's FL setting (N = 128, batch 10, lr 0.06, seed 0) under
+    ``policy`` (fedbuff: buffer_k 8, concurrency 0 = N)."""
+    from repro_torch import fl
+    from repro_torch.core.fedavg import FLConfig
+    from repro_torch.pon import PonConfig
+    skw = dict(skw or {}, **({"compress": compress} if compress != "none" else {}))
+    topo = {k: pon_kw[k] for k in ("n_onus", "clients_per_onu", "n_pons") if k in pon_kw}
+    flc = FLConfig(n_selected=128, local_steps=local_steps, local_lr=0.06,
+                   pon=PonConfig(**pon_kw, **pon_extra), **topo)
+    return fl.ExperimentConfig(fl=flc, strategy=mode, strategy_kwargs=tuple(sorted(skw.items())),
+                               policy=policy, buffer_k=8, concurrency=0, seed=0)
+
+
+class _SeamTap:
+    """While active, counts and times (host clock, card synchronised) every
+    ``client_update`` and ``apply_updates`` of the client-stacked backend."""
+
+    def __enter__(self):
+        from repro_torch.device import timed
+        from repro_torch.fl.backends import ClientStackedBackend as B
+        self.cls, self.saved = B, (B.client_update, B.apply_updates)
+        self.dispatch_ms, self.apply_ms = [], []
+        cu, au = self.saved
+
+        def client_update(backend, *a):
+            out, dt = timed(cu, backend, *a)
+            self.dispatch_ms.append(1e3 * dt)
+            return out
+
+        def apply_updates(backend, *a):
+            out, dt = timed(au, backend, *a)
+            self.apply_ms.append(1e3 * dt)
+            return out
+
+        B.client_update, B.apply_updates = client_update, apply_updates
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.client_update, self.cls.apply_updates = self.saved
+
+
+def _runtime_columns(hist):
+    return [tuple(r.get(k) for k in RUNTIME_COLUMNS) for r in hist]
+
+
+def _runtime_run(label, exp, n_updates, data, per_update, full=True):
+    """femnist_async.run on the card at full width: launches against the
+    routing table (``per_update`` launches for each update with an
+    arrival), the times, every value finite; then the same experiment on
+    the CPU at reduced width, its transport columns and upstream total held
+    equal. Returns (history, orchestrator, launches)."""
+    from repro_torch.launch import femnist_async
+    counters = _counters()
+    _zero(counters)
+    gc.collect()                # the last run's orchestrator (a cycle) and its deltas
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with _SeamTap() as tap:
+        t0 = time.perf_counter()
+        hist, orch = femnist_async.run(exp, full=full, n_updates=n_updates, data=data,
+                                       device="cuda")
+        wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    updated = sum(1 for r in hist if r["involved"] > 0)
+    want = {k: per_update.get(k, 0) * updated for k in counters}
+    rows = list(hist)
+    sim_ms = [1e3 * (r["wall_s"] - r["dispatch_s"]) - a for r, a in zip(rows, tap.apply_ms)]
+    for r, sim in zip(rows, sim_ms):
+        print(f"runtime [{label}] update {r['round']}: t_s {r['t_s']:.3f} version "
+              f"{r['version']} involved {r['involved']:.0f} in_flight {r.get('in_flight')} "
+              f"upstream_mbits {r['upstream_mbits']:.3f}"
+              + (f" metro_mbits {r['metro_mbits']:.3f}" if "metro_mbits" in r else "")
+              + f" staleness {r['staleness_mean']:.3f}/{r['staleness_max']:.0f} acc "
+              f"{r.get('acc', 0.0):.4f} wall_s {r['wall_s']:.3f} dispatch_s "
+              f"{r['dispatch_s']:.3f} aggregate_s {r.get('aggregate_s', 0.0):.4f} "
+              f"simulator host ms {sim:.2f}")
+        if r["involved"] > 0:
+            check(math.isfinite(r["eval_loss"]) and 0.0 <= r["acc"] <= 1.0,
+                  f"runtime [{label}] update {r['round']}: eval {r.get('eval_loss')}")
+    check(all(bool(torch.isfinite(v).all()) for v in orch.backend.params.values()),
+          f"runtime [{label}]: params not finite")
+    n_disp = len(tap.dispatch_ms)
+    print(f"runtime [{label}]: {len(rows)} rows, {updated} updates with arrivals, {n_disp} "
+          f"dispatches, ms a dispatch median {statistics.median(tap.dispatch_ms):.2f} (min "
+          f"{min(tap.dispatch_ms):.2f}, max {max(tap.dispatch_ms):.2f}), apply_updates ms "
+          f"median {statistics.median(tap.apply_ms):.2f}, simulator host ms an update median "
+          f"{statistics.median(sim_ms):.2f}; simulated {rows[-1]['t_s']:.1f} s in {wall:.2f} "
+          f"s of wall; peak device memory {peak:.2f} GiB; upstream total "
+          f"{orch.total_upstream_mbits:.3f} Mb")
+    print(f"runtime [{label}]: launches {counts} (routing table: {want})")
+    check(updated > 0 and counts == want, f"runtime [{label}]: launches {counts}, want {want}")
+    cpu_hist, cpu_orch = femnist_async.run(exp, full=False, n_updates=n_updates, data=data,
+                                           device="cpu")
+    got, ref = _runtime_columns(hist), _runtime_columns(cpu_hist)
+    check(got == ref and orch.total_upstream_mbits == cpu_orch.total_upstream_mbits,
+          f"runtime [{label}]: card {got} vs CPU {ref}; totals {orch.total_upstream_mbits} vs "
+          f"{cpu_orch.total_upstream_mbits}")
+    print(f"runtime [{label}]: card full width vs CPU reduced width: transport columns equal "
+          f"({len(got)} rows), upstream totals equal")
+    return hist, orch, counts
+
+
+def _sync_vs_loop(data) -> None:
+    """(a) 3 rounds of phase 4's setting through the RoundLoop twice and the
+    sync policy once, on the card."""
+    from repro_torch.launch import femnist as launch
+    from repro_torch.launch import femnist_async
+    from repro_torch.pon import PonConfig
+    kw = dict(n_rounds=3, n_selected=128, full=True, seed=0, modes=("sfl_two_step",),
+              pon=PonConfig(**PAPER_PON), device="cuda", data=data)
+    a, b = (launch.run(**kw)["sfl_two_step"]["loop"] for _ in range(2))
+    hist, orch = femnist_async.run(_runtime_exp("sync", "sfl_two_step", PAPER_PON), full=True,
+                                   n_updates=3, data=data, device="cuda")
+
+    def rows(h, drop=()):
+        return [{k: v for k, v in r.items() if k not in HOST_KEYS + drop} for r in h]
+    same = rows(a.history) == rows(b.history) and all(
+        torch.equal(a.backend.params[k], b.backend.params[k]) for k in a.backend.params)
+    print(f"runtime [sync]: the RoundLoop repeats itself bit for bit on the card: {same}")
+    got = rows(hist, ("t_s", "policy", "version"))
+    check(hist.column("t_s") == [25.0 * (i + 1) for i in range(3)],
+          f"runtime [sync]: t_s {hist.column('t_s')}")
+    if same:
+        check(got == rows(a.history) and all(
+            torch.equal(orch.backend.params[k], a.backend.params[k]) for k in a.backend.params),
+              "runtime [sync]: the sync policy differs from the RoundLoop")
+        print("runtime [sync]: 3 rounds, every column but the host-time keys and the "
+              "parameters equal the RoundLoop's bit for bit")
+        return
+    transport = ("round", "n_selected", "sim_engine", "involved", "upstream_mbits",
+                 "uplink_models")
+    for g, r in zip(got, rows(a.history), strict=True):
+        check({k: g[k] for k in transport} == {k: r[k] for k in transport},
+              f"runtime [sync]: transport {g} vs {r}")
+    for key in ("acc", "eval_loss"):
+        spread = max(abs(x - y) for x, y in zip(a.history.column(key), b.history.column(key)))
+        off = max(abs(x - y) for x, y in zip(hist.column(key), a.history.column(key)))
+        print(f"runtime [sync]: {key} |sync − loop| {off:.3e}, spread of two loops {spread:.3e}")
+        check(off <= 2 * spread, f"runtime [sync]: {key} off {off} vs spread {spread}")
+    spread = max(float((a.backend.params[k] - b.backend.params[k]).abs().max())
+                 for k in a.backend.params)
+    off = max(float((orch.backend.params[k] - a.backend.params[k]).abs().max())
+              for k in a.backend.params)
+    print(f"runtime [sync]: params |sync − loop| {off:.3e}, spread of two loops {spread:.3e}")
+    check(off <= 2 * spread, f"runtime [sync]: params off {off} vs spread {spread}")
+
+
+def _runtime_parity() -> None:
+    """(e) fedbuff to 3 updates at reduced width, H = 1, card against CPU:
+    sfl_two_step, and int8 with the same noise on both (drawn on the CPU per
+    call): parameters within 1e-4."""
+    from repro_torch import configs
+    from repro_torch.core import compression
+    from repro_torch.launch import femnist_async
+    from repro_torch.models import femnist_cnn
+
+    def cpu_noise(self, call, shapes):
+        g = torch.Generator().manual_seed(3000 + call)
+        return [torch.rand(tuple(s), generator=g).to(self.device) for s in shapes]
+
+    p0 = femnist_cnn.init_params(configs.get("femnist_cnn").reduced(),
+                                 torch.Generator().manual_seed(0), device="cpu")
+    saved = compression.CompressionState.uniform_noise
+    compression.CompressionState.uniform_noise = cpu_noise
+    try:
+        for compress in ("none", "int8"):
+            exp = _runtime_exp("fedbuff", "sfl_two_step", dict(**PAPER_PON, **LOADED),
+                               compress=compress, local_steps=1)
+            out = [femnist_async.run(exp, n_updates=3, params=p0, device=dev,
+                                     data=_population(320))
+                   for dev in ("cuda", "cpu")]
+            (h, o), (hc, oc) = out
+            check(_runtime_columns(h) == _runtime_columns(hc),
+                  f"runtime parity {compress}: transport columns differ")
+            diffs = [(o.backend.params[k].cpu() - oc.backend.params[k]).abs() for k in p0]
+            worst = max(float(d.max()) for d in diffs)
+            off = sum(int((d > 1e-5).sum()) for d in diffs)
+            print(f"runtime [parity]: fedbuff sfl_two_step {compress}, reduced, H=1, 3 updates, "
+                  f"card vs CPU: params max |diff| {worst:.3e} (held to 1e-4), {off} of "
+                  f"{sum(d.numel() for d in diffs)} elements past 1e-5")
+            check(worst <= 1e-4, f"runtime parity {compress}: params differ by {worst}")
+    finally:
+        compression.CompressionState.uniform_noise = saved
+
+
+def _runtime_lm() -> dict:
+    """(g) launch.train.run with the runtime driver against the loop driver:
+    qwen2-0.5b at full width, batch 8 × 2048, adamw, 2 steps. Returns the
+    runtime run's launches by kernel."""
+    from repro_torch.launch import train
+    res, counts = {}, {}
+    for driver in ("loop", "runtime"):
+        for fn in _lm_counters().values():
+            _zero_launches(fn)
+        torch.cuda.empty_cache()
+        res[driver] = train.run("qwen2-0.5b", steps=2, opt="adamw", seed=0, log_every=1,
+                                device="cuda", driver=driver, **TRAIN)
+        counts[driver] = _train_counts()
+        want = _train_routing(res[driver]["cfg"], 2, 1)
+        check(counts[driver] == want, f"runtime [lm {driver}]: launches {counts[driver]}, "
+                                      f"want {want}")
+    keys = ("round", "n_selected", "sim_engine", "involved", "upstream_mbits")
+    for r, lp in zip(res["runtime"]["history"], res["loop"]["history"], strict=True):
+        rel = abs(r["loss"] - lp["loss"]) / abs(lp["loss"])
+        print(f"runtime [lm]: step {r['round']} t_s {r['t_s']} loss {r['loss']:.6f}, loop "
+              f"{lp['loss']:.6f} (rel {rel:.2e}, held to 1e-2); dt {r['dt']:.3f} s, loop "
+              f"{lp['dt']:.3f} s")
+        check({k: r[k] for k in keys} == {k: lp[k] for k in keys} and rel <= 1e-2
+              and math.isfinite(r["grad_norm"]), f"runtime [lm]: step {r['round']} differs")
+    del res
+    torch.cuda.empty_cache()
+    return {"flash_attention": counts["runtime"]["flash_attention"]["launches"],
+            "flash_attention_bwd": counts["runtime"]["flash_attention"]["launches_bwd"]}
+
+
+def _runtime_kernels(gen):
+    """(h) agg_reduce at fc1_w at the runtime's shapes: 8 rows (a fedbuff
+    buffer) into 16 ONU segments, 64 (the forest) and one (classical)."""
+    from repro_torch.kernels.agg_reduce import segment_agg_reduce, segment_agg_reduce_plain
+    N, C, out = N_FC1, 8, {}
+    rng = np.random.default_rng(17)
+    x = torch.randn((C, N), generator=gen, device="cuda") * 1e-2
+    wm = (torch.rand(C, generator=gen, device="cuda") * 400).contiguous()
+    for n_seg in (16, 64, 1):
+        seg = rng.integers(0, n_seg, C)
+        what = f"fc1_w, runtime buffer C={C} N={N} n_seg={n_seg}"
+        got = segment_agg_reduce(x, wm, seg, n_seg)
+        want = segment_agg_reduce_plain(x, wm, seg, n_seg)
+        abs_sum = segment_agg_reduce_plain(x.abs(), wm.abs(), seg, n_seg)
+        err = float((got - want).abs().max())
+        check(bool(((got - want).abs() <= ATOL + RTOL_OF_ABS_SUM * abs_sum).all()),
+              f"agg_reduce disagrees with its plain version [{what}]: {err}")
+        check(torch.equal(got, segment_agg_reduce(x, wm, seg, n_seg)),
+              f"agg_reduce does not repeat bit for bit [{what}]")
+        S = torch.zeros((n_seg, C), device="cuda")
+        S[torch.as_tensor(seg, device="cuda"), torch.arange(C, device="cuda")] = wm
+        out[f"{C}x{n_seg}"] = _report(
+            "agg_reduce", what, err, time_ms(lambda: segment_agg_reduce(x, wm, seg, n_seg)),
+            time_ms(lambda: segment_agg_reduce_plain(x, wm, seg, n_seg)),
+            time_ms(lambda: torch.mm(S, x)), *agg_bound(C, N, n_seg, 4),
+            note=f" (library: torch.mm by the {n_seg}×{C} segment matrix)")
+        del got, want, abs_sum, S
+    return out
+
+
+def phase_runtime():
+    """Phase 17; returns (the kernel's rows at the runtime's shapes, the
+    main path's launches by kernel)."""
+    from repro_torch.pon import MODEL_UPDATE_MBITS
+    from repro_torch.pon.fast import orchestrator_engine
+
+    paper, forest = _population(320), _population(1280)
+    launches = dict.fromkeys(_counters(), 0)
+    _sync_vs_loop(paper)
+
+    loaded = dict(**PAPER_PON, **LOADED)
+    runs = (  # (label, experiment, updates, data, launches an update: the routing table)
+        ("semi_sync sfl_two_step", _runtime_exp("semi_sync", "sfl_two_step", loaded), 3, paper,
+         {"agg_reduce": 8}),
+        ("semi_sync classical", _runtime_exp("semi_sync", "classical", loaded), 3, paper,
+         {"agg_reduce": 8}),
+        ("fedbuff sfl_two_step", _runtime_exp("fedbuff", "sfl_two_step", loaded), 10, paper,
+         {"agg_reduce": 8}),
+        ("fedbuff fedopt yogi", _runtime_exp("fedbuff", "fedopt", loaded,
+                                             {"server_opt": "yogi"}), 10, paper,
+         {"agg_reduce": 8}),
+        ("fedbuff sfl_two_step int8", _runtime_exp("fedbuff", "sfl_two_step", loaded,
+                                                   compress="int8"), 10, paper,
+         {"agg_reduce_quant": 8, "dequantize_rows": 8}),
+        ("fedbuff hier_sfl forest", _runtime_exp("fedbuff", "hier_sfl", dict(**FOREST, **LOADED),
+                                                 {"n_pons": FOREST["n_pons"]}), 10, forest,
+         {"agg_reduce": 24}),
+    )
+    hists = {}
+    for label, exp, n, data, per_update in runs:
+        hist, orch, counts = _runtime_run(label, exp, n, data, per_update)
+        hists[label] = hist
+        for k in launches:
+            launches[k] += counts[k]
+        if "int8" in label:
+            check(all(r["wire_mbits"] == MODEL_UPDATE_MBITS / 4 and r["compress"] == "int8"
+                      for r in hist), f"runtime [{label}]: wire")
+        if label.startswith("semi_sync"):
+            check(hist.column("t_s") == [25.0 * (i + 1) for i in range(3)],
+                  f"runtime [{label}]: t_s {hist.column('t_s')}")
+        else:
+            check(hist.last()["version"] == n, f"runtime [{label}]: {hist.last()['version']} "
+                                               f"updates")
+        if "forest" in label:       # whole Φs on the metro segment, ≤ one a PON an update
+            phis = [r["metro_mbits"] / MODEL_UPDATE_MBITS for r in hist]
+            check(all(abs(k - round(k)) < 1e-9 for k in phis) and sum(phis) > 0,
+                  f"runtime [{label}]: metro Φs {phis}")
+        del orch
+    check(any(r["staleness_max"] >= 1.0 for r in hists["semi_sync sfl_two_step"]),
+          "runtime: semi_sync carried no straggler")
+    _runtime_parity()
+
+    # (f) the fluid engine
+    exp = _runtime_exp("fedbuff", "sfl_two_step", loaded, sim_engine="fast")
+    check(orchestrator_engine(exp.fl.pon_config(), "sfl") == "fluid",
+          "runtime [fluid]: the engine is not fluid")
+    hist, _, counts = _runtime_run("fedbuff sfl_two_step fluid", exp, 10, paper,
+                                   {"agg_reduce": 8})
+    for k in launches:
+        launches[k] += counts[k]
+    differ = _runtime_columns(hist) != _runtime_columns(hists["fedbuff sfl_two_step"])
+    print(f"runtime [fluid]: transport columns {'differ from' if differ else 'equal'} the event "
+          "engine's")
+
+    lm = _runtime_lm()
+    rows = _runtime_kernels(torch.Generator(device="cuda").manual_seed(17))
+    return rows, launches, lm
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2789,6 +3154,10 @@ def main() -> int:
     for name, by_tier in forest_rows.items():
         rows[name]["forest_shapes"] = by_tier
     for name, n in transport_launches.items():
+        launches[name] += n
+    runtime_rows, runtime_launches, lm_launches = phase(phase_runtime)
+    rows["agg_reduce"]["runtime_shapes"] = runtime_rows
+    for name, n in dict(runtime_launches, **lm_launches).items():
         launches[name] += n
     print(f"total {time.perf_counter() - t0:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"

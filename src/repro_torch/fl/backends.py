@@ -13,6 +13,18 @@ owns selection, failures and PON transport. Contract:
     backend.replay_round(rnd, selected, mask, rt, rng)   (optional)
         — consume exactly run_round's RNG draws without training (resume);
           a backend whose rounds draw nothing from ``rng`` has none
+
+The asynchronous seam of the runtime's semi_sync / fedbuff policies
+(``ClientStackedBackend`` and ``TransportBackend``; ``GradientBackend`` is
+sync-only):
+
+    backend.client_update(client, rng) -> (delta, weight)
+        — one client trains eagerly against the CURRENT params at dispatch
+          time (download → H local steps; the math is clock-free, only the
+          transport is simulated)
+    backend.apply_updates(rnd, clients, deltas, weights) -> metrics
+        — a buffer of possibly-stale deltas folded into the server with the
+          policy's staleness-discounted weights
 """
 from __future__ import annotations
 
@@ -42,16 +54,19 @@ def backend_wire_scale(backend) -> float:
 class ClientStackedBackend:
     """Per-client model copies + H local steps (the paper's Fig. 2 regime).
 
-    Parameters, eval batch and every round's minibatches live on the
-    device of ``params``.
+    Parameters, eval batch, every round's minibatches and the runtime's
+    in-flight deltas live on the device of ``params``. The eval runs after
+    every ``eval_every``-th update; the rows in between carry the last one.
     """
 
     def __init__(self, fl: FLConfig, strategy: Strategy, params,
                  clients, eval_batch, loss_fn: Callable,
                  sample_counts: Optional[np.ndarray] = None,
                  onu_ids: Optional[np.ndarray] = None,
-                 minibatch_fn: Callable = femnist.client_minibatches):
+                 minibatch_fn: Callable = femnist.client_minibatches,
+                 eval_every: int = 1):
         self.fl = fl
+        self.eval_every = max(1, eval_every)
         self.strategy = strategy
         self.params = params
         self.device = next(iter(params.values())).device
@@ -107,14 +122,27 @@ class ClientStackedBackend:
         (deltas, _), train_s = timed(
             fedavg.train_selected_clients, self.params, cb, self.loss_fn, fl,
             local_update=self.strategy.local_update)
+        out = {"train_s": train_s}
+        out.update(self._apply_and_eval(rnd, deltas, w, row_mask, self.onu_ids[padded],
+                                        client_ids=padded))
+        return out
+
+    def _apply_and_eval(self, rnd: int, stacked, weights, mask, onu_ids,
+                        client_ids) -> Dict[str, float]:
+        """Shared tail of the sync round and the async apply: strategy
+        aggregate → server update → uplink stats, ``aggregate_s`` and the
+        eval cadence."""
         (agg, stats), aggregate_s = timed(
-            self.strategy.aggregate, deltas, w, row_mask, self.onu_ids[padded],
-            fl.total_onus, comp=self._comp, client_ids=padded)
+            self.strategy.aggregate, stacked, weights, mask, onu_ids,
+            self.fl.total_onus, comp=self._comp, client_ids=client_ids)
         self.params, self.server_state = self.strategy.server_update(
             self.params, agg, self.server_state)
         out = {"uplink_models": float(stats["uplink_models"]),
-               "train_s": train_s, "aggregate_s": aggregate_s}
-        out.update(self._eval())
+               "aggregate_s": aggregate_s}
+        if (rnd + 1) % self.eval_every == 0:
+            out.update(self._eval())
+        elif self._last_eval:
+            out.update(self._last_eval)
         return out
 
     def replay_round(self, rnd: int, selected: np.ndarray, mask: np.ndarray,
@@ -127,6 +155,31 @@ class ClientStackedBackend:
         for c in padded:
             self.minibatch_fn(rng, self.clients[c], self.fl.local_steps,
                               self.fl.local_batch)
+
+    # --- asynchronous seam (runtime semi_sync / fedbuff) ------------------
+
+    def client_update(self, client: int, rng: np.random.Generator):
+        """One client's eager local update against the CURRENT params, on
+        the device of the params: (delta, its sample count k_c). By arrival
+        time the server may have moved on (staleness), the regime the
+        async policies weight for."""
+        fl = self.fl
+        mb = self.minibatch_fn(rng, self.clients[client], fl.local_steps, fl.local_batch)
+        batches = {k: torch.from_numpy(v).to(self.device) for k, v in mb.items()}
+        delta, _ = self.strategy.local_update(self.params, batches, self.loss_fn, fl)
+        return delta, float(self.sample_counts[client])
+
+    def apply_updates(self, rnd: int, clients, deltas, weights) -> Dict[str, float]:
+        """Fold a buffer of (possibly stale) client deltas into the server:
+        ``len(deltas)`` rows, unpadded, each of mask 1, with the policy's
+        staleness-discounted ``weights``."""
+        if len(deltas) == 0:
+            return self._idle_metrics()
+        clients = np.asarray(clients)
+        stacked = {k: torch.stack([d[k] for d in deltas]) for k in deltas[0]}
+        return self._apply_and_eval(rnd, stacked, np.asarray(weights, np.float32),
+                                    np.ones(len(deltas), np.float32),
+                                    self.onu_ids[clients], client_ids=clients)
 
 
 class GradientBackend:
@@ -205,10 +258,10 @@ class GradientBackend:
 
 
 class TransportBackend:
-    """Transport only: the RoundLoop records involvement and the upstream,
-    no model is trained (DBA, wavelength and background-load sweeps). The
-    reference's asynchronous seam comes with the runtime (ROADMAP.md Queue
-    1 item 4)."""
+    """Transport only: the driver records involvement and the upstream, no
+    model is trained (DBA, wavelength and background-load sweeps). Its
+    asynchronous seam is trivial (no deltas), so the runtime's semi_sync
+    and fedbuff policies run pure scheduling sweeps too."""
 
     def __init__(self, strategy: Strategy, sample_counts: np.ndarray,
                  onu_ids: np.ndarray):
@@ -217,4 +270,10 @@ class TransportBackend:
         self.onu_ids = onu_ids
 
     def run_round(self, rnd, selected, mask, rt, rng) -> Dict[str, float]:
+        return {}
+
+    def client_update(self, client: int, rng):
+        return None, float(self.sample_counts[client])
+
+    def apply_updates(self, rnd, clients, deltas, weights) -> Dict[str, float]:
         return {}

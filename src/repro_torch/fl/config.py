@@ -1,16 +1,25 @@
 """ExperimentConfig — one object that specifies a federated run (port of
 ``repro.fl.config``): the FL topology and learning knobs (``FLConfig``,
 which carries the PON transport), the strategy with its kwargs, the
-over-selection backups and the synthetic failures. The runtime's fields
-and flags come with the runtime (ROADMAP.md Queue 1 item 4)."""
+over-selection backups, the synthetic failures and the event-driven
+runtime's policy knobs. Buildable from one shared argparse helper
+(``add_experiment_cli_args`` / ``experiment_config_from_args``), so the
+entry points expose the reference's flag set."""
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from typing import Any, Optional, Tuple
 
 from repro_torch.core.fedavg import FLConfig
-from repro_torch.fl.strategy import Strategy, canonical_name, make_strategy
+from repro_torch.fl.strategy import Strategy, canonical_name, make_strategy, strategy_names
+from repro_torch.pon import add_pon_cli_args, pon_config_from_args
 from repro_torch.runtime.failures import FailureModel
+
+# reference flags whose machinery the port does not have yet, with the
+# ROADMAP.md item that ports it; parsed so that they are refused by name
+REFUSED_FLAGS = {"trace_out": "Queue 1 item 5 (repro.obs)",
+                 "metrics_out": "Queue 1 item 5 (repro.obs)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +38,14 @@ class ExperimentConfig:
     failure_seed: Optional[int] = None    # default: seed + 1
     n_rounds: int = 30                    # repro: noqa(REPRO501) driver-owned
     seed: int = 0
+    # event-driven runtime (runtime.Orchestrator); the RoundLoop ignores them
+    policy: str = "sync"              # sync | semi_sync | fedbuff
+    round_window_s: Optional[float] = None  # aggregation window (default:
+                                            # the PON deadline)
+    buffer_k: int = 8                 # fedbuff: server update every K arrivals
+    concurrency: int = 0              # fedbuff in-flight clients (0: n_selected)
+    staleness_exponent: float = 0.5   # weight ∝ (1+τ)^-α (FedBuff's 1/√(1+τ))
+    onu_gather_s: float = 1.0         # async SFL: ONU θ gather window (s)
 
     def make_strategy(self) -> Strategy:
         return make_strategy(self.strategy, **dict(self.strategy_kwargs))
@@ -48,6 +65,65 @@ class ExperimentConfig:
         return FailureModel(p_crash=self.p_crash, p_transient=self.p_transient,
                             mean_recovery_rounds=self.mean_recovery_rounds,
                             seed=seed)
+
+
+def add_experiment_cli_args(ap, strategy_default: str = "sfl_two_step") -> None:
+    """Attach the reference's federated-experiment flag set to a parser:
+    the PON transport flags (``pon.add_pon_cli_args``), the strategy,
+    selection, failure and compression knobs and the runtime's policy
+    knobs. ``--trace-out`` and ``--metrics-out`` are parsed and refused by
+    :func:`refuse_unported_flags`."""
+    add_pon_cli_args(ap)
+    for name in REFUSED_FLAGS:
+        ap.add_argument("--" + name.replace("_", "-"), default=None, help=argparse.SUPPRESS)
+    g = ap.add_argument_group("federated experiment (repro_torch.fl)")
+    g.add_argument("--strategy", default=strategy_default,
+                   help=f"aggregation strategy: {'|'.join(strategy_names())} "
+                        "(aliases: sfl, hier)")
+    g.add_argument("--overselect", type=float, default=0.0,
+                   help="extra backup clients per round, fraction of N")
+    g.add_argument("--p-crash", type=float, default=0.0,
+                   help="per-round client crash probability (FailureModel)")
+    g.add_argument("--p-transient", type=float, default=0.0,
+                   help="per-round transient-failure probability (FailureModel)")
+    g.add_argument("--mean-recovery-rounds", type=float, default=3.0,
+                   help="mean rounds a crashed client stays down (FailureModel)")
+    g.add_argument("--failure-seed", type=int, default=None,
+                   help="FailureModel RNG seed (default: seed + 1)")
+    add_strategy_cli_args(g)
+    g.add_argument("--compress", default="none",
+                   choices=["none", "int8", "int4", "topk"],
+                   help="wire compression for every transport tier "
+                        "(θ/Φ/Ψ or client uploads): stochastic-rounding "
+                        "int8/int4 or magnitude top-k")
+    g.add_argument("--topk-frac", type=float, default=0.01,
+                   help="top-k: fraction of elements kept per leaf "
+                        "(wire bills value+index per kept element)")
+    g.add_argument("--error-feedback", action="store_true",
+                   help="carry the compression residual into the next round "
+                        "(EF-SGD; per-tier for sfl/hier, per-client for classical)")
+    r = ap.add_argument_group("event-driven runtime (repro_torch.runtime)")
+    r.add_argument("--policy", default="sync",
+                   help="aggregation policy for the Orchestrator driver: "
+                        "sync|semi_sync|fedbuff (alias: async)")
+    r.add_argument("--window-s", type=float, default=None,
+                   help="aggregation window seconds (default: PON deadline)")
+    r.add_argument("--buffer-k", type=int, default=8,
+                   help="fedbuff: apply a server update every K arrivals")
+    r.add_argument("--concurrency", type=int, default=0,
+                   help="fedbuff: clients kept in flight (0: n_selected)")
+    r.add_argument("--staleness-exp", type=float, default=0.5,
+                   help="staleness discount α: weight ∝ (1+τ)^-α")
+    r.add_argument("--onu-gather-s", type=float, default=1.0,
+                   help="async SFL: seconds an ONU gathers arrivals "
+                        "before emitting one θ")
+
+
+def refuse_unported_flags(ap, args) -> None:
+    """``ap.error`` naming the ROADMAP.md item of the first refused flag set."""
+    for name, item in REFUSED_FLAGS.items():
+        if getattr(args, name, None) is not None:
+            ap.error(f"--{name.replace('_', '-')} is not ported yet: ROADMAP.md {item}")
 
 
 def add_strategy_cli_args(ap) -> None:
@@ -113,3 +189,30 @@ def filter_strategy_kwargs(name: str, kwargs) -> dict:
         if kwargs.get("error_feedback"):
             out["error_feedback"] = True
     return out
+
+
+def experiment_config_from_args(args, **overrides) -> ExperimentConfig:
+    """Build the ExperimentConfig selected by ``add_experiment_cli_args``.
+
+    ``overrides`` replace top-level ExperimentConfig fields (n_rounds, seed,
+    …); tune the nested FLConfig afterwards via ``cfg.with_fl(...)``.
+    """
+    pon = pon_config_from_args(args)
+    fl = FLConfig(n_onus=pon.n_onus, clients_per_onu=pon.clients_per_onu,
+                  n_pons=pon.n_pons, pon=pon)
+    name = canonical_name(args.strategy)
+    skw = filter_strategy_kwargs(name, strategy_kwargs_from_args(args))
+    return ExperimentConfig(
+        fl=fl, strategy=name, strategy_kwargs=tuple(sorted(skw.items())),
+        overselect=args.overselect, p_crash=args.p_crash,
+        p_transient=args.p_transient,
+        mean_recovery_rounds=getattr(args, "mean_recovery_rounds", 3.0),
+        failure_seed=getattr(args, "failure_seed", None),
+        seed=getattr(args, "seed", 0),
+        policy=getattr(args, "policy", "sync"),
+        round_window_s=getattr(args, "window_s", None),
+        buffer_k=getattr(args, "buffer_k", 8),
+        concurrency=getattr(args, "concurrency", 0),
+        staleness_exponent=getattr(args, "staleness_exp", 0.5),
+        onu_gather_s=getattr(args, "onu_gather_s", 1.0),
+        **overrides)

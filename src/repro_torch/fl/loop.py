@@ -128,6 +128,17 @@ def replay_sync_round(cfg: ExperimentConfig, backend, failures,
         replay(rnd, sel, mask, rt, rng)
 
 
+def fast_forward(cfg: ExperimentConfig, backend, failures,
+                 rng: np.random.Generator, consumed: int, start_round: int
+                 ) -> int:
+    """Replay rounds ``[consumed, start_round)``; returns the new consumed
+    count. The one resume path of both drivers (the RoundLoop and the
+    Orchestrator's sync policy), so their replays cannot drift."""
+    for rnd in range(consumed, start_round):
+        replay_sync_round(cfg, backend, failures, rng, rnd)
+    return max(consumed, start_round)
+
+
 Callback = Callable[["RoundLoop", Dict[str, Any]], None]
 
 
@@ -170,9 +181,8 @@ class RoundLoop:
         before ``start_round`` not yet consumed are replayed first, so a
         resumed trajectory is the uninterrupted one."""
         n = n_rounds if n_rounds is not None else self.cfg.n_rounds
-        for rnd in range(self.rounds_consumed, start_round):
-            replay_sync_round(self.cfg, self.backend, self.failures, self.rng, rnd)
-        self.rounds_consumed = max(self.rounds_consumed, start_round)
+        self.rounds_consumed = fast_forward(self.cfg, self.backend, self.failures,
+                                            self.rng, self.rounds_consumed, start_round)
         for rnd in range(start_round, start_round + n):
             self.run_round(rnd)
         return self.history

@@ -1,6 +1,7 @@
-"""The LM gradient regime — the counterpart of ``repro/launch/train.py
---driver loop``: one train step per federated round through the port's
-RoundLoop and ``GradientBackend``, on one card or data parallel over the
+"""The LM gradient regime — the counterpart of ``repro/launch/train.py``:
+one train step per federated round through the port's RoundLoop (``--driver
+loop``) or the runtime's Orchestrator (``--driver runtime``, the sync
+policy) and ``GradientBackend``, on one card or data parallel over the
 ranks of a ``torch.distributed`` world.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b --smoke \\
@@ -26,8 +27,13 @@ checkpoints. ``--strategy`` takes any registered strategy (``hier_sfl``
 with ``--n-pons`` bills the metro forest's k-step transport) with
 ``--fedprox-mu``, ``--server-opt`` and ``--server-lr`` as the reference's.
 ``--compress`` scales the wire the PON transport bills, as in the
-reference's gradient regime. Flags of machinery the port does not have yet
-are refused, naming the ROADMAP.md item that brings it.
+reference's gradient regime. ``--driver runtime`` runs the same rounds on
+the Orchestrator's simulated clock (each log line gains ``t_sim``; a
+resumed run replays as the RoundLoop does); ``GradientBackend`` is
+sync-only, so another ``--policy`` raises ``TypeError``. The flag set is
+the reference's shared one (``fl.add_experiment_cli_args``); flags of
+machinery the port does not have yet are refused, naming the ROADMAP.md
+item that brings it.
 """
 from __future__ import annotations
 
@@ -42,15 +48,10 @@ import torch.distributed as dist
 from repro_torch import configs, device as device_mod, fl
 from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.common.sharding import ShardingRules
-from repro_torch.core.compression import SCHEMES
 from repro_torch.core.fedavg import FLConfig
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models.config import ModelConfig
-from repro_torch.pon import PonConfig, add_pon_cli_args, pon_config_from_args
-
-# reference flags the port refuses, with the ROADMAP.md item that ports their machinery
-_REFUSED = {"trace_out": "Queue 1 item 5 (repro.obs)",
-            "metrics_out": "Queue 1 item 5 (repro.obs)"}
+from repro_torch.pon import PonConfig, pon_config_from_args
 
 
 def build_rules(mesh, transport: str) -> ShardingRules:
@@ -74,11 +75,16 @@ def run(arch: Union[str, ModelConfig] = "qwen2-0.5b", *, smoke: bool = False, st
         pon: Optional[PonConfig] = None, strategy_kwargs: Optional[dict] = None,
         overselect: float = 0.0, p_crash: float = 0.0, p_transient: float = 0.0,
         mean_recovery_rounds: float = 3.0, failure_seed: Optional[int] = None,
-        compress: str = "none", device: str = "cuda") -> Dict[str, Any]:
+        compress: str = "none", device: str = "cuda", driver: str = "loop",
+        policy: str = "sync", window_s: Optional[float] = None) -> Dict[str, Any]:
     """Train ``steps`` rounds (fewer when resuming from ``ckpt``) of ``arch``,
     a config name or a ``ModelConfig`` (a named config cut to size, taken as
     it is: ``smoke`` does not apply). Under an initialized process group
     every rank calls it alike, and rank 0 alone prints and checkpoints.
+
+    ``driver`` is ``"loop"`` (the RoundLoop) or ``"runtime"`` (the
+    Orchestrator under ``policy``, ``window_s`` simulated seconds a round;
+    this backend is sync-only, so another policy raises ``TypeError``).
 
     The topology is ``n_pons`` trees of ``onus`` ONUs × ``clients_per_onu``
     clients; ``pon`` gives the transport's other knobs (DBA, wavelengths,
@@ -103,7 +109,8 @@ def run(arch: Union[str, ModelConfig] = "qwen2-0.5b", *, smoke: bool = False, st
                               overselect=overselect, p_crash=p_crash,
                               p_transient=p_transient,
                               mean_recovery_rounds=mean_recovery_rounds,
-                              failure_seed=failure_seed, n_rounds=steps, seed=seed)
+                              failure_seed=failure_seed, n_rounds=steps, seed=seed,
+                              policy=policy, round_window_s=window_s)
     # one selected client per batch row: client_weight aligns with the batch
     exp = exp.with_fl(n_selected=batch)
     rng = np.random.default_rng(seed)
@@ -122,6 +129,23 @@ def run(arch: Union[str, ModelConfig] = "qwen2-0.5b", *, smoke: bool = False, st
     def state():
         return (backend.params, backend.opt_state)
 
+    def on_round(drv, rec):
+        step = rec["round"]
+        if step % log_every == 0 or step == steps - 1:
+            t_sim = f" t_sim {rec['t_s']:.0f}s" if "t_s" in rec else ""
+            say(f"step {step}: loss {rec['loss']:.4f} grad_norm {rec['grad_norm']:.4f} "
+                  f"involved {rec['involved']:.0f}/{rec['n_selected']} upstream "
+                  f"{rec['upstream_mbits']:.1f} Mb dt {rec['dt']:.3f}s{t_sim}")
+        if ckpt and lead and (step + 1) % ckpt_every == 0:
+            save_checkpoint(ckpt, step + 1, state())
+
+    if driver == "runtime":
+        from repro_torch import runtime
+        drv = runtime.Orchestrator(exp, backend, callbacks=[on_round])
+    elif driver == "loop":
+        drv = fl.RoundLoop(exp, backend, callbacks=[on_round])
+    else:
+        raise ValueError(f"driver {driver!r}: loop or runtime")
     step0 = 0
     if ckpt:
         last = latest_step(ckpt)
@@ -130,19 +154,9 @@ def run(arch: Union[str, ModelConfig] = "qwen2-0.5b", *, smoke: bool = False, st
                                                                                state())
             say(f"[restore] resumed from step {step0}")
 
-    def on_round(loop, rec):
-        step = rec["round"]
-        if step % log_every == 0 or step == steps - 1:
-            say(f"step {step}: loss {rec['loss']:.4f} grad_norm {rec['grad_norm']:.4f} "
-                  f"involved {rec['involved']:.0f}/{rec['n_selected']} upstream "
-                  f"{rec['upstream_mbits']:.1f} Mb dt {rec['dt']:.3f}s")
-        if ckpt and lead and (step + 1) % ckpt_every == 0:
-            save_checkpoint(ckpt, step + 1, state())
-
-    # a resumed run asks for the remaining rounds; the loop replays the
-    # skipped rounds' draws so the trajectory is the uninterrupted one
-    loop = fl.RoundLoop(exp, backend, callbacks=[on_round])
-    history = loop.run(max(0, steps - step0), start_round=step0)
+    # a resumed run asks for the remaining rounds; either driver replays
+    # the skipped rounds' draws so the trajectory is the uninterrupted one
+    history = drv.run(max(0, steps - step0), start_round=step0)
     if ckpt and lead:
         save_checkpoint(ckpt, steps, state())
         say(f"[ckpt] saved final at step {steps}")
@@ -163,31 +177,14 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=5)
-    ap.add_argument("--driver", default="loop",
-                    help="loop (the RoundLoop); runtime is ROADMAP.md Queue 1 item 4")
-    ap.add_argument("--strategy", default="sfl_two_step",
-                    help=f"{'|'.join(fl.strategy_names())} (aliases: sfl, hier)")
-    add_pon_cli_args(ap)
-    fl.add_strategy_cli_args(ap)
-    ap.add_argument("--overselect", type=float, default=0.0,
-                    help="extra backup clients per round, fraction of N")
-    ap.add_argument("--p-crash", type=float, default=0.0)
-    ap.add_argument("--p-transient", type=float, default=0.0)
-    ap.add_argument("--mean-recovery-rounds", type=float, default=3.0)
-    ap.add_argument("--failure-seed", type=int, default=None)
-    ap.add_argument("--compress", default="none", choices=SCHEMES,
-                    help="wire compression the PON transport bills")
+    ap.add_argument("--driver", choices=("loop", "runtime"), default="loop",
+                    help="round driver: the lockstep RoundLoop or the event-driven "
+                         "runtime Orchestrator (--policy picks the aggregation "
+                         "policy; GradientBackend is sync-only)")
+    fl.add_experiment_cli_args(ap)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    for name in _REFUSED:
-        ap.add_argument("--" + name.replace("_", "-"), default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    for name, item in _REFUSED.items():
-        value = getattr(args, name)
-        if value is not None:
-            ap.error(f"--{name.replace('_', '-')} is not ported yet: ROADMAP.md {item}")
-    if args.driver != "loop":
-        ap.error(f"--driver {args.driver} is not ported yet: ROADMAP.md Queue 1 item 4 "
-                 "(the runtime)")
+    fl.refuse_unported_flags(ap, args)
     # torchrun sets WORLD_SIZE: one process group for the run
     started = int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized()
     if started:
@@ -203,7 +200,8 @@ def main(argv=None):
             n_pons=args.n_pons, pon=pon_config_from_args(args),
             strategy_kwargs=fl.strategy_kwargs_from_args(args), overselect=args.overselect, p_crash=args.p_crash, p_transient=args.p_transient,
             mean_recovery_rounds=args.mean_recovery_rounds, failure_seed=args.failure_seed,
-            compress=args.compress, device=args.device)
+            compress=args.compress, device=args.device, driver=args.driver,
+            policy=args.policy, window_s=args.window_s)
     finally:
         if started:
             dist.destroy_process_group()

@@ -11,9 +11,9 @@ Three engines behind ``PonConfig.sim_engine`` / ``--sim-engine``:
     ``ipact`` always stays on the exact sim).
 
 ``events.simulate_round`` / ``metro.simulate_hier_round`` dispatch here
-when ``cfg.sim_engine != "event"``. The reference's fluid grant machine
-for its incremental driver (``fast/fluid.py``) comes with the runtime
-(ROADMAP.md Queue 1 item 4).
+when ``cfg.sim_engine != "event"``. The runtime's Orchestrator feeds jobs
+one at a time instead and, under ``fast``/``hybrid``, bridges the fluid
+grant machine of ``fast/fluid.py`` where ``orchestrator_engine`` allows.
 """
 from repro_torch.pon.fast.engine import (
     SIM_ENGINES,
@@ -22,13 +22,16 @@ from repro_torch.pon.fast.engine import (
     simulate_round_fast,
     uniform_onu_rate,
 )
+from repro_torch.pon.fast.fluid import FluidUpstreamSim, orchestrator_engine
 from repro_torch.pon.fast.hier import simulate_hier_round_fast
 from repro_torch.pon.fast.segments import fifo_pack, segment_max, segment_sum
 
 __all__ = [
     "SIM_ENGINES",
+    "FluidUpstreamSim",
     "fifo_pack",
     "fluid_congested",
+    "orchestrator_engine",
     "segment_max",
     "segment_sum",
     "serve_queued",

@@ -1,10 +1,11 @@
-"""Synthetic client failures for the round loop's mask path.
+"""Synthetic client failures and liveness for the drivers' mask path.
 
-Copy of ``repro.runtime.failures.FailureModel`` (numpy). The paper's own
-straggler policy (drop clients past the deadline and renormalize by the
-surviving weight K) is the mask every aggregation takes, so crashes and
-transient failures ride the same path. The model keeps its own RNG so
-enabling it does not perturb the selection/minibatch stream.
+Copy of ``repro.runtime.failures`` (numpy). The paper's own straggler
+policy (drop clients past the deadline and renormalize by the surviving
+weight K) is the mask every aggregation takes, so crashes, transient
+failures and elastic membership ride the same path. ``FailureModel``
+keeps its own RNG so enabling it does not perturb the selection/minibatch
+stream; ``MembershipTable`` tracks liveness from heartbeat timestamps.
 """
 from __future__ import annotations
 
@@ -48,3 +49,38 @@ class FailureModel:
             crash_alive[node] = False
         transient = self._rng.random(n_nodes) < self.p_transient
         return crash_alive, ~transient
+
+    def step(self, round_idx: int, n_nodes: int) -> np.ndarray:
+        """The combined alive-mask (n_nodes,) for this round."""
+        crash_alive, transient_alive = self.step_components(round_idx, n_nodes)
+        return crash_alive & transient_alive
+
+
+@dataclasses.dataclass
+class MembershipTable:
+    """Heartbeat-based liveness for elastic membership."""
+    timeout_s: float = 30.0
+
+    def __post_init__(self):
+        self._last: Dict[int, float] = {}
+
+    def heartbeat(self, node: int, now: float):
+        self._last[node] = now
+
+    def alive(self, now: float) -> np.ndarray:
+        nodes = sorted(self._last)
+        return np.array([now - self._last[n] <= self.timeout_s for n in nodes])
+
+    def mask(self, n_nodes: int, now: float) -> np.ndarray:
+        m = np.zeros(n_nodes, np.float32)
+        for n, t in self._last.items():
+            if n < n_nodes and now - t <= self.timeout_s:
+                m[n] = 1.0
+        return m
+
+
+def renormalized_weights(weights: np.ndarray, alive: np.ndarray) -> np.ndarray:
+    """Aggregation weights under failures — unbiased FedAvg renormalization."""
+    w = weights * alive
+    s = w.sum()
+    return w / s if s > 0 else w

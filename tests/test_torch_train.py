@@ -454,11 +454,41 @@ def test_train_resume_equals_an_uninterrupted_run(tmp_path, capsys):
 
 def test_train_cli_refuses_unported_flags(capsys):
     for flag, value, item in (("--trace-out", "t.json", "item 5"),
-                              ("--metrics-out", "m.jsonl", "item 5"),
-                              ("--driver", "runtime", "item 4")):
+                              ("--metrics-out", "m.jsonl", "item 5")):
         with pytest.raises(SystemExit):
             train.main(["--smoke", "--device", "cpu", flag, value])
         assert f"ROADMAP.md Queue 1 {item}" in capsys.readouterr().err, flag
+
+
+def test_train_runtime_driver_is_the_loop_and_resumes(tmp_path, capsys):
+    """``--driver runtime`` (the Orchestrator's sync policy on the gradient
+    regime) against ``--driver loop`` with transient failures: the same
+    transport columns and losses bit for bit, t_s one 25 s window a round;
+    a runtime run resumed from step 2 equals the uninterrupted one; an
+    async --policy raises the reference's TypeError."""
+    kw = dict(p_transient=0.3)
+    loop = _run(tmp_path / "loop", 4, **kw)
+    rt = _run(tmp_path / "rt", 4, driver="runtime", **kw)
+    keys = ("round", "n_selected", "sim_engine", "involved", "upstream_mbits", "loss",
+            "grad_norm")
+    for r, want in zip(rt["history"], loop["history"], strict=True):
+        assert {k: r[k] for k in keys} == {k: want[k] for k in keys}
+        assert r["policy"] == "sync" and r["t_s"] == 25.0 * (r["round"] + 1)
+    os.makedirs(tmp_path / "b")
+    os.rename(tmp_path / "rt" / "step_2", tmp_path / "b" / "step_2")
+    resumed = _run(tmp_path / "b", 4, driver="runtime", **kw)
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert resumed["start_step"] == 2
+    for r, want in zip(resumed["history"], list(rt["history"])[2:], strict=True):
+        assert {k: r[k] for k in keys + ("t_s",)} == {k: want[k] for k in keys + ("t_s",)}
+    train.main(["--smoke", "--steps", "2", "--batch", "2", "--seq", "8", "--device", "cpu",
+                "--opt", "sgd", "--log-every", "1", "--driver", "runtime"])
+    last = capsys.readouterr().out.splitlines()[-1]
+    assert last.startswith("step 1: loss") and last.endswith("t_sim 50s")
+    for policy in ("semi_sync", "fedbuff"):
+        with pytest.raises(TypeError, match="GradientBackend is sync-only"):
+            train.run("qwen2-0.5b", smoke=True, steps=1, batch=2, seq=8, device="cpu",
+                      driver="runtime", policy=policy)
 
 
 def test_train_cli_bills_the_reference_driver_s_forest(jx, monkeypatch):
