@@ -186,8 +186,8 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              fast and hybrid engines: hier_sfl's forest round under each
              (fast equal to the event engine exactly), and the forest's
              transport alone for each strategy and engine, each engine's
-             host ms a round beside the rounds' wall_s, train_s and
-             aggregate_s. (d) agg_reduce at the forest's shapes at the
+             host ms a round beside the rounds' wall_s, train_host_s and
+             aggregate_host_s. (d) agg_reduce at the forest's shapes at the
              fc1_w leaf: θ (128 rows, 64 segments), Φ (64 rows, 4), Ψ (4
              rows, 1), beside ``torch.mm`` by the segment matrix; the fused
              form at θ, quantize and dequantize at Φ and Ψ (dequantize at θ
@@ -223,10 +223,34 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              for 8 rows into 16, 64 and 1 segments beside its bound,
              ``torch.mm`` by the segment matrix and its plain version.
 
-Phases 4, 7, 10, 10b, 13, 15, 16 and 17 are the main paths (the FEMNIST round
-uncompressed and compressed, LM serving, LM training, the LM gradient
+18. obs    — observability (``repro_torch.obs``) on the main paths: (a)
+             phase 4's setting (3 rounds each of sfl_two_step and
+             classical) untraced twice, then traced with a live session
+             (trace, metrics, run bundle, health): the History against the
+             untraced rows (bit for bit where the card repeats itself, else
+             the transport exact and the rest within the loops' spread), the
+             launches equal, the ``pon.upstream_mbits`` totals the rows' sums,
+             one grant span per served FL job. (b) One classical round on
+             phase 16's loaded paper PON and on its forest, untraced and
+             traced in turns: the span count and the host ms tracing adds a
+             round (the row's wall_s, card synchronised, and the transport's
+             own host time). (c) fedbuff to 10 updates traced: the registry
+             total equals the untraced run's. (d) A run bundle from the card
+             and one from the CPU at reduced width (H = 1, 2 rounds), held
+             by the port's ``diff_bundles`` (config hash, transport metrics,
+             spans; the History at rtol 1e-4). (e) One torch.profiler window,
+             in a process of its own, over one call of each kernel wrapper: each ``kernels.<name>``
+             range once a call, the counters stepped as the calls launch,
+             every device kernel of the port launched inside its range; the
+             host cost at the RWKV6 and RG-LRU decode calls of the wrappers'
+             test for a profiler and of an open range. (f)
+             ``launch.train``'s CLI with qwen2-0.5b at full width, 2 steps,
+             ``--report-out``: the bundle's ``backend.train_step_s`` count 2.
+
+Phases 4, 7, 10, 10b, 13, 15, 16, 17 and 18 are the main paths (the FEMNIST
+round uncompressed and compressed, LM serving, LM training, the LM gradient
 exchange, the event-simulator transport and hier_sfl, the event-driven
-runtime). The last lines are the
+runtime, the traced runs). The last lines are the
 ``kernels`` JSON object and then ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 
@@ -526,8 +550,8 @@ def phase_slice():
                   f"{r['n_selected']} upstream_mbits {r['upstream_mbits']:.3f} "
                   f"uplink_models {r.get('uplink_models', 0):.0f} "
                   f"acc {r['acc']:.4f} eval_loss {r.get('eval_loss', float('nan')):.4f} "
-                  f"wall_s {r['wall_s']:.3f} train_s {r.get('train_s', 0):.3f} "
-                  f"aggregate_s {r.get('aggregate_s', 0):.4f}")
+                  f"wall_s {r['wall_s']:.3f} train_host_s {r.get('train_host_s', 0):.3f} "
+                  f"aggregate_host_s {r.get('aggregate_host_s', 0):.4f}")
             check(0.0 <= r["acc"] <= 1.0, f"{mode} acc {r['acc']}")
             check("wire_mbits" not in r and "compress" not in r,
                   f"{mode}: an uncompressed row carries wire keys")
@@ -774,8 +798,8 @@ def phase_compressed_slice(classical_involved):
                   f"{r['n_selected']} wire_mbits {r['wire_mbits']} upstream_mbits "
                   f"{r['upstream_mbits']:.3f} uplink_models {r.get('uplink_models', 0):.0f} "
                   f"acc {r['acc']:.4f} eval_loss {r.get('eval_loss', float('nan')):.4f} "
-                  f"wall_s {r['wall_s']:.3f} train_s {r.get('train_s', 0):.3f} "
-                  f"aggregate_s {r.get('aggregate_s', 0):.4f}")
+                  f"wall_s {r['wall_s']:.3f} train_host_s {r.get('train_host_s', 0):.3f} "
+                  f"aggregate_host_s {r.get('aggregate_host_s', 0):.4f}")
             check(r["compress"] == kw["compress"] and r["wire_mbits"] == wire,
                   f"{tag}: row wire {r['wire_mbits']} vs {wire}")
             check(wire == wire_want.get(kw["compress"], wire),
@@ -974,7 +998,9 @@ def _device_profile(label: str, fn, kernels, calls: int = 1, top: int = 6) -> No
               f"{max(b for _, b in spans) / 1e3:.3f} ms into the session"
               if spans else "no device activity")
     placed += f", the calls {1e3 * (t0 - t_in):.3f}-{1e3 * (t1 - t_in):.3f} ms on the host"
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    # the wrappers' kernels.* ranges are annotations, not device work
+    events = [e for e in prof.key_averages()
+              if e.self_device_time_total > 0 and not e.key.startswith("kernels.")]
     made = 0
     for (names, wrapper, counter), was in zip(kernels, before):
         want = getattr(wrapper, counter) - was
@@ -2430,8 +2456,8 @@ def _print_rounds(label, res, modes, tap):
                   f"{r.get('uplink_models', 0):.0f} grant_delay_s {rt['grant_delay_s']:.6f} "
                   f"n_fl_grants {rt['n_fl_grants']} bg_mbits_served "
                   f"{rt['bg_mbits_served']:.3f} acc {r['acc']:.4f} wall_s {r['wall_s']:.3f} "
-                  f"train_s {r.get('train_s', 0):.3f} aggregate_s "
-                  f"{r.get('aggregate_s', 0):.4f} simulator host ms {ms:.2f}")
+                  f"train_host_s {r.get('train_host_s', 0):.3f} aggregate_host_s "
+                  f"{r.get('aggregate_host_s', 0):.4f} simulator host ms {ms:.2f}")
             check(0.0 <= r["acc"] <= 1.0, f"{label} {mode} acc {r['acc']}")
             if r["involved"] > 0:
                 check(math.isfinite(r["eval_loss"]), f"{label} {mode} eval_loss")
@@ -2769,7 +2795,7 @@ def phase_transport():
 # the columns of a runtime row held card = CPU, and its host-time keys
 RUNTIME_COLUMNS = ("t_s", "version", "involved", "upstream_mbits", "metro_mbits",
                    "staleness_mean", "staleness_max", "in_flight", "n_selected", "wire_mbits")
-HOST_KEYS = ("wall_s", "dispatch_s", "train_s", "aggregate_s")
+HOST_KEYS = ("wall_s", "dispatch_host_s", "train_host_s", "aggregate_host_s")
 _POPULATIONS: dict = {}
 
 
@@ -2854,15 +2880,15 @@ def _runtime_run(label, exp, n_updates, data, per_update, full=True):
     updated = sum(1 for r in hist if r["involved"] > 0)
     want = {k: per_update.get(k, 0) * updated for k in counters}
     rows = list(hist)
-    sim_ms = [1e3 * (r["wall_s"] - r["dispatch_s"]) - a for r, a in zip(rows, tap.apply_ms)]
+    sim_ms = [1e3 * (r["wall_s"] - r["dispatch_host_s"]) - a for r, a in zip(rows, tap.apply_ms)]
     for r, sim in zip(rows, sim_ms):
         print(f"runtime [{label}] update {r['round']}: t_s {r['t_s']:.3f} version "
               f"{r['version']} involved {r['involved']:.0f} in_flight {r.get('in_flight')} "
               f"upstream_mbits {r['upstream_mbits']:.3f}"
               + (f" metro_mbits {r['metro_mbits']:.3f}" if "metro_mbits" in r else "")
               + f" staleness {r['staleness_mean']:.3f}/{r['staleness_max']:.0f} acc "
-              f"{r.get('acc', 0.0):.4f} wall_s {r['wall_s']:.3f} dispatch_s "
-              f"{r['dispatch_s']:.3f} aggregate_s {r.get('aggregate_s', 0.0):.4f} "
+              f"{r.get('acc', 0.0):.4f} wall_s {r['wall_s']:.3f} dispatch_host_s "
+              f"{r['dispatch_host_s']:.3f} aggregate_host_s {r.get('aggregate_host_s', 0.0):.4f} "
               f"simulator host ms {sim:.2f}")
         if r["involved"] > 0:
             check(math.isfinite(r["eval_loss"]) and 0.0 <= r["acc"] <= 1.0,
@@ -3102,6 +3128,446 @@ def phase_runtime():
     return rows, launches, lm
 
 
+# ---------------------------------------------------------------------------
+# phase 18: observability
+# ---------------------------------------------------------------------------
+
+OBS_KEYS = HOST_KEYS + ("incidents",)   # a traced row's keys the untraced lacks
+
+
+def _obs_rows(hist):
+    return [{k: v for k, v in r.items() if k not in OBS_KEYS} for r in hist]
+
+
+def _obs_session(tmp, name):
+    """A live session writing every artifact under ``tmp``: the trace, the
+    merged metrics, the run bundle, the incidents (health on)."""
+    from repro_torch import obs
+    base = os.path.join(tmp, name)
+    return obs.session(trace_out=base + ".trace.json", metrics_out=base + ".metrics.jsonl",
+                       report_out=base + ".report.json", incidents_out=base + ".inc.jsonl",
+                       health=True, driver="round_loop")
+
+
+def _grant_spans(tracer) -> int:
+    """Grant spans of FL jobs (θs, classical uploads), background excluded."""
+    return sum(1 for s in tracer.spans if s.cat == "grant" and s.name in ("theta", "fl"))
+
+
+def _obs_slice(data, tmp) -> dict:
+    """(a) Phase 4's setting untraced twice and traced once (trace, metrics,
+    bundle, health): the History, parameters and launches against the
+    untraced runs, the registry against the rows, one grant span per served
+    FL job. Returns the traced run's launches."""
+    from repro_torch.launch import femnist as launch
+    from repro_torch.obs.audit import RunReport
+    from repro_torch.pon import PonConfig
+    modes = ("sfl_two_step", "classical")
+    kw = dict(n_rounds=3, n_selected=128, full=True, seed=0, modes=modes,
+              pon=PonConfig(**PAPER_PON), device="cuda", data=data)
+    counters = _counters()
+    runs = []
+    for traced in (False, False, True):
+        _zero(counters)
+        sess = _obs_session(tmp, "slice") if traced else None
+        try:
+            with _TransportTap() as tap:
+                res = launch.run(**kw)
+        finally:
+            if sess is not None:
+                last = res[modes[-1]]["loop"]
+                sess.finish(quiet=True, cfg=last.cfg, history=last.history)
+        runs.append((res, tap, {k: fn.launches for k, fn in counters.items()}))
+    (a, _, ca), (b, _, _), (t, tap, ct) = runs
+    check(ct == ca, f"obs [slice]: traced launches {ct}, untraced {ca}")
+    same = all(_obs_rows(a[m]["loop"].history) == _obs_rows(b[m]["loop"].history) and all(
+        torch.equal(a[m]["loop"].backend.params[k], b[m]["loop"].backend.params[k])
+        for k in a[m]["loop"].backend.params) for m in modes)
+    print(f"obs [slice]: the untraced RoundLoop repeats itself bit for bit on the card: {same}")
+    transport = ("round", "n_selected", "sim_engine", "involved", "upstream_mbits",
+                 "uplink_models")
+    for m in modes:
+        la, lb, lt = (r[m]["loop"] for r in (a, b, t))
+        if same:
+            check(_obs_rows(lt.history) == _obs_rows(la.history) and all(
+                torch.equal(lt.backend.params[k], la.backend.params[k])
+                for k in la.backend.params), f"obs [slice {m}]: traced differs from untraced")
+            continue
+        for g, r in zip(_obs_rows(lt.history), _obs_rows(la.history), strict=True):
+            check({k: g[k] for k in transport} == {k: r[k] for k in transport},
+                  f"obs [slice {m}]: transport {g} vs {r}")
+        for key in ("acc", "eval_loss"):
+            spread = max(abs(x - y) for x, y in zip(la.history.column(key),
+                                                    lb.history.column(key)))
+            off = max(abs(x - y) for x, y in zip(lt.history.column(key), la.history.column(key)))
+            check(off <= 2 * spread, f"obs [slice {m}]: {key} off {off} vs spread {spread}")
+    # the registry is the accounting: each loop's total is its rows' sum
+    totals = []
+    for m in modes:
+        loop = t[m]["loop"]
+        rows = loop.history.column("upstream_mbits")
+        check(loop.total_upstream_mbits == sum(rows),
+              f"obs [slice {m}]: registry {loop.total_upstream_mbits} vs rows {sum(rows)}")
+        totals.append(loop.total_upstream_mbits)
+    rep = RunReport.load(os.path.join(tmp, "slice.report.json"))
+    (merged,) = [r["total"] for r in rep.metrics if r["name"] == "pon.upstream_mbits"]
+    check(merged == totals[0] + totals[1], f"obs [slice]: merged {merged} vs {totals}")
+    with open(os.path.join(tmp, "slice.trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sum(1 for e in events if e["ph"] == "X")
+    served = sum(rt["n_fl_grants"] for rt in tap.rts)
+    grants = sum(1 for e in events if e["ph"] == "X" and e.get("cat") == "grant"
+                 and e["name"] in ("theta", "fl"))
+    check(grants == served > 0, f"obs [slice]: {grants} grant spans, {served} served FL jobs")
+    hist_rows = {(r["kind"], r["name"]): r for r in rep.metrics}
+    trained = sum(1 for m in modes for r in t[m]["loop"].history if r["involved"] > 0)
+    check(hist_rows[("histogram", "backend.train_s")]["count"] == trained,
+          f"obs [slice]: backend.train_s {hist_rows[('histogram', 'backend.train_s')]}")
+    print(f"obs [slice]: 3 rounds each of {' and '.join(modes)} traced with health: History "
+          f"{'bit for bit' if same else 'transport exact, the rest within the spread'} the "
+          f"untraced run's, launches {ct} = untraced; pon.upstream_mbits {merged:.3f} = the rows' "
+          f"sum; {grants} grant spans = {served} served FL jobs; {spans} spans, "
+          f"{len(rep.incidents)} incidents, bundle cfg {rep.config_hash}, trace "
+          f"{os.path.getsize(os.path.join(tmp, 'slice.trace.json')) / 1e3:.1f} kB; "
+          f"backend.train_s count {trained}")
+    return ct
+
+
+def _obs_transport_cost(paper, forest, tmp) -> dict:
+    """(b) One classical round on phase 16's loaded paper PON and on its
+    forest, untraced and traced in turns (3 pairs): the rows equal, the span
+    count, and the host ms tracing adds a round (the row's wall_s, card
+    synchronised); then the round's transport alone, 10 pairs in turns, for
+    the simulator's share. Returns the traced rounds' launches."""
+    from repro_torch import obs
+    from repro_torch.core import selection
+    from repro_torch.core.fedavg import FLConfig, onu_of_client, round_transport
+    from repro_torch.data import femnist
+    from repro_torch.launch import femnist as launch
+    from repro_torch.pon import PonConfig
+    counters = _counters()
+    launches = dict.fromkeys(counters, 0)
+    for label, topo, data in (("paper PON", PAPER_PON, paper), ("forest", FOREST, forest)):
+        pon = PonConfig(**topo, **LOADED)
+        walls, spans, rows = {False: [], True: []}, [], []
+        for traced in (False, True) * 3:
+            _zero(counters)
+            sess = obs.session(trace_out=os.path.join(tmp, "cost.trace.json")) if traced else None
+            try:
+                with _TransportTap() as tap:
+                    res = launch.run(n_rounds=1, n_selected=128, full=True, seed=0,
+                                     modes=("classical",), pon=pon, device="cuda", data=data)
+            finally:
+                if sess is not None:
+                    spans.append(len(sess.tracer.spans))
+                    sess.finish(quiet=True)
+            r = res["classical"]["loop"].history.last()
+            walls[traced].append(1e3 * r["wall_s"])
+            rows.append({k: r.get(k) for k in ROW_COLUMNS} | {k: tap.rts[0][k]
+                                                             for k in RT_COLUMNS})
+            if traced:
+                for k, fn in counters.items():
+                    launches[k] += fn.launches
+        check(all(x == rows[0] for x in rows) and len(set(spans)) == 1,
+              f"obs [{label}]: traced rounds differ: {rows}, spans {spans}")
+        # the transport alone: one selection, the round's draws from seed 1
+        flc = FLConfig(n_selected=128, pon=pon, **topo)
+        counts, onu = femnist.sample_counts(data[0]), onu_of_client(flc)
+        sel = selection.select_clients(np.random.default_rng(0), flc.n_clients, 128, 0.0)
+        sims = {False: [], True: []}
+        for traced in (False, True) * 10:
+            o = obs.Obs.enabled_tracing() if traced else obs.Obs()
+            t = time.perf_counter()
+            round_transport(flc, np.random.default_rng(1), sel, counts, onu, mode="classical",
+                            obs=o)
+            sims[traced].append(1e3 * (time.perf_counter() - t))
+        add_wall = statistics.median(walls[True]) - statistics.median(walls[False])
+        add_sim = statistics.median(sims[True]) - statistics.median(sims[False])
+        q = lambda xs: statistics.quantiles(xs, n=4)  # noqa: E731
+        print(f"obs [{label} classical]: {spans[0]} spans a traced round. The round's wall: "
+              f"untraced {', '.join(f'{x:.2f}' for x in walls[False])} ms, traced "
+              f"{', '.join(f'{x:.2f}' for x in walls[True])} ms (medians' difference "
+              f"{add_wall:.2f} ms). The transport alone, 10 pairs: untraced median "
+              f"{statistics.median(sims[False]):.2f} ms (quartiles {q(sims[False])[0]:.2f}-"
+              f"{q(sims[False])[2]:.2f}), traced {statistics.median(sims[True]):.2f} ms "
+              f"({q(sims[True])[0]:.2f}-{q(sims[True])[2]:.2f}): tracing adds {add_sim:.2f} ms "
+              f"a round; rows equal")
+    return launches
+
+
+def _obs_fedbuff(paper, tmp) -> dict:
+    """(c) fedbuff to 10 updates on the loaded paper PON, untraced and
+    traced: the registry totals and the transport columns equal. Returns the
+    traced run's launches."""
+    from repro_torch import obs
+    from repro_torch.launch import femnist_async
+    exp = _runtime_exp("fedbuff", "sfl_two_step", dict(**PAPER_PON, **LOADED))
+    counters = _counters()
+    out = []
+    for traced in (False, True):
+        _zero(counters)
+        sess = obs.session(trace_out=os.path.join(tmp, "fedbuff.trace.json"),
+                           health=True) if traced else None
+        t0 = time.perf_counter()
+        try:
+            hist, orch = femnist_async.run(exp, full=True, n_updates=10, data=paper,
+                                           device="cuda")
+        finally:
+            n_spans = len(sess.tracer.spans) if sess is not None else 0
+            if sess is not None:
+                sess.finish(quiet=True)
+        out.append((hist, orch, time.perf_counter() - t0, n_spans,
+                    {k: fn.launches for k, fn in counters.items()}))
+    (h0, o0, w0, _, c0), (h1, o1, w1, n_spans, c1) = out
+    reg = o1.metrics.counter("pon.upstream_mbits")
+    check(_runtime_columns(h0) == _runtime_columns(h1) and c0 == c1
+          and o0.total_upstream_mbits == o1.total_upstream_mbits == reg.total,
+          f"obs [fedbuff]: traced {o1.total_upstream_mbits} vs {o0.total_upstream_mbits}")
+    print(f"obs [fedbuff]: 10 updates, traced {n_spans} spans; registry total "
+          f"{reg.total:.3f} Mb = the untraced run's, transport columns and launches equal; "
+          f"wall {w0:.2f} s untraced, {w1:.2f} s traced; fl.staleness count "
+          f"{o1.metrics.histogram('fl.staleness').count}")
+    del o0, o1
+    return c1
+
+
+def _obs_bundles(paper, tmp) -> None:
+    """(d) A run bundle from the card and one from the CPU, the same config
+    at reduced width (H = 1, 2 rounds, one init), compared with the port's
+    diff engine: no hard diff but the backend timings' host seconds."""
+    from repro_torch import configs, obs
+    from repro_torch.launch import femnist as launch
+    from repro_torch.models import femnist_cnn
+    from repro_torch.obs.audit import RunReport, diff_bundles
+    from repro_torch.pon import PonConfig
+    p0 = femnist_cnn.init_params(configs.get("femnist_cnn").reduced(),
+                                 torch.Generator().manual_seed(0), device="cpu")
+    reports = {}
+    for dev in ("cuda", "cpu"):
+        path = os.path.join(tmp, f"bundle_{dev}.json")
+        sess = obs.session(report_out=path, health=True, driver="round_loop")
+        try:
+            loop = launch.run(n_rounds=2, n_selected=128, seed=0, modes=("sfl_two_step",),
+                              pon=PonConfig(**PAPER_PON), params=p0, device=dev, data=paper,
+                              local_steps=1)["sfl_two_step"]["loop"]
+        finally:
+            sess.finish(quiet=True, cfg=loop.cfg, history=loop.history)
+        reports[dev] = RunReport.load(path)
+    card, cpu = reports["cuda"], reports["cpu"]
+    d = diff_bundles(card, cpu, rtol=1e-4)
+    hard = [e for e in d.entries if e.status != "warn"]
+    timing = [e for e in hard if e.section == "metrics" and e.key.startswith("histogram:backend.")
+              and not e.key.endswith((".count", ".n"))]
+    check(card.config_hash == cpu.config_hash and not d.config_delta and hard == timing,
+          "obs [bundles]: card vs CPU: " + "; ".join(e.line() for e in hard if e not in timing))
+    check(bool(card.env.get("device")), f"obs [bundles]: env {card.env}")
+    print(f"obs [bundles]: card ({card.env.get('device')}) vs CPU at reduced width, H = 1, 2 rounds: "
+          f"config hash {card.config_hash} both; history (rtol 1e-4), transport metrics, "
+          f"incidents and {len(card.trace.get('traceEvents', []))} trace events without a hard "
+          f"diff; {len(timing)} host-time fields of backend.*_s differ (the reference's names "
+          f"match no warn fragment), {d.n_warns} warnings")
+
+
+def _obs_ranges() -> None:
+    """(e) in a process of its own, whose profiler session is its first:
+    late sessions in one process miss device activity (a full run's
+    thirteenth recorded 8 of these 25 launches). The kernels are built."""
+    sys.stdout.flush()
+    code = (f"import sys; sys.path[:0] = {[ROOT, os.path.join(ROOT, 'src')]!r}; "
+            "import chip_smoke; chip_smoke._obs_ranges_window()")
+    check(subprocess.run([sys.executable, "-c", code], cwd=ROOT).returncode == 0,
+          "obs [ranges]: the profiler window's process failed")
+
+
+def _obs_ranges_window() -> None:
+    """One torch.profiler window over one call of each kernel wrapper:
+    each ``kernels.<name>`` range once a call, its counter stepped as the
+    call's launches, every device kernel of the port launched inside its
+    range; then what a range costs on the host at the decode calls."""
+    import importlib
+    from repro_torch import device
+    device.resolve("cuda")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs import profile as obs_profile
+    agg = importlib.import_module("repro_torch.kernels.agg_reduce")
+    qz = importlib.import_module("repro_torch.kernels.quantize")
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    rg = importlib.import_module("repro_torch.kernels.rglru_scan")
+    rw = importlib.import_module("repro_torch.kernels.rwkv6_scan")
+    g = torch.Generator(device="cuda").manual_seed(18)
+    N, C = N_FC1, 16
+    x, u, m = _row_inputs(g, C, N)
+    wm = (torch.rand(C, generator=g, device="cuda") * 400).contiguous()
+    ones = torch.ones(C, device="cuda")
+    seg = np.arange(C) % 4
+    q8 = qz.quantize_rows(x, u, ones, 127.0)
+    th = qz.topk_thresholds(x, qz.topk_k(N, 0.01))
+    bf = torch.bfloat16
+    qh, kh = (torch.randn(s, generator=g, device="cuda").to(bf)
+              for s in ((1, 16, 1024, 128), (1, 2, 1024, 128)))
+    a = torch.rand((1, 256, 4096), generator=g, device="cuda")
+    b = torch.randn((1, 256, 4096), generator=g, device="cuda")
+    r = torch.randn((1, 8, 256, 64), generator=g, device="cuda").to(bf)
+    lw = -torch.rand((1, 8, 256, 64), generator=g, device="cuda")
+    uu = torch.randn((8, 64), generator=g, device="cuda")
+    r1, lw1 = r[:, :, :1].contiguous(), lw[:, :, :1].contiguous()
+    # the backwards' inputs: their forwards under grad, outside the window
+    qg, kg = (t.detach().requires_grad_() for t in (qh, kh))
+    ag, rf = a.detach().requires_grad_(), r.detach().float().requires_grad_()
+    fo = fa.flash_attention(qg, kg, kg)
+    ro = rg.rglru_scan(ag, b)[0]
+    wo = rw.rwkv6_scan(rf, rf, rf, lw, uu)[0]
+    torch.cuda.synchronize()
+    agg_k, q_k = ("segment_agg",), ("quantize_vec4", "quantize_scalar")
+    dq_k, tk_k = ("dequantize_vec4", "dequantize_scalar"), ("topk_mask_vec4", "topk_mask_scalar")
+    calls = (  # (range, call, wrapper, its counter and steps a call, device kernels a call)
+        ("kernels.agg_reduce", lambda: agg.segment_agg_reduce(x, wm, seg, 4),
+         agg.segment_agg_reduce, "launches", 1, agg_k, 1),
+        ("kernels.agg_reduce", lambda: agg.agg_reduce(x, wm, m),
+         agg.segment_agg_reduce, "launches", 1, agg_k, 1),
+        ("kernels.agg_reduce_quant", lambda: agg.segment_agg_reduce_quant(x, wm, seg, 4, u[:4]),
+         agg.segment_agg_reduce_quant, "launches", 1, agg_k + q_k, 2),
+        ("kernels.agg_reduce_quant", lambda: agg.agg_reduce_quant(x, wm, m, u[0]),
+         agg.segment_agg_reduce_quant, "launches", 1, agg_k + q_k, 2),
+        ("kernels.quantize_int8", lambda: qz.quantize_rows(x, u, ones, 127.0),
+         qz.quantize_rows, "launches", 1, q_k, 1),
+        ("kernels.quantize_int4", lambda: qz.quantize_int4(x[0], u[0]),
+         qz.quantize_rows, "launches", 1, q_k, 1),
+        ("kernels.dequantize_int8", lambda: qz.dequantize_rows(q8, wm, m),
+         qz.dequantize_rows, "launches", 1, dq_k, 1),
+        ("kernels.dequantize_int8", lambda: qz.dequantize_int8(q8[0], wm[0]),
+         qz.dequantize_rows, "launches", 1, dq_k, 1),
+        ("kernels.topk_sparsify", lambda: qz.topk_mask_rows(x, th, m),
+         qz.topk_mask_rows, "launches", 1, tk_k, 1),
+        ("kernels.topk_sparsify", lambda: qz.topk_mask(x[0], th[0]),
+         qz.topk_mask_rows, "launches", 1, tk_k, 1),
+        ("kernels.flash_attention", lambda: fa.flash_attention(qh, kh, kh),
+         fa.flash_attention, "launches", 1, ("flash_wgmma", "flash_fwd"), 1),
+        ("kernels.flash_attention_bwd", lambda: fo.sum().backward(),
+         fa.flash_attention, "launches_bwd", 3,
+         ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_wgmma",
+          "flash_bwd_dq_wgmma"), 3),
+        ("kernels.rglru_scan", lambda: rg.rglru_scan(a, b),
+         rg.rglru_scan, "launches", 1, ("rglru_ring", "rglru_scalar"), 1),
+        ("kernels.rglru_scan_bwd", lambda: ro.sum().backward(),
+         rg.rglru_scan, "launches_bwd", 1, ("rglru_bwd_ring", "rglru_bwd_scalar"), 1),
+        ("kernels.rwkv6_scan", lambda: rw.rwkv6_scan(r, r, r, lw, uu),
+         rw.rwkv6_scan, "launches", 1, ("rwkv6_states", "rwkv6_state_scan", "rwkv6_outputs"), 3),
+        ("kernels.rwkv6_scan", lambda: rw.rwkv6_scan(r1, r1, r1, lw1, uu),
+         rw.rwkv6_scan, "launches", 1, ("rwkv6_decode",), 1),
+        ("kernels.rwkv6_scan_bwd", lambda: wo.sum().backward(),
+         rw.rwkv6_scan, "launches_bwd", 3,
+         ("rwkv6_bwd_states", "rwkv6_bwd_state_scan", "rwkv6_bwd_grads"), 3),
+    )
+    wrappers = {(c[2].__name__, c[3]): c[2] for c in calls}
+    before = {key: getattr(fn, key[1]) for key, fn in wrappers.items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        for c in calls:
+            c[1]()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    want = {}
+    for c in calls:
+        want[(c[2].__name__, c[3])] = want.get((c[2].__name__, c[3]), 0) + c[4]
+    for key, n in want.items():
+        got = getattr(wrappers[key], key[1]) - before[key]
+        check(got == n, f"obs [ranges]: {key[0]}.{key[1]} stepped {got}, want {n}")
+    events = prof.events()
+    kname = lambda name: _kernel_name(name).split("<")[0]  # noqa: E731
+    ranges = [e for e in events if e.device_type == DeviceType.CPU
+              and e.name.startswith("kernels.")]
+    annotations = [e for e in events if e.device_type == DeviceType.CUDA
+                   and e.name.startswith("kernels.")]
+    ours = {n for c in calls for n in c[5]}
+    port = [e for e in events if e.device_type == DeviceType.CUDA and kname(e.name) in ours]
+    check(len(port) == sum(c[6] for c in calls),
+          f"obs [ranges]: {len(port)} of the port's {sum(c[6] for c in calls)} device kernels "
+          "recorded")
+    lines = []
+    for name in sorted({c[0] for c in calls}):
+        mine = [c for c in calls if c[0] == name]
+        names, launched = {n for c in mine for n in c[5]}, sum(c[6] for c in mine)
+        n_ranges = sum(1 for e in ranges if e.name == name)
+        check(n_ranges == len(mine), f"obs [ranges]: {n_ranges} {name} ranges, {len(mine)} calls")
+        # the range's device kernels: attached to it by the profiler's launch
+        # correlation, or inside its span on the card's timeline
+        attached = sum(1 for e in ranges if e.name == name for k in e.kernels
+                       if kname(k.name) in names)
+        spans = [(e.time_range.start, e.time_range.end) for e in annotations if e.name == name]
+        inside = sum(1 for e in port if kname(e.name) in names
+                     and any(s <= e.time_range.start and e.time_range.end <= t for s, t in spans))
+        lines.append(f"{name} x{n_ranges}: {launched} device kernels, {attached} attached to "
+                     f"the range, {inside} inside its {len(spans)} device spans")
+        check(attached == launched or inside == launched, f"obs [ranges]: {lines[-1]}")
+    print("obs [ranges]: one profiler window, one call a wrapper: " + "; ".join(lines))
+    # what a range costs on the host at the serve path's most frequent
+    # launches, the decode calls of rwkv6-3b and recurrentgemma-9b: the
+    # wrapper as the serve path calls it (no profiler: the range's test
+    # alone), and the bare call inside an open range
+    rd = torch.randn((4, 48, 1, 64), generator=g, device="cuda").to(bf)
+    wd, ud = -torch.rand((4, 48, 1, 64), generator=g, device="cuda"), uu.new_zeros((48, 64))
+    ad, bd = (torch.rand((4, 1, 4096), generator=g, device="cuda") for _ in range(2))
+    hd = torch.zeros((4, 4096), device="cuda")
+
+    def ranged(fn):
+        with obs_profile.named_scope("kernels.probe"):
+            fn()
+    for label, scoped, bare in (
+            ("rwkv6_scan decode (4, 48, 1, 64)", lambda: rw.rwkv6_scan(rd, rd, rd, wd, ud),
+             lambda: rw.rwkv6_scan.__wrapped__(rd, rd, rd, wd, ud)),
+            ("rglru_scan decode (4, 1, 4096)", lambda: rg.rglru_scan(ad, bd, hd),
+             lambda: rg.rglru_scan.__wrapped__(ad, bd, hd))):
+        runs = [(host_ms(bare), host_ms(scoped), host_ms(lambda: ranged(bare)))
+                for _ in range(3)]
+        test = [1e3 * (s - b) for b, s, _ in runs]
+        open_ = [1e3 * (o - b) for b, _, o in runs]
+        print(f"obs [ranges]: a {label} call {1e3 * statistics.median(b for b, _, _ in runs):.2f}"
+              f" us bare; the wrapper's range test adds {statistics.median(test):.2f} us "
+              f"({', '.join(f'{c:.2f}' for c in test)}), an open range "
+              f"{statistics.median(open_):.2f} us ({', '.join(f'{c:.2f}' for c in open_)}; host "
+              "clock over 1000 calls, 3 runs each)")
+
+
+def _obs_train(tmp) -> None:
+    """(f) launch.train's CLI: qwen2-0.5b at full width, 2 steps, batch 8 ×
+    2048, adamw, ``--report-out``: the bundle holds backend.train_step_s
+    with count 2."""
+    from repro_torch.launch import train
+    from repro_torch.obs.audit import RunReport
+    path = os.path.join(tmp, "train.report.json")
+    torch.cuda.empty_cache()
+    train.main(["--arch", "qwen2-0.5b", "--steps", "2", "--batch", str(TRAIN["batch"]),
+                "--seq", str(TRAIN["seq"]), "--lr", str(TRAIN["lr"]), "--log-every", "1",
+                "--report-out", path, "--health"])
+    rep = RunReport.load(path)
+    (h,) = [r for r in rep.metrics if r["name"] == "backend.train_step_s"]
+    check(h["count"] == 2 and len(rep.history) == 2 and rep.driver == "round_loop",
+          f"obs [train]: {h}")
+    print(f"obs [train]: qwen2-0.5b bundle cfg {rep.config_hash}: backend.train_step_s count "
+          f"{h['count']}, mean {h['mean']:.3f} s, max {h['max']:.3f} s; "
+          f"{len(rep.trace.get('traceEvents', []))} trace events, {len(rep.incidents)} incidents")
+    torch.cuda.empty_cache()
+
+
+def phase_obs() -> dict:
+    """Phase 18; returns the main path's launches by kernel (the traced
+    runs of (a)-(c))."""
+    import tempfile
+    paper, forest = _population(320), _population(1280)
+    launches = dict.fromkeys(_counters(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for counts in (_obs_slice(paper, tmp), _obs_transport_cost(paper, forest, tmp),
+                       _obs_fedbuff(paper, tmp)):
+            for k in launches:
+                launches[k] += counts[k]
+        _obs_bundles(paper, tmp)
+        _obs_ranges()
+        _obs_train(tmp)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3158,6 +3624,8 @@ def main() -> int:
     runtime_rows, runtime_launches, lm_launches = phase(phase_runtime)
     rows["agg_reduce"]["runtime_shapes"] = runtime_rows
     for name, n in dict(runtime_launches, **lm_launches).items():
+        launches[name] += n
+    for name, n in phase(phase_obs).items():
         launches[name] += n
     print(f"total {time.perf_counter() - t0:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"

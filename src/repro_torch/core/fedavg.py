@@ -37,7 +37,10 @@ class FLConfig:
     local_steps: int = 5            # H: minibatch SGD steps per round
     local_batch: int = 10           # LEAF defaults
     local_lr: float = 0.06
+    mode: str = "sfl"               # unread (a Strategy's transport rules);
+                                    # the reference's field, so configs hash alike
     sync_threshold_s: float = 25.0  # the paper's deadline
+    seed: int = 0                   # unread (ExperimentConfig.seed rules), as mode
     client_chunk: int = 16          # vmap chunking (device-memory bound)
     # transport: None = the paper's fixed-slice defaults. FLConfig stays the
     # single source of truth for the FL topology and deadline — those
@@ -76,8 +79,8 @@ def onu_of_client(fl: FLConfig) -> np.ndarray:
 def round_transport(fl: FLConfig, rng: np.random.Generator,
                     selected: np.ndarray, sample_counts: np.ndarray,
                     onu_ids: Optional[np.ndarray] = None, *,
-                    mode: str, wire_scale: Optional[float] = None
-                    ) -> Dict[str, Any]:
+                    mode: str, wire_scale: Optional[float] = None,
+                    obs=None) -> Dict[str, Any]:
     """One round of the PON transport under ``fl``'s config; ``mode`` is
     what crosses the upstream ("sfl" | "classical" | "hier", a Strategy's
     ``transport``). The mask ``apply_round`` expects is ``["involved"]``.
@@ -86,13 +89,15 @@ def round_transport(fl: FLConfig, rng: np.random.Generator,
     compressed payload is what rides the wire, so the deadline physics and
     the Mbits billed both see it, and ``["wire_mbits"]`` records the
     per-model wire size. None (no compression) leaves the round untouched.
+    ``obs`` (a ``repro_torch.obs.Obs``; default the ambient one) takes the
+    transport's metrics and spans.
     """
     if onu_ids is None:
         onu_ids = onu_of_client(fl)
     pon = fl.pon_config()
     if wire_scale is not None:
         pon = dataclasses.replace(pon, model_mbits=pon.model_mbits * wire_scale)
-    rt = round_times(pon, rng, selected, onu_ids, sample_counts, mode)
+    rt = round_times(pon, rng, selected, onu_ids, sample_counts, mode, obs=obs)
     if wire_scale is not None:
         rt["wire_mbits"] = pon.model_mbits
     return rt

@@ -30,8 +30,9 @@ def resolve(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
-def _synchronize() -> None:
-    if torch.cuda.is_initialized():       # no-op for a CPU-only run
+def synchronize() -> None:
+    """Wait for the card's queued work; a no-op in a CPU-only run."""
+    if torch.cuda.is_initialized():
         torch.cuda.synchronize()
 
 
@@ -41,8 +42,8 @@ def timed(fn: Callable, *args, **kwargs) -> Tuple[Any, float]:
     Synchronises the card before each clock read: PyTorch returns before
     queued kernels finish, so a bare host clock would time the enqueue.
     """
-    _synchronize()
+    synchronize()
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
-    _synchronize()
+    synchronize()
     return out, time.perf_counter() - t0

@@ -21,7 +21,6 @@ from repro_torch.fl.config import (
     comparison_modes,
     experiment_config_from_args,
     filter_strategy_kwargs,
-    refuse_unported_flags,
     strategy_kwargs_from_args,
 )
 from repro_torch.fl.backends import ClientStackedBackend, GradientBackend, TransportBackend
@@ -32,7 +31,7 @@ __all__ = [
     "canonical_name", "make_strategy", "register_strategy", "strategy_names",
     "ExperimentConfig", "add_experiment_cli_args", "add_strategy_cli_args",
     "comparison_modes", "experiment_config_from_args", "filter_strategy_kwargs",
-    "refuse_unported_flags", "strategy_kwargs_from_args", "ClientStackedBackend",
+    "strategy_kwargs_from_args", "ClientStackedBackend",
     "GradientBackend", "TransportBackend", "History", "RoundLoop", "replay_sync_round",
     "sync_round",
 ]

@@ -14,6 +14,11 @@ owns selection, failures and PON transport. Contract:
         — consume exactly run_round's RNG draws without training (resume);
           a backend whose rounds draw nothing from ``rng`` has none
 
+Host timings go into the ambient ``repro_torch.obs`` registry under the
+reference's names (``backend.train_s``, ``backend.eval_s``,
+``backend.train_step_s``) through ``obs.profile.timed``, which synchronises
+the card before each clock read.
+
 The asynchronous seam of the runtime's semi_sync / fedbuff policies
 (``ClientStackedBackend`` and ``TransportBackend``; ``GradientBackend`` is
 sync-only):
@@ -39,6 +44,8 @@ from repro_torch.core.fedavg import FLConfig
 from repro_torch.data import femnist
 from repro_torch.device import timed
 from repro_torch.fl.strategy import Strategy
+from repro_torch.obs import profile
+from repro_torch.obs.context import get as _obs_get
 
 
 def backend_wire_scale(backend) -> float:
@@ -87,8 +94,11 @@ class ClientStackedBackend:
                       if spec.active else None)
 
     def _eval(self) -> Dict[str, float]:
+        obs = _obs_get()
         with torch.no_grad():
-            loss, metrics = self.loss_fn(self.params, self.eval_batch)
+            (loss, metrics), _ = profile.timed(
+                "backend.eval_s", self.loss_fn, self.params, self.eval_batch,
+                metrics=obs.metrics, tracer=obs.tracer)
         out = {"eval_loss": float(loss)}
         out.update({k: float(v) for k, v in metrics.items()})
         self._last_eval = out
@@ -119,10 +129,13 @@ class ClientStackedBackend:
                                  fl.local_batch) for c in padded]
         cb = {k: torch.from_numpy(np.stack([b[k] for b in mbs])).to(self.device)
               for k in mbs[0]}
-        (deltas, _), train_s = timed(
-            fedavg.train_selected_clients, self.params, cb, self.loss_fn, fl,
+        obs = _obs_get()
+        (deltas, _), train_s = profile.timed(
+            "backend.train_s", fedavg.train_selected_clients,
+            self.params, cb, self.loss_fn, fl,
+            metrics=obs.metrics, tracer=obs.tracer,
             local_update=self.strategy.local_update)
-        out = {"train_s": train_s}
+        out = {"train_host_s": train_s}
         out.update(self._apply_and_eval(rnd, deltas, w, row_mask, self.onu_ids[padded],
                                         client_ids=padded))
         return out
@@ -130,15 +143,15 @@ class ClientStackedBackend:
     def _apply_and_eval(self, rnd: int, stacked, weights, mask, onu_ids,
                         client_ids) -> Dict[str, float]:
         """Shared tail of the sync round and the async apply: strategy
-        aggregate → server update → uplink stats, ``aggregate_s`` and the
-        eval cadence."""
+        aggregate → server update → uplink stats, ``aggregate_host_s`` and
+        the eval cadence."""
         (agg, stats), aggregate_s = timed(
             self.strategy.aggregate, stacked, weights, mask, onu_ids,
             self.fl.total_onus, comp=self._comp, client_ids=client_ids)
         self.params, self.server_state = self.strategy.server_update(
             self.params, agg, self.server_state)
         out = {"uplink_models": float(stats["uplink_models"]),
-               "aggregate_s": aggregate_s}
+               "aggregate_host_s": aggregate_s}
         if (rnd + 1) % self.eval_every == 0:
             out.update(self._eval())
         elif self._last_eval:
@@ -251,8 +264,11 @@ class GradientBackend:
         batch = {"tokens": torch.from_numpy(tokens).to(self.device),
                  "client_weight": torch.from_numpy(self.round_weights(selected, mask)
                                                    ).to(self.device)}
-        (self.params, self.opt_state, loss), dt = timed(
-            self.train_step, self.params, self.opt_state, batch)
+        obs = _obs_get()
+        (self.params, self.opt_state, loss), dt = profile.timed(
+            "backend.train_step_s", self.train_step,
+            self.params, self.opt_state, batch,
+            metrics=obs.metrics, tracer=obs.tracer)
         return {"loss": float(loss), "dt": dt,
                 "grad_norm": float(self.train_step.grad_norm)}
 

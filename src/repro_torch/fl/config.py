@@ -7,7 +7,6 @@ runtime's policy knobs. Buildable from one shared argparse helper
 entry points expose the reference's flag set."""
 from __future__ import annotations
 
-import argparse
 import dataclasses
 from typing import Any, Optional, Tuple
 
@@ -15,11 +14,6 @@ from repro_torch.core.fedavg import FLConfig
 from repro_torch.fl.strategy import Strategy, canonical_name, make_strategy, strategy_names
 from repro_torch.pon import add_pon_cli_args, pon_config_from_args
 from repro_torch.runtime.failures import FailureModel
-
-# reference flags whose machinery the port does not have yet, with the
-# ROADMAP.md item that ports it; parsed so that they are refused by name
-REFUSED_FLAGS = {"trace_out": "Queue 1 item 5 (repro.obs)",
-                 "metrics_out": "Queue 1 item 5 (repro.obs)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,12 +64,13 @@ class ExperimentConfig:
 def add_experiment_cli_args(ap, strategy_default: str = "sfl_two_step") -> None:
     """Attach the reference's federated-experiment flag set to a parser:
     the PON transport flags (``pon.add_pon_cli_args``), the strategy,
-    selection, failure and compression knobs and the runtime's policy
-    knobs. ``--trace-out`` and ``--metrics-out`` are parsed and refused by
-    :func:`refuse_unported_flags`."""
+    selection, failure and compression knobs, the runtime's policy knobs
+    and the observability flags (``--trace-out``, ``--metrics-out``,
+    ``--report-out``, ``--health``, ``--incidents-out``, ``--slo-*``:
+    ``obs.add_obs_cli_args``)."""
+    from repro_torch import obs
     add_pon_cli_args(ap)
-    for name in REFUSED_FLAGS:
-        ap.add_argument("--" + name.replace("_", "-"), default=None, help=argparse.SUPPRESS)
+    obs.add_obs_cli_args(ap)
     g = ap.add_argument_group("federated experiment (repro_torch.fl)")
     g.add_argument("--strategy", default=strategy_default,
                    help=f"aggregation strategy: {'|'.join(strategy_names())} "
@@ -117,13 +112,6 @@ def add_experiment_cli_args(ap, strategy_default: str = "sfl_two_step") -> None:
     r.add_argument("--onu-gather-s", type=float, default=1.0,
                    help="async SFL: seconds an ONU gathers arrivals "
                         "before emitting one θ")
-
-
-def refuse_unported_flags(ap, args) -> None:
-    """``ap.error`` naming the ROADMAP.md item of the first refused flag set."""
-    for name, item in REFUSED_FLAGS.items():
-        if getattr(args, name, None) is not None:
-            ap.error(f"--{name.replace('_', '-')} is not ported yet: ROADMAP.md {item}")
 
 
 def add_strategy_cli_args(ap) -> None:

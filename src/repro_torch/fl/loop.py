@@ -14,6 +14,12 @@ History (``involved``, ``upstream_mbits``, ``uplink_models`` and a
 forest's per-segment Mbits) equal the reference's round for round. A crashed
 client is removed before transport (never billed upstream); a transient
 failure is billed but masked out of the aggregate.
+
+Every driver owns a ``repro_torch.obs`` bundle: its registry is the source
+of the Mbits accounting (each row reads its segment's counter window back),
+and an enabled tracer puts each round's spans on one global timeline,
+``offset_s`` = round × deadline window. Tracing and health monitoring draw
+nothing from the round's generator, so they move no History value.
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ from repro_torch.core.fedavg import round_transport
 from repro_torch.device import timed
 from repro_torch.fl.backends import backend_wire_scale
 from repro_torch.fl.config import ExperimentConfig
+from repro_torch.obs.context import Obs
+from repro_torch.obs.context import get as _obs_get
 
 
 class History:
@@ -66,7 +74,7 @@ def _expand_rt(rt: Dict[str, Any], live: np.ndarray) -> Dict[str, Any]:
 
 
 def _transport_stage(cfg: ExperimentConfig, backend, failures,
-                     rng: np.random.Generator, rnd: int
+                     rng: np.random.Generator, rnd: int, obs=None
                      ) -> Tuple[np.ndarray, np.ndarray, Dict[str, Any]]:
     """selection → crash injection → PON transport → transient mask.
 
@@ -83,7 +91,8 @@ def _transport_stage(cfg: ExperimentConfig, backend, failures,
     spec = backend.strategy.compression_spec()
     rt = round_transport(fl, rng, sel[live], backend.sample_counts,
                          backend.onu_ids, mode=backend.strategy.transport,
-                         wire_scale=backend_wire_scale(backend) if spec.active else None)
+                         wire_scale=backend_wire_scale(backend) if spec.active else None,
+                         obs=obs)
     if spec.active:
         rt["compress"] = spec.scheme
     if not live.all():
@@ -94,35 +103,79 @@ def _transport_stage(cfg: ExperimentConfig, backend, failures,
     return sel, mask, rt
 
 
-# the per-segment accounting a forest's transport returns (pon.metro), in
-# the reference's row order; each is recorded whenever the transport has it
-_SEGMENT_KEYS = ("upstream_mbits", "metro_mbits", "trunk_mbits",
-                 "pon_mbits_max", "metro_mbits_max", "n_pons")
+# History key → registry counter (the window is the round's value) for the
+# per-segment accounting, in the reference's row order; maxima are
+# point-in-round gauges
+_SEG_COUNTERS = {"upstream_mbits": "pon.upstream_mbits",
+                 "metro_mbits": "metro.mbits",
+                 "trunk_mbits": "trunk.mbits"}
+_SEG_GAUGES = {"pon_mbits_max": "pon.mbits_max",
+               "metro_mbits_max": "metro.mbits_max",
+               "n_pons": "fl.n_pons"}
 
 
 def sync_round(cfg: ExperimentConfig, backend, failures,
-               rng: np.random.Generator, rnd: int) -> Dict[str, Any]:
-    """One synchronous deadline round; returns the History record, whose
-    transport values are the transport's floats, as the reference's."""
-    sel, mask, rt = _transport_stage(cfg, backend, failures, rng, rnd)
+               rng: np.random.Generator, rnd: int,
+               obs: Optional[Obs] = None) -> Dict[str, Any]:
+    """One synchronous deadline round; returns the History record.
+
+    The bandwidth accounting goes through ``obs.metrics`` (default: the
+    ambient context's): each segment's Mbits are added to its counter and
+    the record reads the drained window back — one add per take, so each
+    value is the transport's float bit for bit while ``counter.total``
+    accumulates the run's total.
+    """
+    if obs is None:
+        obs = _obs_get()
+    trc = obs.tracer
+    if trc.enabled:
+        # retroactive spans inside this round land on a global timeline,
+        # offset to the round's start in the lockstep window cadence
+        window = cfg.fl.pon_config().sync_threshold_s
+        trc.offset_s = rnd * window
+        trc.add_span("round", 0.0, window, lane=("fl", "rounds"), cat="round",
+                     args={"round": rnd})
+    sel, mask, rt = _transport_stage(cfg, backend, failures, rng, rnd, obs)
     metrics = backend.run_round(rnd, sel, mask, rt, rng)
+    reg = obs.metrics
     rec = {"round": rnd, "n_selected": len(sel),
            "sim_engine": rt.get("sim_engine", "event"),
            "involved": float(mask.sum())}
-    rec.update({k: float(rt[k]) for k in _SEGMENT_KEYS if k in rt})
+    reg.histogram("fl.involved").observe(rec["involved"])
+    for key, cname in _SEG_COUNTERS.items():
+        if key in rt:
+            c = reg.counter(cname)
+            c.add(float(rt[key]))
+            rec[key] = c.take()
+    for key, gname in _SEG_GAUGES.items():
+        if key in rt:
+            g = reg.gauge(gname)
+            g.set(float(rt[key]))
+            rec[key] = g.value
     if "wire_mbits" in rt:
         # the compressed per-model wire size; absent in an uncompressed run
-        rec["wire_mbits"] = float(rt["wire_mbits"])
+        g = reg.gauge("fl.wire_mbits")
+        g.set(float(rt["wire_mbits"]))
+        rec["wire_mbits"] = g.value
         rec["compress"] = rt["compress"]
     rec.update(metrics)
+    if obs.health is not None:
+        # online health monitors; incidents surface in the row only when
+        # fired, so disabled and healthy runs stay identical
+        new = obs.health.observe_round(rec, cfg=cfg, tracer=trc)
+        if new:
+            rec["incidents"] = len(new)
     return rec
 
 
 def replay_sync_round(cfg: ExperimentConfig, backend, failures,
                       rng: np.random.Generator, rnd: int) -> None:
     """Consume exactly :func:`sync_round`'s RNG draws without training (the
-    backend's part through its optional ``replay_round``)."""
-    sel, mask, rt = _transport_stage(cfg, backend, failures, rng, rnd)
+    backend's part through its optional ``replay_round``). Replayed rounds
+    are invisible to observability: a throwaway disabled ``Obs`` keeps the
+    fast-forward from emitting spans or moving metrics."""
+    sel, mask, rt = _transport_stage(cfg, backend, failures, rng, rnd,
+                                     obs=Obs())
     replay = getattr(backend, "replay_round", None)
     if replay is not None:
         replay(rnd, sel, mask, rt, rng)
@@ -147,16 +200,24 @@ class RoundLoop:
 
     Each row also carries ``wall_s``, the round's host time with the card
     synchronised at both ends. Each callback is called with ``(loop, rec)``
-    after each round, in order.
+    after each round, in order. ``obs`` defaults to a child of the ambient
+    context: a private registry (a sweep's loops keep their own totals)
+    sharing its tracer and health engine.
     """
 
-    def __init__(self, cfg: ExperimentConfig, backend, callbacks: Iterable[Callback] = ()):
+    def __init__(self, cfg: ExperimentConfig, backend, callbacks: Iterable[Callback] = (),
+                 obs: Optional[Obs] = None):
         self.cfg = cfg
         self.backend = backend
         self.callbacks: List[Callback] = list(callbacks)
         self.rng = np.random.default_rng(cfg.seed)
         self.failures = cfg.make_failure_model()
         self.history = History()
+        self.obs = obs if obs is not None else _obs_get().child()
+        # run-level label on every exported metrics record (the diff keys
+        # on it to localize engine-choice divergences between bundles)
+        self.obs.metrics.tag("sim_engine",
+                             getattr(cfg.fl.pon_config(), "sim_engine", "event"))
         self.rounds_consumed = 0    # rounds whose RNG draws have been used
         n = cfg.fl.n_clients
         if len(backend.sample_counts) < n or len(backend.onu_ids) < n:
@@ -165,9 +226,18 @@ class RoundLoop:
                 f"cfg.fl.n_clients={n}; size the backend's sample_counts/"
                 "onu_ids to the FL population")
 
+    @property
+    def metrics(self):
+        """The loop's private MetricsRegistry (the accounting's source)."""
+        return self.obs.metrics
+
+    @property
+    def total_upstream_mbits(self) -> float:
+        return self.obs.metrics.counter("pon.upstream_mbits").total
+
     def run_round(self, rnd: int) -> Dict[str, Any]:
         rec, wall_s = timed(sync_round, self.cfg, self.backend, self.failures,
-                            self.rng, rnd)
+                            self.rng, rnd, obs=self.obs)
         rec["wall_s"] = wall_s
         self.rounds_consumed += 1
         self.history.append(rec)

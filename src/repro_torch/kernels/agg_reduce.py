@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.obs.profile import kernel_scope
 from repro_torch.kernels.quantize import (launch_quantize, qmax_of,
                                           quantize_rows_plain)
 
@@ -138,6 +139,7 @@ def _launch(x: torch.Tensor, wm: torch.Tensor, seg: np.ndarray, n_seg: int,
     return out
 
 
+@kernel_scope("kernels.agg_reduce")
 def segment_agg_reduce(x: torch.Tensor, wm: torch.Tensor, seg_ids,
                        n_seg: int) -> torch.Tensor:
     """x: (C, N) f32/bf16; wm: (C,) f32; seg_ids: (C,) ints in [0, n_seg)
@@ -156,6 +158,7 @@ def segment_agg_reduce(x: torch.Tensor, wm: torch.Tensor, seg_ids,
 segment_agg_reduce.launches = 0   # kernel launches, for chip_smoke's path check
 
 
+@kernel_scope("kernels.agg_reduce")
 def agg_reduce(x: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor
                ) -> torch.Tensor:
     """x: (C, N) f32/bf16; weights, mask: (C,) -> (N,) f32 = Σ_c w_c·m_c·x_c."""
@@ -193,6 +196,7 @@ def segment_agg_reduce_quant_plain(x: torch.Tensor, wm: torch.Tensor, seg_ids,
     return quantize_rows_plain(theta, noise, scales, qmax), scales
 
 
+@kernel_scope("kernels.agg_reduce_quant")
 def segment_agg_reduce_quant(x: torch.Tensor, wm: torch.Tensor, seg_ids,
                              n_seg: int, noise: torch.Tensor, bits: int = 8
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -228,6 +232,7 @@ def segment_agg_reduce_quant(x: torch.Tensor, wm: torch.Tensor, seg_ids,
 segment_agg_reduce_quant.launches = 0
 
 
+@kernel_scope("kernels.agg_reduce_quant")
 def agg_reduce_quant(x: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor,
                      noise: torch.Tensor, bits: int = 8
                      ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -53,6 +53,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.obs.profile import kernel_scope
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 NEG_INF = -1e30
@@ -240,6 +241,7 @@ def _forward(q, k, v, causal: bool, window: int, scale: float, softcap: float,
     return out, lse
 
 
+@kernel_scope("kernels.flash_attention_bwd")
 def _backward(q, k, v, o, lse, do, causal: bool, window: int, scale: float, softcap: float):
     """The backward kernel's three launches -> (dq, dk, dv) in q's type."""
     B, H, KV, S, hd = _check_shapes(q, k, v)
@@ -307,6 +309,7 @@ def _launch(q, k, v, causal: bool, window: int, scale: float, softcap: float) ->
     return _forward(q, k, v, causal, window, scale, softcap, with_lse=False)[0]
 
 
+@kernel_scope("kernels.flash_attention")
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, scale=None,
                     softcap: float = 0.0) -> torch.Tensor:
     """q: (B, H, S, hd); k, v: (B, KV, S, hd), H a multiple of KV; f32 or

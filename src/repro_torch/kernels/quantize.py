@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.obs.profile import kernel_scope
 
 MAX_ROWS = 65535      # rows ride the grid's y dimension
 _INPUT_DTYPES = (torch.float32, torch.bfloat16)
@@ -41,6 +42,15 @@ def qmax_of(bits: int) -> float:
     if bits not in (4, 8):
         raise ValueError(f"unsupported quantization width: {bits} bits")
     return float(2 ** (bits - 1) - 1)
+
+
+def _quantize_intb_name(x, noise, bits: int) -> str:
+    """The profiler range of a quantize call: the reference's names."""
+    return f"kernels.quantize_int{bits}"
+
+
+def _quantize_name(x, noise, scales, qmax: float) -> str:
+    return _quantize_intb_name(x, noise, int(qmax).bit_length() + 1)
 
 
 def _on_card(name: str, x: torch.Tensor) -> bool:
@@ -109,6 +119,7 @@ def launch_quantize(x: torch.Tensor, noise: torch.Tensor, scales: torch.Tensor,
     return q
 
 
+@kernel_scope(_quantize_name)
 def quantize_rows(x: torch.Tensor, noise: torch.Tensor, scales: torch.Tensor,
                   qmax: float) -> torch.Tensor:
     """x: (R, N) f32/bf16; noise: (R, N) f32 in [0, 1); scales: (R,) f32
@@ -142,6 +153,7 @@ def dequantize_rows_plain(q: torch.Tensor, scales: torch.Tensor,
     return out if row_mask is None else out * row_mask[:, None]
 
 
+@kernel_scope("kernels.dequantize_int8")
 def dequantize_rows(q: torch.Tensor, scales: torch.Tensor,
                     row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (R, N) int8; scales: (R,) f32; row_mask: (R,) f32 or None
@@ -187,6 +199,7 @@ def topk_mask_rows_plain(x: torch.Tensor, thresh: torch.Tensor,
     return out if row_mask is None else out * row_mask[:, None]
 
 
+@kernel_scope("kernels.topk_sparsify")
 def topk_mask_rows(x: torch.Tensor, thresh: torch.Tensor,
                    row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (R, N) f32/bf16; thresh: (R,) f32; row_mask: (R,) f32 or None
@@ -213,6 +226,7 @@ topk_mask_rows.launches = 0
 # the TPU kernels' signatures: one vector, one scale or threshold
 # ---------------------------------------------------------------------------
 
+@kernel_scope(_quantize_intb_name)
 def quantize_intb(x: torch.Tensor, noise: torch.Tensor, bits: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (N,) f32/bf16, noise: (N,) f32 -> (q int8 (N,), scale f32 0-d).
@@ -229,6 +243,7 @@ quantize_int8 = functools.partial(quantize_intb, bits=8)
 quantize_int4 = functools.partial(quantize_intb, bits=4)
 
 
+@kernel_scope("kernels.dequantize_int8")
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     if q.shape[0] == 0:
         return torch.zeros((0,), dtype=torch.float32, device=q.device)
@@ -238,6 +253,7 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 dequantize_int4 = dequantize_int8   # same on-device pair; only the wire differs
 
 
+@kernel_scope("kernels.topk_sparsify")
 def topk_mask(x: torch.Tensor, thresh) -> torch.Tensor:
     """x: (N,) -> (N,) f32 with |x| < thresh zeroed (dense output)."""
     if x.shape[0] == 0:
@@ -251,6 +267,7 @@ def topk_threshold(x: torch.Tensor, k: int) -> torch.Tensor:
     return topk_thresholds(x[None], max(1, min(int(k), x.shape[0])))[0]
 
 
+@kernel_scope("kernels.topk_sparsify")
 def topk_sparsify(x: torch.Tensor, k: int) -> torch.Tensor:
     """x: (N,) -> dense (N,) f32 keeping the k largest-magnitude entries."""
     if x.shape[0] == 0:

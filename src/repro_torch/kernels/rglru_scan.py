@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.obs.profile import kernel_scope
 
 _ENTRIES = {"rglru_scan_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
             "rglru_scan_bwd_f32": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
@@ -97,6 +98,7 @@ def _forward(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor],
     return out, h_last
 
 
+@kernel_scope("kernels.rglru_scan_bwd")
 def _backward(a, out, h0, dout, dh_last):
     """The backward kernel on the forward's tensors -> (da, db, dh0); dout
     or dh_last None where that output took no gradient."""
@@ -148,6 +150,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor]
     return _forward(a, b, h0)
 
 
+@kernel_scope("kernels.rglru_scan")
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """a, b: (B, S, C) f32; h0: (B, C) f32 or None -> (out (B, S, C), h_last

@@ -36,6 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.obs.profile import kernel_scope
 
 DEFAULT_CHUNK = 64
 MAX_CHUNK = MAX_HEAD_DIM = 64      # the kernel's shared-memory tiles
@@ -223,6 +224,7 @@ def _forward(r, k, v, logw, u, chunk: int, s0, which: str):
     return o, s_out, scratch
 
 
+@kernel_scope("kernels.rwkv6_scan_bwd")
 def _backward(r, k, v, logw, u, s_out, scratch, do, ds_final, chunk: int):
     """The backward kernel's three launches on the forward's tensors and
     its chunk states -> (dr, dk, dv in r's type, dlogw, du (H, hd), ds0);
@@ -293,6 +295,7 @@ def _launch(r, k, v, logw, u, chunk: int, s0):
     return _forward(r, k, v, logw, u, chunk, s0, route(r.shape[2]))[:2]
 
 
+@kernel_scope("kernels.rwkv6_scan")
 def rwkv6_scan(r, k, v, logw, u, *, chunk: int = DEFAULT_CHUNK,
                s0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """r, k, v: (B, H, S, hd) f32/bf16; logw: (B, H, S, hd) f32; u: (H, hd);

@@ -19,7 +19,11 @@ fedopt, hier_sfl) is compared against classical, with ``--fedprox-mu``,
 ``--server-opt`` and ``--server-lr``. ``--compress {none,int8,int4,topk}``
 (with ``--topk-frac`` and ``--error-feedback``) compresses what crosses
 every upstream tier: each ONU's θ (and under hier_sfl each OLT's Φ and the
-metro node's Ψ), each involved client's δ under classical.
+metro node's Ψ), each involved client's δ under classical. The
+observability flags are the reference's (``obs.add_obs_cli_args``:
+``--trace-out``, ``--metrics-out``, ``--report-out``, ``--health``,
+``--incidents-out``, ``--slo-*``): the trace and metrics cover every
+compared strategy, the run bundle the last one's config and History.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch import configs, device as device_mod, fl
+from repro_torch import configs, device as device_mod, fl, obs
 from repro_torch.core.fedavg import FLConfig
 from repro_torch.data import femnist
 from repro_torch.models import femnist_cnn
@@ -124,16 +128,26 @@ def main(argv=None):
                          "round (EF-SGD; per-tier for sfl/hier, per-client "
                          "for classical)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    obs.add_obs_cli_args(ap)
     args = ap.parse_args(argv)
 
     modes = fl.comparison_modes(args.strategy)
     n_selected = (args.n_selected if args.per_pon_selected is None
                   else args.per_pon_selected * max(1, args.n_pons))
-    res = run(n_rounds=args.rounds, n_selected=n_selected, full=args.full,
-              seed=args.seed, modes=modes, pon=pon_config_from_args(args),
-              device=args.device, compress=args.compress,
-              topk_frac=args.topk_frac, error_feedback=args.error_feedback,
-              strategy_kwargs=fl.strategy_kwargs_from_args(args))
+    sess = obs.session_from_args(args, driver="round_loop")
+    res = {}
+    try:
+        res = run(n_rounds=args.rounds, n_selected=n_selected, full=args.full,
+                  seed=args.seed, modes=modes, pon=pon_config_from_args(args),
+                  device=args.device, compress=args.compress,
+                  topk_frac=args.topk_frac, error_feedback=args.error_feedback,
+                  strategy_kwargs=fl.strategy_kwargs_from_args(args))
+    finally:
+        # the artifacts (of what ran, should run raise), then the ambient
+        # context restored; the bundle holds the last strategy's run
+        last = res[modes[-1]]["loop"] if res else None
+        sess.finish(cfg=last.cfg if last else None,
+                    history=last.history if last else None)
     print("round," + ",".join(f"{m}_acc" for m in modes)
           + "," + ",".join(f"{m}_involved" for m in modes))
     for i in range(args.rounds):

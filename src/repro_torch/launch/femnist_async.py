@@ -18,6 +18,9 @@ The flags are the reference's shared set (``fl.add_experiment_cli_args``:
 the PON transport, strategy, failure, compression and runtime knobs);
 ``--full`` selects the paper's CNN (26.4 MB updates; default reduced), and
 without ``--device cpu`` it runs on the card and raises if there is none.
+The shared set carries the observability flags (``--trace-out``,
+``--metrics-out``, ``--report-out``, ``--health``, ``--incidents-out``,
+``--slo-*``).
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
-from repro_torch import configs, device as device_mod, fl
+from repro_torch import configs, device as device_mod, fl, obs
 from repro_torch.data import femnist
 from repro_torch.models import femnist_cnn
 
@@ -78,7 +81,6 @@ def main(argv=None):
     fl.add_experiment_cli_args(ap)
     ap.set_defaults(policy="fedbuff")
     args = ap.parse_args(argv)
-    fl.refuse_unported_flags(ap, args)
 
     exp = fl.experiment_config_from_args(args, n_rounds=args.rounds)
     exp = exp.with_fl(n_selected=args.n_selected, local_steps=8, local_lr=0.06)
@@ -96,8 +98,15 @@ def main(argv=None):
     print(f"policy={exp.policy} strategy={exp.strategy} "
           f"budget={budget_s:.0f} sim-s (dba={pon.dba}, "
           f"bg_load={pon.background_load})")
-    hist, _ = run(exp, full=args.full, n_updates=10_000, until_s=budget_s,
-                  device=args.device, callbacks=[on_update])
+    sess = obs.session_from_args(args, driver="orchestrator")
+    hist = None
+    try:
+        hist, _ = run(exp, full=args.full, n_updates=10_000, until_s=budget_s,
+                      device=args.device, callbacks=[on_update])
+    finally:
+        # the artifacts (of what ran, should run raise), then the ambient
+        # context restored
+        sess.finish(cfg=exp, history=hist)
     accs = [r.get("acc", 0.0) for r in hist]
     # "version" counts actual server-model updates; a zero-arrival window
     # emits a History row without moving the model

@@ -31,9 +31,12 @@ reference's gradient regime. ``--driver runtime`` runs the same rounds on
 the Orchestrator's simulated clock (each log line gains ``t_sim``; a
 resumed run replays as the RoundLoop does); ``GradientBackend`` is
 sync-only, so another ``--policy`` raises ``TypeError``. The flag set is
-the reference's shared one (``fl.add_experiment_cli_args``); flags of
-machinery the port does not have yet are refused, naming the ROADMAP.md
-item that brings it.
+the reference's shared one (``fl.add_experiment_cli_args``), observability
+included: ``--trace-out``, ``--metrics-out``, ``--report-out`` (a run
+bundle for ``python -m repro_torch.obs.diff``), ``--health``,
+``--incidents-out`` and ``--slo-*``; under ``torchrun`` rank 0 alone writes
+them. Records go through ``obs.logging`` (``--log-level``, ``--log-json``:
+one JSON object a record).
 """
 from __future__ import annotations
 
@@ -45,12 +48,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import configs, device as device_mod, fl
+from repro_torch import configs, device as device_mod, fl, obs
 from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.common.sharding import ShardingRules
 from repro_torch.core.fedavg import FLConfig
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import obs_logging
 from repro_torch.pon import PonConfig, pon_config_from_args
 
 
@@ -76,7 +80,8 @@ def run(arch: Union[str, ModelConfig] = "qwen2-0.5b", *, smoke: bool = False, st
         overselect: float = 0.0, p_crash: float = 0.0, p_transient: float = 0.0,
         mean_recovery_rounds: float = 3.0, failure_seed: Optional[int] = None,
         compress: str = "none", device: str = "cuda", driver: str = "loop",
-        policy: str = "sync", window_s: Optional[float] = None) -> Dict[str, Any]:
+        policy: str = "sync", window_s: Optional[float] = None,
+        obs_bundle: Optional[obs.Obs] = None, logger=None) -> Dict[str, Any]:
     """Train ``steps`` rounds (fewer when resuming from ``ckpt``) of ``arch``,
     a config name or a ``ModelConfig`` (a named config cut to size, taken as
     it is: ``smoke`` does not apply). Under an initialized process group
@@ -90,13 +95,20 @@ def run(arch: Union[str, ModelConfig] = "qwen2-0.5b", *, smoke: bool = False, st
     clients; ``pon`` gives the transport's other knobs (DBA, wavelengths,
     background load, engine). ``strategy_kwargs`` (the shared CLI's dict,
     ``fl.strategy_kwargs_from_args``) are filtered to what ``strategy``
-    takes, with ``compress``.
+    takes, with ``compress``. ``obs_bundle`` is the driver's
+    ``repro_torch.obs`` bundle (default: a child of the ambient one);
+    ``logger`` takes the records (default: ``obs.logging.setup()``'s).
 
-    Returns {"history", "backend" (params, opt_state), "cfg", "start_step"}.
+    Returns {"history", "backend" (params, opt_state), "cfg", "exp",
+    "start_step"}.
     """
     dev = device_mod.resolve(device)
     lead = not dist.is_initialized() or dist.get_rank() == 0
-    say = print if lead else (lambda *a, **k: None)
+    if logger is None:
+        logger = obs_logging.setup()
+    say = logger.info if lead else (lambda *a, **k: None)
+    json_mode = any(isinstance(h.formatter, obs_logging.JsonFormatter)
+                    for h in logger.handlers)
     if isinstance(arch, ModelConfig):
         cfg = arch
     else:
@@ -131,19 +143,23 @@ def run(arch: Union[str, ModelConfig] = "qwen2-0.5b", *, smoke: bool = False, st
 
     def on_round(drv, rec):
         step = rec["round"]
-        if step % log_every == 0 or step == steps - 1:
-            t_sim = f" t_sim {rec['t_s']:.0f}s" if "t_s" in rec else ""
-            say(f"step {step}: loss {rec['loss']:.4f} grad_norm {rec['grad_norm']:.4f} "
-                  f"involved {rec['involved']:.0f}/{rec['n_selected']} upstream "
-                  f"{rec['upstream_mbits']:.1f} Mb dt {rec['dt']:.3f}s{t_sim}")
+        if lead and (step % log_every == 0 or step == steps - 1):
+            if json_mode:
+                obs_logging.log_round(logger, rec)
+            else:
+                t_sim = f" t_sim {rec['t_s']:.0f}s" if "t_s" in rec else ""
+                logger.info(f"step {step}: loss {rec['loss']:.4f} grad_norm "
+                            f"{rec['grad_norm']:.4f} involved {rec['involved']:.0f}/"
+                            f"{rec['n_selected']} upstream {rec['upstream_mbits']:.1f} Mb "
+                            f"dt {rec['dt']:.3f}s{t_sim}")
         if ckpt and lead and (step + 1) % ckpt_every == 0:
             save_checkpoint(ckpt, step + 1, state())
 
     if driver == "runtime":
         from repro_torch import runtime
-        drv = runtime.Orchestrator(exp, backend, callbacks=[on_round])
+        drv = runtime.Orchestrator(exp, backend, callbacks=[on_round], obs=obs_bundle)
     elif driver == "loop":
-        drv = fl.RoundLoop(exp, backend, callbacks=[on_round])
+        drv = fl.RoundLoop(exp, backend, callbacks=[on_round], obs=obs_bundle)
     else:
         raise ValueError(f"driver {driver!r}: loop or runtime")
     step0 = 0
@@ -160,7 +176,8 @@ def run(arch: Union[str, ModelConfig] = "qwen2-0.5b", *, smoke: bool = False, st
     if ckpt and lead:
         save_checkpoint(ckpt, steps, state())
         say(f"[ckpt] saved final at step {steps}")
-    return {"history": history, "backend": backend, "cfg": cfg, "start_step": step0}
+    return {"history": history, "backend": backend, "cfg": cfg, "exp": exp,
+            "start_step": step0}
 
 
 def main(argv=None):
@@ -182,9 +199,10 @@ def main(argv=None):
                          "runtime Orchestrator (--policy picks the aggregation "
                          "policy; GradientBackend is sync-only)")
     fl.add_experiment_cli_args(ap)
+    obs_logging.add_logging_cli_args(ap)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    fl.refuse_unported_flags(ap, args)
+    logger = obs_logging.logger_from_args(args)
     # torchrun sets WORLD_SIZE: one process group for the run
     started = int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized()
     if started:
@@ -192,8 +210,14 @@ def main(argv=None):
             device_mod.resolve("cuda")
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
         dist.init_process_group("nccl" if args.device == "cuda" else "gloo")
+    driver = "orchestrator" if args.driver == "runtime" else "round_loop"
+    # every rank observes alike (observing moves no number); rank 0 alone
+    # writes the artifacts
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    sess = obs.session_from_args(args, driver=driver) if lead else obs.session()
+    res = {}
     try:
-        run(args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch, seq=args.seq,
+        res = run(args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch, seq=args.seq,
             lr=args.lr, opt=args.opt, micro=args.micro, ckpt=args.ckpt,
             ckpt_every=args.ckpt_every, seed=args.seed, log_every=args.log_every,
             strategy=args.strategy, onus=args.onus, clients_per_onu=args.clients_per_onu,
@@ -201,8 +225,12 @@ def main(argv=None):
             strategy_kwargs=fl.strategy_kwargs_from_args(args), overselect=args.overselect, p_crash=args.p_crash, p_transient=args.p_transient,
             mean_recovery_rounds=args.mean_recovery_rounds, failure_seed=args.failure_seed,
             compress=args.compress, device=args.device, driver=args.driver,
-            policy=args.policy, window_s=args.window_s)
+            policy=args.policy, window_s=args.window_s, obs_bundle=sess.obs,
+            logger=logger)
     finally:
+        # cfg / history feed the --report-out bundle (of what ran, should
+        # run raise); finish also restores the ambient context
+        sess.finish(cfg=res.get("exp"), history=res.get("history"))
         if started:
             dist.destroy_process_group()
 

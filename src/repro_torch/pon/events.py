@@ -28,10 +28,11 @@ to the event simulator:
     bursts contend in every queued path; in the interleaved path they only
     show up in the served/offered stats.
 
-The reference's observability hooks (its ``obs=`` and ``metrics=``
-arguments, the tracer's grant spans and the DBA queue-depth metrics) are
-left out until the port has ``repro.obs`` (ROADMAP.md Queue 1 item 5); the
-returned dicts and the RNG draws are the reference's.
+Observability (``repro_torch.obs``) as the reference's: the DBA queue
+depth, per-wavelength busy seconds and served Mbits go into the run's
+registry, and an enabled tracer gets the grant spans, θ-gather windows and
+client legs. Neither draws from the round's generator or reorders the heap,
+so the returned dicts and the RNG draws are the untraced run's.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.obs.context import get as _obs_get
 from repro_torch.pon.dba import DbaPolicy, make_dba
 from repro_torch.pon.timing import WIRELESS_S_MAX, WIRELESS_S_MIN, PonConfig, train_times
 from repro_torch.pon.topology import Topology
@@ -76,9 +78,18 @@ class UpstreamSim:
     before its ready time yields the batch call's schedule float for float.
     ``on_done`` (optional) fires once per job at its completion event, in
     completion order, while :meth:`advance_to` is draining.
+
+    Observability (``repro_torch.obs``, all optional, zero-cost when
+    absent): ``metrics`` records the DBA queue depth at every grant pass,
+    per-wavelength busy seconds and the served Mbits; ``tracer`` emits one
+    grant span per completed job live — the incremental (Orchestrator)
+    path. Batch callers (``simulate_round``) emit spans retroactively from
+    the filled job floats instead, so the two paths never double-emit.
     """
 
-    def __init__(self, topology: Topology, dba: DbaPolicy, on_done=None):
+    def __init__(self, topology: Topology, dba: DbaPolicy,
+                 on_done=None, tracer=None, metrics=None, lane: str = "pon",
+                 tid_prefix: str = "onu"):
         self.topology = topology
         self.dba = dba
         self.on_done = on_done
@@ -92,6 +103,17 @@ class UpstreamSim:
         self._pending: List[UpstreamJob] = []
         self._grant_idx = itertools.count()
         self.now = 0.0
+        self.lane = lane
+        self.tid_prefix = tid_prefix
+        self._tracer = tracer if (tracer is not None
+                                  and getattr(tracer, "enabled", False)) else None
+        self._metrics = metrics
+        if metrics is not None:
+            # precomputed metric names: the hot loop must not format strings
+            self._m_queue = metrics.histogram(f"{lane}.dba.queue_depth")
+            self._m_wl = [metrics.counter(f"{lane}.wl{w}.busy_s")
+                          for w in range(topology.n_wavelengths)]
+            self._m_served = metrics.counter(f"{lane}.jobs_served")
 
     def submit(self, job: UpstreamJob) -> None:
         """Enqueue one upstream job (must be no later than its ready time)."""
@@ -104,6 +126,13 @@ class UpstreamSim:
         return self._events[0][0] if self._events else None
 
     def _grant(self) -> None:
+        if self._metrics is not None and self._pending:
+            # per-decision queue snapshot (DBA backlog at grant time)
+            self._m_queue.observe(len(self._pending))
+            if self._tracer is not None:
+                self._tracer.counter("queue_depth", self.now,
+                                     {"pending": len(self._pending)},
+                                     lane=(self.lane, "dba"))
         while self._pending and self._free:
             granted = False
             for w in sorted(self._free):
@@ -145,6 +174,14 @@ class UpstreamSim:
                     self._onu_busy.discard(j.onu)
                     completed.append(j)
             self._grant()
+            if self._metrics is not None:
+                for j in completed:
+                    self._m_wl[j.wavelength].add(j.done_s - j.start_s)
+                    self._m_served.add(j.size_mbits)
+            if self._tracer is not None:
+                for j in completed:
+                    trace_job_span(self._tracer, j, self.lane,
+                                   self.tid_prefix)
             if self.on_done is not None:
                 for j in completed:
                     self.on_done(j)
@@ -157,16 +194,41 @@ class UpstreamSim:
         return self
 
 
+def trace_job_span(tracer, j: UpstreamJob, lane: str,
+                   tid_prefix: str = "onu") -> None:
+    """One grant span for a served job: the [start, done] wavelength
+    occupancy on the job's ONU lane (Perfetto: one row per ONU/OLT)."""
+    tracer.add_span(j.kind, j.start_s, j.done_s,
+                    lane=(lane, f"{tid_prefix}{j.onu}"), cat="grant",
+                    args={"wavelength": j.wavelength, "client": j.client,
+                          "size_mbits": j.size_mbits,
+                          "grant_idx": j.grant_idx,
+                          "queue_s": j.start_s - j.ready_s})
+
+
+def trace_served_jobs(tracer, jobs: Sequence[UpstreamJob], lane: str,
+                      tid_prefix: str = "onu") -> None:
+    """Retroactive span emission for a batch-simulated job list (unserved
+    jobs have infinite times and are skipped by ``add_span``)."""
+    if not getattr(tracer, "enabled", False):
+        return
+    for j in jobs:
+        trace_job_span(tracer, j, lane, tid_prefix)
+
+
 def simulate_upstream(jobs: Sequence[UpstreamJob], topology: Topology,
-                      dba: DbaPolicy) -> List[UpstreamJob]:
+                      dba: DbaPolicy, metrics=None,
+                      lane: str = "pon") -> List[UpstreamJob]:
     """Serve ``jobs`` on the topology's wavelengths under the DBA policy.
 
     Mutates and returns the jobs: ``start_s``/``done_s``/``wavelength``/
     ``grant_idx`` are filled for every job the simulator could serve; jobs
     whose ONU reaches no wavelength stay at +inf. Batch wrapper over the
-    incremental :class:`UpstreamSim`.
+    incremental :class:`UpstreamSim`. ``metrics`` (a
+    ``repro_torch.obs.MetricsRegistry``) records DBA queue depth and
+    per-wavelength busy time under the ``lane`` name prefix.
     """
-    sim = UpstreamSim(topology, dba)
+    sim = UpstreamSim(topology, dba, metrics=metrics, lane=lane)
     for j in jobs:
         sim.submit(j)
     sim.drain()
@@ -190,12 +252,28 @@ def _dedicated_serve(jobs: Sequence[UpstreamJob], topology: Topology) -> None:
         j.wavelength, j.grant_idx = -1, k
 
 
+def trace_client_legs(tracer, cfg: PonConfig, selected: np.ndarray,
+                      t_train: np.ndarray, ready: np.ndarray) -> None:
+    """Retroactive dispatch→train→wireless spans, one lane per client."""
+    if not getattr(tracer, "enabled", False):
+        return
+    for i in range(len(selected)):
+        lane = ("clients", f"c{int(selected[i])}")
+        t_disp = cfg.downlink_s
+        t_tr = t_disp + float(t_train[i])
+        tracer.add_span("dispatch", 0.0, t_disp, lane=lane, cat="client")
+        tracer.add_span("train", t_disp, t_tr, lane=lane, cat="client")
+        tracer.add_span("wireless", t_tr, float(ready[i]), lane=lane,
+                        cat="client")
+
+
 def simulate_round(cfg: PonConfig, rng: np.random.Generator,
                    selected: np.ndarray, onu_ids: np.ndarray,
                    sample_counts: np.ndarray, mode: str,
                    topology: Optional[Topology] = None,
                    dba: Optional[DbaPolicy] = None,
-                   traffic: Optional[BackgroundTraffic] = None) -> Dict:
+                   traffic: Optional[BackgroundTraffic] = None,
+                   obs=None) -> Dict:
     """One FL round over the event-driven PON; same contract as round_times.
 
     ``topology``/``dba``/``traffic`` default from ``cfg`` (``n_wavelengths``,
@@ -209,6 +287,9 @@ def simulate_round(cfg: PonConfig, rng: np.random.Generator,
     ``mode='hier'`` adding the OLT/metro aggregation tiers. With one PON the
     OLT is the server edge, so ``mode='hier'`` is exactly the flat ``sfl``
     path.
+
+    ``obs`` (default: the ambient ``repro_torch.obs`` context) takes the
+    round's metrics always and its spans when its tracer is enabled.
     """
     engine = getattr(cfg, "sim_engine", "event")
     if engine != "event":
@@ -223,9 +304,9 @@ def simulate_round(cfg: PonConfig, rng: np.random.Generator,
         if cfg.n_pons > 1:
             return fast.simulate_hier_round_fast(cfg, rng, selected,
                                                  onu_ids, sample_counts,
-                                                 mode)
+                                                 mode, obs=obs)
         return fast.simulate_round_fast(cfg, rng, selected, onu_ids,
-                                        sample_counts, mode)
+                                        sample_counts, mode, obs=obs)
     if cfg.n_pons > 1:
         if topology is not None or dba is not None or traffic is not None:
             raise ValueError(
@@ -235,9 +316,13 @@ def simulate_round(cfg: PonConfig, rng: np.random.Generator,
                 "pon.metro.simulate_hier_round instead")
         from repro_torch.pon import metro
         return metro.simulate_hier_round(cfg, rng, selected, onu_ids,
-                                         sample_counts, mode)
+                                         sample_counts, mode, obs=obs)
     if mode == "hier":
         mode = "sfl"
+    if obs is None:
+        obs = _obs_get()
+    trc = obs.tracer if getattr(obs.tracer, "enabled", False) else None
+    met = obs.metrics
     if topology is None:
         topology = Topology.uniform(cfg.n_onus, cfg.clients_per_onu,
                                     cfg.n_wavelengths, cfg.slice_mbps,
@@ -260,7 +345,7 @@ def simulate_round(cfg: PonConfig, rng: np.random.Generator,
                    for i in range(n)]
         bg_jobs = traffic.jobs(rng, topology, cfg.sync_threshold_s,
                                seq_start=n)
-        simulate_upstream(fl_jobs + bg_jobs, topology, dba)
+        simulate_upstream(fl_jobs + bg_jobs, topology, dba, metrics=met)
         t_done = np.array([j.done_s for j in fl_jobs])
         involved = t_done <= cfg.sync_threshold_s
         upstream_mbits = float(n) * cfg.model_mbits
@@ -284,13 +369,21 @@ def simulate_round(cfg: PonConfig, rng: np.random.Generator,
         bg_jobs = traffic.jobs(rng, topology, cfg.sync_threshold_s,
                                seq_start=len(theta_jobs))
         if cfg.sfl_queueing:
-            simulate_upstream(theta_jobs + bg_jobs, topology, dba)
+            simulate_upstream(theta_jobs + bg_jobs, topology, dba, metrics=met)
         else:
             # paper-consistent grant interleaving: θs are contention-free;
             # background only shows up in the served/offered stats
             _dedicated_serve(theta_jobs, topology)
             if bg_jobs:
-                simulate_upstream(bg_jobs, topology, dba)
+                simulate_upstream(bg_jobs, topology, dba, metrics=met)
+        if trc is not None:
+            # θ-gather window per active ONU: first in-time arrival → θ ready
+            for o in active:
+                arr = ready[(onus == o) & in_time]
+                trc.add_span("θ-gather", float(arr.min()),
+                             float(theta_ready[o]),
+                             lane=("pon", f"onu{int(o)}"), cat="agg",
+                             args={"clients": int(len(arr))})
         theta_done = np.full(n_onus, np.inf)
         for j in theta_jobs:
             theta_done[j.onu] = j.done_s
@@ -299,6 +392,13 @@ def simulate_round(cfg: PonConfig, rng: np.random.Generator,
         # only ONUs that actually transmit a θ consume upstream
         upstream_mbits = float(len(active)) * cfg.model_mbits
         fl_served = theta_jobs
+
+    if trc is not None:
+        # batch path: spans come retroactively from the filled job floats
+        # (covers _dedicated_serve, which never enters UpstreamSim)
+        trace_client_legs(trc, cfg, selected, t_train, ready)
+        trace_served_jobs(trc, fl_served, "pon")
+        trace_served_jobs(trc, bg_jobs, "pon")
 
     starts = np.array([j.start_s - j.ready_s for j in fl_served
                        if math.isfinite(j.start_s)])

@@ -22,8 +22,13 @@ cannot pack is served with the closed-form **fluid** model
 (contention-free, ``done = ready + size/rate``) when its PON is
 uncongested — offered Mbits within ``fluid_threshold`` of what the shared
 medium carries before the deadline — and by the exact event sim when
-congested; never for ``ipact``. The reference's ``metrics=`` recording is
-left out until the port has ``repro.obs`` (ROADMAP.md Queue 1 item 5).
+congested; never for ``ipact``.
+
+Metrics: packed/fluid service records one aggregate ``{lane}.jobs_served``
+add (total served Mbits) instead of the event sim's per-grant instruments
+(queue-depth histogram, per-wavelength busy seconds); event fallbacks
+record everything, via the real sim. The fast paths emit no trace spans —
+tracing wants the event engine.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.obs.context import get as _obs_get
 from repro_torch.pon.dba import make_dba
 from repro_torch.pon.fast.segments import fifo_pack, segment_max
 from repro_torch.pon.timing import WIRELESS_S_MAX, WIRELESS_S_MIN, PonConfig, train_times
@@ -114,7 +120,8 @@ def _pack_lanes(dba_name: str, kinds, n_lanes: int, service: np.ndarray,
 def serve_queued(ready: np.ndarray, size: np.ndarray, onu: np.ndarray,
                  seq: np.ndarray, kinds, *, dba_name: str, n_lanes: int,
                  rate_mbps: float, topo_factory, engine: str,
-                 congested: bool = False):
+                 congested: bool = False, metrics=None,
+                 lane: str = "pon"):
     """Serve one queued job set; returns ``(start, done)`` float64 arrays
     aligned with the inputs. Exact (pack or event fallback) under
     ``engine='fast'``; under ``'hybrid'`` an unpackable, uncongested,
@@ -145,7 +152,8 @@ def serve_queued(ready: np.ndarray, size: np.ndarray, onu: np.ndarray,
                             size_mbits=float(size[k]),
                             ready_s=float(ready[k]), kind=str(kinds[k]))
                 for k in range(n)]
-        simulate_upstream(jobs, topo_factory(), make_dba(dba_name))
+        simulate_upstream(jobs, topo_factory(), make_dba(dba_name),
+                          metrics=metrics, lane=lane)
         start = np.array([j.start_s for j in jobs], np.float64)
         done = np.array([j.done_s for j in jobs], np.float64)
         return start, done
@@ -160,6 +168,13 @@ def serve_queued(ready: np.ndarray, size: np.ndarray, onu: np.ndarray,
     else:                                       # fluid
         start = np.asarray(ready, np.float64).copy()
         done = ready + service
+    if metrics is not None:
+        served = np.isfinite(done)
+        if served.any():
+            # aggregate: one add of the served Mbits (the event sim adds
+            # per grant — same total, fewer samples)
+            metrics.counter(f"{lane}.jobs_served").add(
+                float(np.asarray(size)[served].sum()))
     return start, done
 
 
@@ -187,7 +202,8 @@ def theta_ready_arr(ready: np.ndarray, onus: np.ndarray,
 
 def simulate_round_fast(cfg: PonConfig, rng: np.random.Generator,
                         selected: np.ndarray, onu_ids: np.ndarray,
-                        sample_counts: np.ndarray, mode: str) -> Dict:
+                        sample_counts: np.ndarray, mode: str,
+                        obs=None) -> Dict:
     """Flat (single-PON) round under the fast/hybrid engine — the exact
     contract of ``events.simulate_round`` with ``sim_engine`` stamped.
     """
@@ -195,6 +211,9 @@ def simulate_round_fast(cfg: PonConfig, rng: np.random.Generator,
     if engine not in SIM_ENGINES:
         raise ValueError(f"unknown sim_engine {engine!r}; "
                          f"expected one of {SIM_ENGINES}")
+    if obs is None:
+        obs = _obs_get()
+    met = obs.metrics
     if mode == "hier":
         mode = "sfl"
 
@@ -229,7 +248,8 @@ def simulate_round_fast(cfg: PonConfig, rng: np.random.Generator,
         start, done = serve_queued(
             all_ready, all_size, all_onu, all_seq, all_kind,
             dba_name=cfg.dba, n_lanes=cfg.n_wavelengths, rate_mbps=rate,
-            topo_factory=topo, engine=engine, congested=congested)
+            topo_factory=topo, engine=engine, congested=congested,
+            metrics=met)
         t_done = done[:n]
         involved = t_done <= T
         upstream_mbits = float(n) * cfg.model_mbits
@@ -263,7 +283,7 @@ def simulate_round_fast(cfg: PonConfig, rng: np.random.Generator,
                 all_ready, all_size, all_onu, all_seq, all_kind,
                 dba_name=cfg.dba, n_lanes=cfg.n_wavelengths,
                 rate_mbps=rate, topo_factory=topo, engine=engine,
-                congested=congested)
+                congested=congested, metrics=met)
             th_start, th_done = start[:na], done[:na]
             bg_done_mask = done[na:] <= T
         else:
@@ -278,7 +298,8 @@ def simulate_round_fast(cfg: PonConfig, rng: np.random.Generator,
                 th_done = np.full(na, np.inf)
             if bg_jobs:
                 from repro_torch.pon.events import simulate_upstream
-                simulate_upstream(bg_jobs, topo(), make_dba(cfg.dba))
+                simulate_upstream(bg_jobs, topo(), make_dba(cfg.dba),
+                                  metrics=met)
             bg_done_mask = np.array([j.done_s <= T for j in bg_jobs],
                                     bool)
         th_done_full = np.full(cfg.n_onus, np.inf)

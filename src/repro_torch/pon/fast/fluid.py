@@ -1,7 +1,6 @@
 """Fluid (contention-free) drop-in for ``UpstreamSim`` + the engine policy
 of the incremental driver (port of ``repro.pon.fast.fluid``, plain
-Python; the reference's tracer and metrics arguments are left out, as
-they are from the port's ``UpstreamSim``).
+Python).
 
 The batch engines pack a whole round's grant schedule at once; the
 Orchestrator feeds jobs one at a time on a live clock, so there is no
@@ -52,17 +51,29 @@ class FluidUpstreamSim:
     """Interface-compatible stand-in for ``UpstreamSim`` (submit /
     next_event_s / advance_to / drain / now / on_done) that serves every
     job on a private slice. Jobs whose ONU reaches no wavelength stay at
-    +inf forever, matching the event sim's starvation semantics.
+    +inf forever, matching the event sim's starvation semantics. Emits
+    the same per-job grant spans and the ``{lane}.jobs_served`` counter;
+    the DBA-specific instruments (queue depth, per-wavelength busy time)
+    do not exist here — there is no queue.
     """
 
-    def __init__(self, topology, dba=None, on_done=None):
+    def __init__(self, topology, dba=None, on_done=None, tracer=None,
+                 metrics=None, lane: str = "pon",
+                 tid_prefix: str = "onu"):
         self.topology = topology
         self.dba = dba                      # accepted, never consulted
         self.on_done = on_done
         self.now = 0.0
+        self.lane = lane
+        self.tid_prefix = tid_prefix
         self._ctr = itertools.count()
         self._events: list = []
         self._rate = [topology.best_rate_mbps(o.id) for o in topology.onus]
+        self._tracer = tracer if (tracer is not None
+                                  and getattr(tracer, "enabled", False)) \
+            else None
+        self._m_served = (metrics.counter(f"{lane}.jobs_served")
+                          if metrics is not None else None)
 
     def submit(self, job) -> None:
         rate = self._rate[job.onu]
@@ -83,6 +94,11 @@ class FluidUpstreamSim:
         while self._events and self._events[0][0] <= t:
             done, _, j = heapq.heappop(self._events)
             self.now = max(self.now, done)
+            if self._m_served is not None:
+                self._m_served.add(j.size_mbits)
+            if self._tracer is not None:
+                from repro_torch.pon.events import trace_job_span
+                trace_job_span(self._tracer, j, self.lane, self.tid_prefix)
             if self.on_done is not None:
                 self.on_done(j)
         self.now = max(self.now, t)

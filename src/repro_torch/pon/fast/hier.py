@@ -21,6 +21,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from repro_torch.obs.context import get as _obs_get
 from repro_torch.pon.dba import make_dba
 from repro_torch.pon.fast.engine import (
     SIM_ENGINES,
@@ -55,11 +56,15 @@ def _metro_topo_factory(cfg: PonConfig):
 
 def simulate_hier_round_fast(cfg: PonConfig, rng: np.random.Generator,
                              selected: np.ndarray, onu_ids: np.ndarray,
-                             sample_counts: np.ndarray, mode: str) -> Dict:
+                             sample_counts: np.ndarray, mode: str,
+                             obs=None) -> Dict:
     engine = cfg.sim_engine
     if engine not in SIM_ENGINES:
         raise ValueError(f"unknown sim_engine {engine!r}; "
                          f"expected one of {SIM_ENGINES}")
+    if obs is None:
+        obs = _obs_get()
+    met = obs.metrics
 
     n_pons = cfg.n_pons
     total_onus = cfg.total_onus
@@ -135,7 +140,8 @@ def simulate_hier_round_fast(cfg: PonConfig, rng: np.random.Generator,
             bg = bg_per_pon[p]
             if bg:
                 from repro_torch.pon.events import simulate_upstream
-                simulate_upstream(bg, pon_topo(), make_dba(cfg.dba))
+                simulate_upstream(bg, pon_topo(), make_dba(cfg.dba),
+                                  metrics=met, lane=f"pon{p}")
             bg_sizes.extend(j.size_mbits for j in bg)
             bg_dones.extend(j.done_s for j in bg)
     else:
@@ -168,7 +174,8 @@ def simulate_hier_round_fast(cfg: PonConfig, rng: np.random.Generator,
                 r, z, o, q, kinds, dba_name=cfg.dba,
                 n_lanes=cfg.n_wavelengths, rate_mbps=rate,
                 topo_factory=pon_topo, engine=engine,
-                congested=bool(congested[p]))
+                congested=bool(congested[p]), metrics=met,
+                lane=f"pon{p}")
             fl_start[idx] = st[:nf]
             fl_done[idx] = dn[:nf]
             bg_sizes.extend(z[nf:].tolist())
@@ -210,7 +217,7 @@ def simulate_hier_round_fast(cfg: PonConfig, rng: np.random.Generator,
             [m_kind] * n_m, dba_name=cfg.dba,
             n_lanes=cfg.metro_wavelengths, rate_mbps=cfg.metro_rate_mbps,
             topo_factory=_metro_topo_factory(cfg), engine=engine,
-            congested=m_congested)
+            congested=m_congested, metrics=met, lane="metro")
 
     # ------------------------------------------------- per-client t_done
     t_done = np.full(n, np.inf)

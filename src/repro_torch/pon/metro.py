@@ -26,10 +26,11 @@ the metro tier). The round transport (:func:`simulate_hier_round`) runs one
 
 ``n_pons == 1`` never reaches this module: ``events.simulate_round`` keeps
 the single-OLT case on the flat path. The metro→server trunk is accounted
-(``trunk_mbits``) but not queued. The reference's tracer spans and metrics
-(its ``obs=`` argument) are left out until the port has ``repro.obs``
-(ROADMAP.md Queue 1 item 5); the returned dict and the RNG draws are the
-reference's.
+(``trunk_mbits``) but not queued. The round records the per-PON and metro
+DBA metrics into the run's ``repro_torch.obs`` registry and, under an
+enabled tracer, the θ-gather, Φ-gather and Ψ-agg windows and the grant
+spans on the ``pon{p}`` and ``metro`` (``olt{p}``) lanes; neither moves a
+returned value or an RNG draw.
 """
 from __future__ import annotations
 
@@ -145,26 +146,65 @@ def expected_segment_mbits(mode: str, model_mbits: float, n_selected: int,
     return {"pon": float(pon), "metro": float(metro), "trunk": float(trunk)}
 
 
+def trace_hier_tiers(trc, cfg: PonConfig, mode: str, selected: np.ndarray,
+                     t_train: np.ndarray, ready: np.ndarray,
+                     pon_jobs, metro_jobs, cutoff_olt: float) -> None:
+    """Retroactive tier spans for one hierarchical round: client legs,
+    metro grant spans (one lane per OLT), Φ-gather windows per OLT, and
+    the server-side Ψ aggregation window (``mode='hier'`` only — the flat
+    modes have no OLT/metro aggregation tiers)."""
+    from repro_torch.pon import events
+
+    events.trace_client_legs(trc, cfg, selected, t_train, ready)
+    events.trace_served_jobs(trc, metro_jobs, "metro", tid_prefix="olt")
+    if mode != "hier":
+        return
+    agg = cfg.onu_agg_s
+    lat = cfg.metro_latency_s
+    for p, jobs in enumerate(pon_jobs):
+        done = [j.done_s for j in jobs if j.done_s <= cutoff_olt]
+        if done:
+            # Φ_p gathers PON p's in-time θs: first θ done → Φ ready
+            trc.add_span("Φ-gather", min(done), max(done) + agg,
+                         lane=("metro", f"olt{p}"), cat="agg",
+                         args={"thetas": len(done)})
+    arrivals = [mj.done_s + lat for mj in metro_jobs
+                if math.isfinite(mj.done_s)]
+    in_time = [a for a in arrivals if a <= cfg.sync_threshold_s - agg]
+    if in_time:
+        trc.add_span("Ψ-agg", min(arrivals), max(in_time) + agg,
+                     lane=("server", "agg"), cat="agg",
+                     args={"phis": len(in_time)})
+
+
 def simulate_hier_round(cfg: PonConfig, rng: np.random.Generator,
                         selected: np.ndarray, onu_ids: np.ndarray,
                         sample_counts: np.ndarray, mode: str,
-                        metro: Optional[MetroTopology] = None) -> Dict:
+                        metro: Optional[MetroTopology] = None,
+                        obs=None) -> Dict:
     """One FL round over the PON forest; same contract as ``round_times``.
 
     ``onu_ids`` are GLOBAL ONU ids in ``[0, n_pons * n_onus)`` (PON-major,
     what ``fedavg.onu_of_client`` gives once ``FLConfig.n_pons`` multiplies
     the population). RNG consumption: one wireless draw per selected
     client in selection order, then the background draws one PON at a time
-    (none at zero load).
+    (none at zero load). ``obs`` defaults to the ambient
+    ``repro_torch.obs`` context.
     """
+    from repro_torch.obs.context import get as _obs_get
     from repro_torch.pon import events
+
+    if obs is None:
+        obs = _obs_get()
+    trc = obs.tracer if getattr(obs.tracer, "enabled", False) else None
+    met = obs.metrics
 
     if metro is None and getattr(cfg, "sim_engine", "event") != "event":
         # array-native engines: only the cfg-built uniform forest
         # vectorizes; an explicit MetroTopology stays exact
         from repro_torch.pon.fast import simulate_hier_round_fast
         return simulate_hier_round_fast(cfg, rng, selected, onu_ids,
-                                        sample_counts, mode)
+                                        sample_counts, mode, obs=obs)
     if metro is None:
         metro = MetroTopology.from_config(cfg)
     n_pons = metro.n_pons
@@ -230,6 +270,12 @@ def simulate_hier_round(cfg: PonConfig, rng: np.random.Generator,
                 kind="theta"))
             onu_global_of[seq] = int(o)
             seq += 1
+            if trc is not None:
+                arr = ready[(onus_g == o) & in_time]
+                trc.add_span("θ-gather", float(arr.min()),
+                             float(theta_ready[o]),
+                             lane=(f"pon{p}", f"onu{int(o - onu_base[p])}"),
+                             cat="agg", args={"clients": int(len(arr))})
 
     bg_all: List[events.UpstreamJob] = []
     grant_delays: List[float] = []
@@ -243,10 +289,15 @@ def simulate_hier_round(cfg: PonConfig, rng: np.random.Generator,
             # background contends only in the stats
             events._dedicated_serve(pon_jobs[p], topo)
             if bg:
-                events.simulate_upstream(bg, topo, make_dba(cfg.dba))
+                events.simulate_upstream(bg, topo, make_dba(cfg.dba),
+                                         metrics=met, lane=f"pon{p}")
         else:
             events.simulate_upstream(pon_jobs[p] + bg, topo,
-                                     make_dba(cfg.dba))
+                                     make_dba(cfg.dba),
+                                     metrics=met, lane=f"pon{p}")
+        if trc is not None:
+            events.trace_served_jobs(trc, pon_jobs[p], f"pon{p}")
+            events.trace_served_jobs(trc, bg, f"pon{p}")
         bg_all.extend(bg)
         grant_delays.extend(j.start_s - j.ready_s for j in pon_jobs[p]
                             if math.isfinite(j.start_s))
@@ -289,7 +340,11 @@ def simulate_hier_round(cfg: PonConfig, rng: np.random.Generator,
     if mode != "classical" and not cfg.sfl_queueing:
         events._dedicated_serve(metro_jobs, metro_topo)
     else:
-        events.simulate_upstream(metro_jobs, metro_topo, make_dba(cfg.dba))
+        events.simulate_upstream(metro_jobs, metro_topo, make_dba(cfg.dba),
+                                 metrics=met, lane="metro")
+    if trc is not None:
+        trace_hier_tiers(trc, cfg, mode, selected, t_train, ready,
+                         pon_jobs, metro_jobs, cutoff_olt)
 
     # ------------------------------------------------- per-client t_done
     t_done = np.full(n, np.inf)

@@ -175,16 +175,19 @@ def train_times(sample_counts: np.ndarray) -> np.ndarray:
 
 def round_times(cfg: PonConfig, rng: np.random.Generator,
                 selected: np.ndarray, onu_ids: np.ndarray,
-                sample_counts: np.ndarray, mode: str) -> Dict[str, np.ndarray]:
+                sample_counts: np.ndarray, mode: str,
+                obs=None) -> Dict[str, np.ndarray]:
     """Simulate one round; returns per-selected-client completion/involvement.
 
     The event-driven simulator (``pon.events.simulate_round``): ``cfg``
     picks the DBA policy, wavelengths, background load, the forest and the
     engine. Under the defaults it is bit for bit :func:`round_times_fifo`.
+    ``obs`` (a ``repro_torch.obs.Obs``; default the ambient one) takes the
+    round's metrics and spans.
     """
     from repro_torch.pon import events
     return events.simulate_round(cfg, rng, selected, onu_ids, sample_counts,
-                                 mode)
+                                 mode, obs=obs)
 
 
 def round_times_fifo(cfg: PonConfig, rng: np.random.Generator,

@@ -1,5 +1,5 @@
 """Orchestrator — the event-driven federated driver on the PON clock (port
-of ``repro.runtime.orchestrator``, without ``repro.obs``).
+of ``repro.runtime.orchestrator``).
 
 The second driver beside ``fl.RoundLoop``, behind the same
 ``ExperimentConfig`` + backend interfaces:
@@ -31,12 +31,15 @@ The ``sync`` policy bypasses the continuous machinery and calls the exact
 ``fl.loop.sync_round`` pipeline per deadline window — the degenerate
 configuration that equals the RoundLoop bit for bit.
 
-The reference keeps its Mbits accounting in ``repro.obs`` counters; here a
-:class:`_Counter` with the same add / take / total semantics keeps it
-(every History value is the transport's float, summed in the same order).
-Each row also carries host-time keys: ``wall_s`` since the last row and
-``dispatch_s``, the summed host time of the dispatches since the last row
-(local training included), both with the card synchronised.
+The Mbits accounting lives in the run's ``repro_torch.obs`` registry
+(``pon.upstream_mbits`` and ``metro.mbits`` counters: each row drains the
+window, ``.total`` keeps the run's total), beside the ``fl.staleness`` and
+``fl.involved`` histograms; an enabled tracer gets the live grant spans, the
+``train+wireless`` legs, the θ- and Φ-gather windows and a
+``server-update`` instant a row. Each row also carries host-time keys:
+``wall_s`` since the last row and ``dispatch_host_s``, the summed host time
+of the dispatches since the last row (local training included), both with
+the card synchronised.
 """
 from __future__ import annotations
 
@@ -51,6 +54,8 @@ from repro_torch.device import timed
 from repro_torch.fl.backends import backend_wire_scale
 from repro_torch.fl.config import ExperimentConfig
 from repro_torch.fl.loop import Callback, History
+from repro_torch.obs.context import Obs
+from repro_torch.obs.context import get as _obs_get
 from repro_torch.pon.dba import make_dba
 from repro_torch.pon.events import UpstreamJob, UpstreamSim
 from repro_torch.pon.fast import FluidUpstreamSim, orchestrator_engine
@@ -63,26 +68,6 @@ from repro_torch.runtime.policies import (AggregationPolicy, ClientUpdate, make_
                                           staleness_weights)
 
 
-class _Counter:
-    """Monotonic total + drainable window, fed by one ``add`` sequence."""
-
-    __slots__ = ("total", "_window")
-
-    def __init__(self):
-        self.total = 0.0
-        self._window = 0.0
-
-    def add(self, v: float) -> None:
-        v = float(v)
-        self.total += v
-        self._window += v
-
-    def take(self) -> float:
-        """Drain and return the since-last-take window."""
-        v, self._window = self._window, 0.0
-        return v
-
-
 class _BridgedSim:
     """One incremental ``UpstreamSim`` bridged onto the shared SimClock.
 
@@ -92,10 +77,13 @@ class _BridgedSim:
     """
 
     def __init__(self, clock: SimClock, topology: Topology, dba, on_done,
-                 sim_cls=UpstreamSim):
+                 tracer=None, metrics=None, lane: str = "pon",
+                 tid_prefix: str = "onu", sim_cls=UpstreamSim):
         self.clock = clock
         self.topology = topology
-        self.sim = sim_cls(topology, dba, on_done=on_done)
+        self.sim = sim_cls(topology, dba, on_done=on_done,
+                           tracer=tracer, metrics=metrics, lane=lane,
+                           tid_prefix=tid_prefix)
         self._ev = None
 
     def submit(self, job: UpstreamJob) -> None:
@@ -121,10 +109,15 @@ class Orchestrator:
 
     def __init__(self, cfg: ExperimentConfig, backend,
                  callbacks: Iterable[Callback] = (),
-                 policy: Optional[str] = None):
+                 policy: Optional[str] = None,
+                 obs: Optional[Obs] = None):
         self.cfg = cfg
         self.backend = backend
         self.callbacks: List[Callback] = list(callbacks)
+        # private registry (a sweep's orchestrators keep their own totals)
+        # sharing the ambient tracer — one simulated timeline — and health
+        # engine; a child, so a session exports one merged metrics artifact
+        self.obs = obs if obs is not None else _obs_get().child()
         self.policy: AggregationPolicy = make_policy(
             policy if policy is not None else cfg.policy)
         self.rng = np.random.default_rng(cfg.seed)
@@ -168,19 +161,31 @@ class Orchestrator:
         self._olt_gather: Dict[int, Any] = {}   # OLT Φ gather (pon index)
         self._jobseq = itertools.count()
         self._train_s: Optional[np.ndarray] = None
-        # the accounting: the window drains into each History row (take),
-        # .total keeps the monotonic run total — one add sequence
-        self._c_up = _Counter()
-        self._c_metro = _Counter()
+        # registry counters are the accounting: the window drains into each
+        # History row (take), .total keeps the monotonic run total — one
+        # add sequence
+        reg = self.obs.metrics
+        # engine label on exported metrics records (the diff keys on it to
+        # localize engine-choice divergences between run bundles)
+        reg.tag("sim_engine", getattr(self.pon_cfg, "sim_engine", "event"))
+        self._c_up = reg.counter("pon.upstream_mbits")
+        self._c_metro = reg.counter("metro.mbits")
+        self._h_staleness = reg.histogram("fl.staleness")
+        self._h_involved = reg.histogram("fl.involved")
         self._crash_alive: Optional[np.ndarray] = None
         self._transient_alive: Optional[np.ndarray] = None
         # host time: since the last row, and the dispatches' since then
         self._t_row = time.perf_counter()
-        self._dispatch_s = 0.0
+        self._dispatch_host_s = 0.0
 
     @property
     def strategy(self):
         return self.backend.strategy
+
+    @property
+    def metrics(self):
+        """The orchestrator's private MetricsRegistry."""
+        return self.obs.metrics
 
     @property
     def total_upstream_mbits(self) -> float:
@@ -214,6 +219,10 @@ class Orchestrator:
     def setup_transport(self) -> None:
         pon = self.pon_cfg
         self.metro_topology = MetroTopology.from_config(pon)
+        # the incremental sims emit grant spans live at completion events
+        # (the batch path emits retroactively instead — never both)
+        trc = self.obs.tracer if self.obs.tracer.enabled else None
+        reg = self.obs.metrics
         # fast/hybrid engines swap the exact grant machine for the
         # contention-free fluid sim — but only where that is safe: the
         # incremental driver cannot re-run a batch on fallback, so the
@@ -222,13 +231,16 @@ class Orchestrator:
                    if orchestrator_engine(pon, self.strategy.transport)
                    == "fluid" else UpstreamSim)
         self._pons = [_BridgedSim(self.clock, topo, make_dba(pon.dba),
-                                  self._pon_job_done, sim_cls=sim_cls)
-                      for topo in self.metro_topology.pons]
+                                  self._pon_job_done, tracer=trc,
+                                  metrics=reg, lane=f"pon{p}",
+                                  sim_cls=sim_cls)
+                      for p, topo in enumerate(self.metro_topology.pons)]
         # single-PON forests have no metro tier — the OLT is the server edge
         self._metro = (_BridgedSim(self.clock,
                                    self.metro_topology.metro_segment(),
                                    make_dba(pon.dba), self._metro_job_done,
-                                   sim_cls=sim_cls)
+                                   tracer=trc, metrics=reg, lane="metro",
+                                   tid_prefix="olt", sim_cls=sim_cls)
                        if pon.n_pons > 1 else None)
         self.topology = self._pons[0].topology   # degenerate-case alias
         self._traffic = BackgroundTraffic(pon.background_load,
@@ -301,12 +313,17 @@ class Orchestrator:
             slot[0].extend(updates)
 
     def _close_olt_gather(self, p: int) -> None:
-        ups, on_arrival, _ = self._olt_gather.pop(p)
+        ups, on_arrival, t_open = self._olt_gather.pop(p)
         pon = self.pon_cfg
         job = UpstreamJob(seq=next(self._jobseq), onu=p,
                           size_mbits=pon.model_mbits,
                           ready_s=self.clock.now + pon.onu_agg_s,
                           kind="theta")
+        trc = self.obs.tracer
+        if trc.enabled:
+            trc.add_span("Φ-gather", t_open, job.ready_s,
+                         lane=("metro", f"olt{p}"), cat="agg",
+                         args={"thetas": len(ups)})
         self._submit(self._metro, job, ups, on_arrival,
                      self._finish_after_latency)
 
@@ -347,7 +364,7 @@ class Orchestrator:
         math is clock-free), then downlink + train + wireless delay before
         the update reaches the PON edge and transport owns it."""
         (delta, weight), dt_host = timed(self.backend.client_update, client, self.rng)
-        self._dispatch_s += dt_host
+        self._dispatch_host_s += dt_host
         up = ClientUpdate(client=int(client), delta=delta, weight=weight,
                           version=self.server_version,
                           t_dispatch=self.clock.now)
@@ -358,6 +375,12 @@ class Orchestrator:
 
     def _at_edge(self, up: ClientUpdate, on_arrival) -> None:
         up.t_edge = self.clock.now
+        trc = self.obs.tracer
+        if trc.enabled:
+            # dispatch → train → wireless leg, collapsed (one clock event)
+            trc.add_span("train+wireless", up.t_dispatch, up.t_edge,
+                         lane=("clients", f"c{up.client}"), cat="client",
+                         args={"version": up.version})
         pon = self.pon_cfg
         onu_g = int(self.backend.onu_ids[up.client])   # global ONU id
         p = onu_g // pon.n_onus                        # owning PON tree
@@ -382,13 +405,18 @@ class Orchestrator:
                 slot[0].append(up)
 
     def _close_gather(self, onu_g: int) -> None:
-        ups, on_arrival, _ = self._gather.pop(onu_g)
+        ups, on_arrival, t_open = self._gather.pop(onu_g)
         pon = self.pon_cfg
         p = onu_g // pon.n_onus
         job = UpstreamJob(seq=next(self._jobseq), onu=onu_g % pon.n_onus,
                           size_mbits=pon.model_mbits,
                           ready_s=self.clock.now + pon.onu_agg_s,
                           kind="theta")
+        trc = self.obs.tracer
+        if trc.enabled:
+            trc.add_span("θ-gather", t_open, job.ready_s,
+                         lane=(f"pon{p}", f"onu{job.onu}"), cat="agg",
+                         args={"clients": len(ups)})
         if self._metro is None:
             fn = self._finish       # the OLT is the server edge
         elif self.strategy.transport == "hier":
@@ -415,6 +443,15 @@ class Orchestrator:
             [u.delta for u in updates], w)
         if updates:
             self.server_version += 1
+        self._h_involved.observe(float(len(updates)))
+        for s in stale:
+            self._h_staleness.observe(float(s))
+        trc = self.obs.tracer
+        if trc.enabled:
+            trc.instant("server-update", self.clock.now,
+                        lane=("server", "agg"),
+                        args={"version": self.server_version,
+                              "updates": len(updates)})
         rec = {"round": rnd_label, "t_s": self.clock.now,
                "policy": self.policy.name, "version": self.server_version,
                "sim_engine": getattr(self.pon_cfg, "sim_engine", "event"),
@@ -425,12 +462,21 @@ class Orchestrator:
         if self._metro is not None:
             rec["metro_mbits"] = self.take_metro_mbits()
         if self._wire_spec.active:
-            rec["wire_mbits"] = float(self.pon_cfg.model_mbits)
+            g = self.obs.metrics.gauge("fl.wire_mbits")
+            g.set(self.pon_cfg.model_mbits)
+            rec["wire_mbits"] = g.value
             rec["compress"] = self._wire_spec.scheme
         rec.update(metrics)
         rec.update(extra or {})
+        if self.obs.health is not None:
+            # online health monitors; the key appears only when incidents
+            # fired, so healthy runs stay identical
+            new = self.obs.health.observe_round(rec, cfg=self.cfg,
+                                                tracer=self.obs.tracer)
+            if new:
+                rec["incidents"] = len(new)
         now = time.perf_counter()
         rec["wall_s"], self._t_row = now - self._t_row, now
-        rec["dispatch_s"], self._dispatch_s = self._dispatch_s, 0.0
+        rec["dispatch_host_s"], self._dispatch_host_s = self._dispatch_host_s, 0.0
         self.emit(rec)
         return rec

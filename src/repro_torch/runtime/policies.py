@@ -91,14 +91,12 @@ class SyncRounds(AggregationPolicy):
         o.rounds_consumed = fast_forward(o.cfg, o.backend, o.failures, o.rng,
                                          o.rounds_consumed, start_round)
         for rnd in range(start_round, start_round + n_updates):
-            rec, wall_s = timed(sync_round, o.cfg, o.backend, o.failures, o.rng, rnd)
+            # o.obs routes the round's accounting into the orchestrator's
+            # registry: the counter's add/take feeds rec AND accumulates
+            # o.total_upstream_mbits (a property over counter.total)
+            rec, wall_s = timed(sync_round, o.cfg, o.backend, o.failures, o.rng, rnd,
+                                obs=o.obs)
             rec["wall_s"] = wall_s
-            # the round's Mbits through the run's counters: add then take
-            # gives the row the transport's float, and the totals accumulate
-            for key, counter in (("upstream_mbits", o._c_up), ("metro_mbits", o._c_metro)):
-                if key in rec:
-                    counter.add(rec[key])
-                    rec[key] = counter.take()
             o.rounds_consumed += 1
             if rec["involved"] > 0:     # the server model actually moved
                 o.server_version += 1

@@ -433,7 +433,8 @@ def test_train_cli_round_trip(monkeypatch):
     """launch.train's flags reach run() as the reference's driver builds its
     experiment: the PonConfig, the forest, the strategy and its kwargs."""
     seen = {}
-    monkeypatch.setattr(train, "run", lambda arch, **kw: seen.update(kw, arch=arch))
+    # run's stand-in returns its (empty) result dict, which main reads
+    monkeypatch.setattr(train, "run", lambda arch, **kw: seen.update(kw, arch=arch) or {})
     train.main(["--smoke", "--device", "cpu"] + CLI)
     jexp = jfl.experiment_config_from_args(_reference_args(CLI))
     assert dataclasses.asdict(seen["pon"]) == dataclasses.asdict(jexp.fl.pon)

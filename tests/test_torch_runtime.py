@@ -13,6 +13,7 @@ runtime's shapes are held against those on the card (chip_smoke.py phase
 17)."""
 import argparse
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -47,7 +48,7 @@ from repro_torch.runtime import failures as tfailures  # noqa: E402
 from test_torch_compression import _jax_noise  # noqa: E402
 
 # host-time keys of the port's rows; the reference's rows have none
-HOST_KEYS = ("wall_s", "dispatch_s", "train_s", "aggregate_s")
+HOST_KEYS = ("wall_s", "dispatch_host_s", "train_host_s", "aggregate_host_s")
 LOADED = dict(dba="fl_priority", n_wavelengths=2, background_load=0.3)
 
 
@@ -435,7 +436,7 @@ def test_client_stacked_async_matches_reference(mode, policy, skw, n_pons, compr
     jhist = jorch.history
     assert len(hist) == len(jhist) == len(snaps) == len(jsnaps) and len(hist) > 0
     for i, (r, j) in enumerate(zip(hist, jhist)):
-        assert set(r) == set(j) | {"wall_s", "dispatch_s", "aggregate_s"}, (set(r), set(j))
+        assert set(r) == set(j) | {"wall_s", "dispatch_host_s", "aggregate_host_s"}, (set(r), set(j))
         for key in j:
             if key in ("acc", "eval_loss"):
                 assert r[key] == pytest.approx(j[key], abs=1e-4), (i, key)
@@ -551,28 +552,35 @@ CLI_CASES = [
 @pytest.mark.parametrize("argv", CLI_CASES, ids=["defaults", "semi_sync", "fedbuff", "hier"])
 def test_experiment_cli_round_trip(argv):
     """The shared flag set builds the reference's ExperimentConfig, field for
-    field, FLConfig and PonConfig included (the reference's FLConfig also
-    carries the legacy ``mode`` and ``seed``, which no builder sets: the
-    strategy holds the mode, the experiment the seed)."""
+    field, FLConfig and PonConfig included (both FLConfigs carry the legacy
+    ``mode`` and ``seed``, which no builder sets: the strategy holds the
+    mode, the experiment the seed)."""
     got, jexp = _both_configs(argv, n_rounds=7)
     want = dataclasses.asdict(jexp)
-    assert (want["fl"].pop("mode"), want["fl"].pop("seed")) == ("sfl", 0)
+    assert (want["fl"]["mode"], want["fl"]["seed"]) == ("sfl", 0)
     assert dataclasses.asdict(got) == want
     assert got.make_strategy() == fl.make_strategy(jexp.strategy, **dict(jexp.strategy_kwargs))
 
 
-def test_femnist_async_cli_drives_and_refuses(capsys, monkeypatch):
+def test_femnist_async_cli_drives_and_refuses(capsys, monkeypatch, tmp_path):
     """The entry point on the CPU at reduced size prints one row a window and
-    the summary; without a card and without --device cpu it raises; the
-    item-5 flags are refused by name."""
+    the summary; ``--trace-out`` writes a Chrome trace of the run (the live
+    grant spans, θ-gather windows and server-update instants); without a
+    card and without --device cpu it raises."""
     femnist_async.main(["--rounds", "2", "--n-selected", "6", "--onus", "4",
                         "--clients-per-onu", "5", "--policy", "semi_sync", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "policy=semi_sync strategy=sfl_two_step budget=50 sim-s" in out
     assert out.count(" update ") == 2 and "server updates in 50 simulated seconds" in out
-    with pytest.raises(SystemExit):
-        femnist_async.main(["--device", "cpu", "--trace-out", "t.json"])
-    assert "ROADMAP.md Queue 1 item 5" in capsys.readouterr().err
+    trace = tmp_path / "t.json"
+    femnist_async.main(["--rounds", "1", "--n-selected", "6", "--onus", "4",
+                        "--clients-per-onu", "5", "--policy", "semi_sync", "--device", "cpu",
+                        "--trace-out", str(trace)])
+    assert f"spans to {trace}" in capsys.readouterr().out
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = {e["name"] for e in events if e["ph"] == "X"}
+    assert {"theta", "θ-gather", "train+wireless"} <= names, names
+    assert any(e["ph"] == "i" and e["name"] == "server-update" for e in events)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     exp, _ = _cnn_experiment("sfl_two_step", "fedbuff", {}, 1, "none")
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -15,6 +15,7 @@ The kernels' gradients (flash attention, the RG-LRU and RWKV6 scans) are
 held against ``jax.grad`` in ``tests/test_torch_lm_kernels.py``.
 """
 import dataclasses
+import json
 import os
 import types
 
@@ -452,12 +453,25 @@ def test_train_resume_equals_an_uninterrupted_run(tmp_path, capsys):
     _tree_close(b, a, 0.0)
 
 
-def test_train_cli_refuses_unported_flags(capsys):
-    for flag, value, item in (("--trace-out", "t.json", "item 5"),
-                              ("--metrics-out", "m.jsonl", "item 5")):
-        with pytest.raises(SystemExit):
-            train.main(["--smoke", "--device", "cpu", flag, value])
-        assert f"ROADMAP.md Queue 1 {item}" in capsys.readouterr().err, flag
+def test_train_cli_refuses_unported_flags(capsys, tmp_path):
+    """The flags that were refused until the port had ``repro_torch.obs``
+    now write their files: ``--trace-out`` a Chrome trace holding the rounds
+    and the wall lane of ``backend.train_step_s``, ``--metrics-out`` the
+    registry's JSONL with the upstream counter and the step histogram."""
+    from repro_torch import obs
+
+    trace, metrics = tmp_path / "t.json", tmp_path / "m.jsonl"
+    train.main(["--smoke", "--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "16",
+                "--trace-out", str(trace), "--metrics-out", str(metrics)])
+    out = capsys.readouterr().out
+    assert f"spans to {trace}" in out and f"merged metrics to {metrics}" in out
+    spans = [e for e in json.loads(trace.read_text())["traceEvents"] if e["ph"] == "X"]
+    assert sum(e["name"] == "round" for e in spans) == 2
+    assert sum(e["name"] == "backend.train_step_s" for e in spans) == 2
+    rows = {r["name"]: r for r in obs.read_jsonl(str(metrics))}
+    assert rows["backend.train_step_s"]["count"] == 2
+    assert rows["pon.upstream_mbits"]["n"] == 2
+    assert all(r["obs_schema"] == "repro.obs/v1" for r in rows.values())
 
 
 def test_train_runtime_driver_is_the_loop_and_resumes(tmp_path, capsys):

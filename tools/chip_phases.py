@@ -3,6 +3,7 @@ process on one card — a short call to time a phase apart from the ones
 before it in the full script.
 
     python3 tools/chip_phases.py phase_slice phase_transport phase_slice
+    python3 tools/chip_phases.py phase_obs      # phase 18 alone
 
 ``phase_card`` and ``phase_build`` always run first (the card's name and
 power limit, every kernel built). Each phase prints as in the full script,
