@@ -11,8 +11,9 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 3. kernels — each kernel against its plain PyTorch version on the card at
              the shapes the main path gives it; kernel, plain-version and
              library-call times (CUDA events, median of 20 after warm-up)
-             beside the bound (bytes moved at 3.35 TB/s, f32 flops at
-             67 TFLOP/s; the H100 SXM data-sheet peaks); each result
+             beside the bound (the kernel's cost function: bytes moved at
+             3.35 TB/s, f32 flops at 67 TFLOP/s; ``launch.hw``'s H100 SXM
+             data-sheet peaks); each result
              repeats bit for bit; at the fc1_w leaf (SFL and classical)
              the call's device time apart from its host work (``queued_ms``:
              CUDA events around 20 calls queued behind a spin of the card),
@@ -58,8 +59,7 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              TFLOP/s) for bf16 attention and its f32 rate for f32
              attention; the RWKV6 bound is the bytes or the chunked form's
              matrix products at the TF32 rate (495 TFLOP/s), whichever is
-             larger (the old algorithm's operations at the f32 rate are
-             printed beside it); ``scaled_dot_product_attention`` as
+             larger; ``scaled_dot_product_attention`` as
              flash's library call; a torch.profiler breakdown of the RWKV6
              prefill's three launches and of its decode step, the RG-LRU
              scan's device time (``queued_ms``) at both shapes and its
@@ -246,8 +246,21 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              test for a profiler and of an open range. (f)
              ``launch.train``'s CLI with qwen2-0.5b at full width, 2 steps,
              ``--report-out``: the bundle's ``backend.train_step_s`` count 2.
+19. cost   — the H100 cost model (``launch.roofline``, ``launch.hw``, each
+             kernel's cost function) against the card: (c) every kernel's
+             cost function at its PERF.md §6 row's shape reproduces that
+             row's Bound ms; (a) one warm qwen2-0.5b train step (batch 8 ×
+             2048, adamw, remat full, as phase 13) and one rwkv6-3b
+             prefill (4 × 4096) counted on the card equal the dry run's
+             count on ``meta`` (flops by type and bytes, exactly), the
+             kernels' reported launches their launch counters; (b) the
+             compute term at most the measured warm time (flops at peak are
+             a floor), mfu and the share of the roofline printed, the
+             reckoned peak memory within 25% of ``max_memory_allocated``.
 
-Phases 4, 7, 10, 10b, 13, 15, 16, 17 and 18 are the main paths (the FEMNIST
+Every bound (phases 3-17) comes from the kernels' cost functions
+(``kernels.*_cost``) at ``launch.hw``'s peaks. Phases 4, 7, 10, 10b, 13,
+15, 16, 17 and 18 are the main paths (the FEMNIST
 round uncompressed and compressed, LM serving, LM training, the LM gradient
 exchange, the event-simulator transport and hier_sfl, the event-driven
 runtime, the traced runs). The last lines are the
@@ -274,10 +287,6 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device-memory rate
-F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
-TF32_FLOPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
 # f32 sums in another order: the error scales with Σ|w·x| of each output,
 # not with the (possibly cancelled) sum itself; one dropped or doubled row
 # of 128 would be ~1e-2 of it
@@ -354,25 +363,15 @@ def _device_ms(row: dict, label: str, fn) -> None:
     print(f"device {label}: {row['device_ms']:.4f} ms a call of {row['ms']:.4f} ({QUEUED})")
 
 
-def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
-    """Least time for work that moves ``nbytes`` and does ``flops``
-    operations at ``flops_per_s`` (f32 by default): (ms, what bounds it)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def agg_bound(C: int, N: int, n_seg: int, itemsize: int):
-    """Least time for out = per-segment Σ wm·x: read x, wm and the CSR once,
-    write θ once; 2·C·N f32 flops."""
-    return bound(C * N * itemsize + n_seg * N * 4 + C * 4 + (C + n_seg + 1) * 4,
-                 2 * C * N)
+def _card_name() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def phase_card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    card = out.splitlines()[0]
+    card = _card_name()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -393,7 +392,7 @@ def phase_build() -> None:
 
 def phase_kernels():
     """agg_reduce against its plain version; returns the main case's row."""
-    from repro_torch.kernels.agg_reduce import (segment_agg_reduce,
+    from repro_torch.kernels.agg_reduce import (agg_reduce_cost, segment_agg_reduce,
                                                 segment_agg_reduce_plain)
     gen = torch.Generator(device="cuda").manual_seed(0)
     n_fc1 = 3136 * 2048                      # fc1_w of the full-width CNN
@@ -433,7 +432,7 @@ def phase_kernels():
                 S[torch.as_tensor(seg, device="cuda"), torch.arange(C, device="cuda")] = wm
                 library_call = lambda: torch.mm(S, x)   # noqa: E731
             library_ms = time_ms(library_call)
-        bound_ms, bound_by = agg_bound(C, N, n_seg, x.element_size())
+        bound_ms, bound_by = agg_reduce_cost(C, N, n_seg, x.element_size()).bound()
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
         print(f"kernel agg_reduce [{what}] C={C} N={N} n_seg={n_seg} "
               f"{str(dtype).split('.')[-1]}: max_abs_err {err:.3e} "
@@ -645,7 +644,7 @@ def phase_compression_kernels():
     """quantize / dequantize / top-k mask / fused agg + quantize against
     their plain versions; returns each kernel's row at its main shape."""
     from repro_torch.kernels import quantize as kq
-    from repro_torch.kernels.agg_reduce import (segment_agg_reduce,
+    from repro_torch.kernels.agg_reduce import (agg_reduce_quant_cost, segment_agg_reduce,
                                                 segment_agg_reduce_absmax,
                                                 segment_agg_reduce_quant,
                                                 segment_agg_reduce_quant_plain)
@@ -669,7 +668,7 @@ def phase_compression_kernels():
             ms = time_ms(lambda: kq.quantize_rows(x, u, s, qmax))
             plain_ms = time_ms(lambda: kq.quantize_rows_plain(x, u, s, qmax))
             row = _report("quantize_rows", f"{what} R={R} N={N} int{bits}", 0.0, ms,
-                          plain_ms, None, *bound(R * N * 9 + R * 4, 6 * R * N),
+                          plain_ms, None, *kq.quantize_cost(R, N, x.element_size()).bound(),
                           note=" (bit for bit)")
             if is_main and bits == 4:        # the int4 + EF run launches it
                 main["quantize_rows"] = row
@@ -682,7 +681,7 @@ def phase_compression_kernels():
         plain_ms = time_ms(lambda: kq.dequantize_rows_plain(q, s, m))
         library_ms = time_ms(lambda: torch.mul(q, s[:, None]))
         row = _report("dequantize_rows", f"{what} R={R} N={N}", 0.0, ms, plain_ms,
-                      library_ms, *bound(R * N * 5 + R * 8, 2 * R * N),
+                      library_ms, *kq.dequantize_cost(R, N, True).bound(),
                       note=" (bit for bit; library: torch.mul(q, s), no row mask)")
         if is_main:
             main["dequantize_rows"] = row
@@ -692,7 +691,7 @@ def phase_compression_kernels():
         ms = time_ms(lambda: kq.topk_mask_rows(x, t, m))
         plain_ms = time_ms(lambda: kq.topk_mask_rows_plain(x, t, m))
         _report("topk_mask_rows", f"{what} R={R} N={N}", 0.0, ms, plain_ms, None,
-                *bound(R * N * 8 + R * 8, 3 * R * N), note=" (bit for bit)")
+                *kq.topk_mask_cost(R, N, x.element_size(), True).bound(), note=" (bit for bit)")
         if is_main:
             topk_ms = time_ms(lambda: kq.topk_thresholds(x, k_fc1))
             print(f"torch.topk threshold [fc1_w, R=16 N={N} k={k_fc1}]: ms {topk_ms:.4f}")
@@ -708,7 +707,7 @@ def phase_compression_kernels():
     plain_ms = time_ms(lambda: kq.topk_mask_rows_plain(x, t, m))
     main["topk_mask_rows"] = _report(
         "topk_mask_rows", f"fc1_w, classical client δ R=128 N={n_fc1}", 0.0, ms,
-        plain_ms, None, *bound(128 * n_fc1 * 8 + 128 * 8, 3 * 128 * n_fc1),
+        plain_ms, None, *kq.topk_mask_cost(128, n_fc1, x.element_size(), True).bound(),
         note=" (bit for bit)")
     topk_ms = time_ms(lambda: kq.topk_thresholds(x, k_fc1), reps=5, warmup=1)
     print(f"torch.topk threshold [fc1_w, classical R=128 N={n_fc1} k={k_fc1}]: "
@@ -740,9 +739,9 @@ def phase_compression_kernels():
         del theta, qp
         ms = time_ms(lambda: segment_agg_reduce_quant(x, wm, seg, n_seg, u, 8))
         plain_ms = time_ms(lambda: segment_agg_reduce_quant_plain(x, wm, seg, n_seg, u, 8))
-        nbytes = C * N * 4 + C * 4 + (2 * C + n_seg + 1) * 4 + n_seg * N * 5 + n_seg * 4
         row = _report("agg_reduce_quant", f"{what} C={C} N={N} n_seg={n_seg} int8",
-                      float(lvl), ms, plain_ms, None, *bound(nbytes, 2 * C * N + 6 * n_seg * N),
+                      float(lvl), ms, plain_ms, None,
+                      *agg_reduce_quant_cost(C, N, n_seg, x.element_size()).bound(),
                       note=f" levels (θ bit for bit; scales rel {srel:.1e})")
         if "agg_reduce_quant" not in main:
             _device_ms(row, f"agg_reduce_quant [{what}]",
@@ -1024,40 +1023,6 @@ def _within(got, want, rtol, atol):
     return float(d.max()), bool((d <= atol + rtol * want.float().abs()).all())
 
 
-def _visible_pairs(S: int, window: int, causal: bool = True) -> int:
-    """(query, key) pairs the causal window admits: the attention's work."""
-    if not causal:
-        return S * S
-    if not window or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
-
-
-def _rwkv_ops(S: int, hd: int, W: int) -> int:
-    """Operations of the chunked wkv per (batch, head) as PR 13's CUDA-core
-    kernel did them: per chunk of n tokens the cross-chunk and state
-    products (4·n·hd²), the pair matrix (5 per pair and channel), its
-    product with v and the elementwise decays. Printed beside the bound
-    for comparison with that design."""
-    ops = 0
-    for t0 in range(0, S, W):
-        n = min(W, S - t0)
-        ops += 4 * n * hd * hd + 5 * hd * n * (n - 1) // 2 + n * (n + 1) * hd + 5 * n * hd
-    return ops
-
-
-def _rwkv_matmul_flops(S: int, hd: int, W: int) -> int:
-    """Matrix-product flops of the chunked form per (batch, head), whatever
-    implements it: per chunk of n tokens the cross-chunk and state products
-    (2·n·hd² each) and the causal pair matrix with its product with v
-    (hd·n(n − 1) and hd·n(n + 1), the u-bonus on the diagonal)."""
-    flops = 0
-    for t0 in range(0, S, W):
-        n = min(W, S - t0)
-        flops += 4 * n * hd * hd + 2 * hd * n * n
-    return flops
-
-
 def phase_lm_kernels():
     """flash_attention, rglru_scan and rwkv6_scan against their plain
     versions at the serve path's shapes; returns each kernel's main row."""
@@ -1065,6 +1030,9 @@ def phase_lm_kernels():
 
     from repro_torch.kernels import (flash_attention, flash_attention_plain, rglru_scan,
                                      rglru_scan_plain, rwkv6_scan, rwkv6_scan_plain)
+    from repro_torch.kernels.flash_attention import flash_attention_cost
+    from repro_torch.kernels.rglru_scan import rglru_scan_cost
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cost
     gen = torch.Generator(device="cuda").manual_seed(2)
     main = {}
     B, H, KV, hd, win = 4, 16, 1, 256, 2048            # recurrentgemma-9b attention
@@ -1107,12 +1075,10 @@ def phase_lm_kernels():
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, kx, vx,
                                                                         is_causal=True))
         del kx, vx
-        nbytes = q.element_size() * (2 * B * H * S * hd + 2 * B * KV * S * hd)
-        flops = 4 * B * H * hd * _visible_pairs(S, window)
-        rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
         row = _report("flash_attention", f"{what} B={B} H={H} KV={KV} S={S} hd={hd} "
                       f"window={window} {str(dtype).split('.')[-1]}, {counter[9:]} route",
-                      err, ms, plain_ms, library_ms, *bound(nbytes, flops, rate),
+                      err, ms, plain_ms, library_ms,
+                      *flash_attention_cost(B, H, KV, S, hd, dtype, window).bound(),
                       note=(" (<= 2^-7·|plain|" if dtype == torch.bfloat16
                             else " (<= 2e-5 + 2e-5·|plain|")
                       + "; library: scaled_dot_product_attention, boolean window mask or "
@@ -1136,7 +1102,7 @@ def phase_lm_kernels():
         ms = time_ms(lambda: rglru_scan(a, b, h0))
         plain_ms = time_ms(lambda: rglru_scan_plain(a, b, h0), reps=5, warmup=1)
         row = _report("rglru_scan", f"{what} B={B} S={S} C={C} with h0", 0.0, ms, plain_ms,
-                      None, *bound(4 * (3 * B * S * C + 2 * B * C), 2 * B * S * C),
+                      None, *rglru_scan_cost(B, S, C, with_h0=True).bound(),
                       note=" (bit for bit)")
         # the call's device time apart from its host work
         _device_ms(row, f"rglru_scan {what}", lambda: rglru_scan(a, b, h0))
@@ -1173,14 +1139,11 @@ def phase_lm_kernels():
         ms = time_ms(lambda: rwkv6_scan(r, k, v, logw, u, chunk=W, s0=s0))
         plain_ms = time_ms(lambda: rwkv6_scan_plain(r, k, v, logw, u, chunk=W, s0=s0),
                            reps=5, warmup=1)
-        nbytes = B * Hp * (S * hd * (3 * 2 + 4 + 4) + (2 if with_s0 else 1) * hd * hd * 4)
-        old_ms, _ = bound(nbytes, B * Hp * _rwkv_ops(S, hd, W))
         row = _report("rwkv6_scan", f"{what} B={B} H={Hp} S={S} hd={hd} W={W} bf16 "
                       f"r/k/v{', from s0' if with_s0 else ''}, {counter[9:]} route",
                       max(err_o, err_s), ms, plain_ms, None,
-                      *bound(nbytes, B * Hp * _rwkv_matmul_flops(S, hd, W), TF32_FLOPS_PER_S),
-                      note=f" (<= 2e-3 + 2e-3·|plain|, o and state; PR 13's bound, its "
-                           f"CUDA-core operations at the f32 rate: {old_ms:.4f} ms)")
+                      *rwkv6_scan_cost(B, Hp, S, hd, W, r.dtype, with_s0).bound(),
+                      note=" (<= 2e-3 + 2e-3·|plain|, o and state)")
         if is_main:
             main["rwkv6_scan"] = row
             _device_profile("rwkv6_scan prefill (its three launches)",
@@ -1209,6 +1172,7 @@ def _flash_family_shapes(gen) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention_cost
     out = {}
     for model, B, H, KV, S, hd in FAMILY_FLASH:
         q = torch.randn((B, S, H, hd), generator=gen, device="cuda").bfloat16().transpose(1, 2)
@@ -1230,8 +1194,7 @@ def _flash_family_shapes(gen) -> dict:
         del kx, vx
         row = _report("flash_attention", f"{model} prefill B={B} H={H} KV={KV} S={S} hd={hd} "
                       "window=0 bfloat16, tc route", err, ms, plain_ms, library_ms,
-                      *bound(2 * (2 * B * H * S * hd + 2 * B * KV * S * hd),
-                             4 * B * H * hd * _visible_pairs(S, 0), BF16_FLOPS_PER_S),
+                      *flash_attention_cost(B, H, KV, S, hd, q.dtype).bound(),
                       note=" (<= 2^-7·|plain|; library: scaled_dot_product_attention "
                            "is_causal, KV expanded)")
         out[model] = {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
@@ -1681,14 +1644,6 @@ TRAIN_RUNS = (("qwen2-0.5b", {}, 1, 4, "adamw"), ("qwen2-0.5b", {}, 2, 4, "adamw
               ("qwen3-moe-30b-a3b", {"n_layers": 4}, 1, 3, "sgdm"))
 
 
-def _bwd_bound(B, H, KV, S, hd, window, itemsize, flops_per_s):
-    """Least time of the attention gradient: q, k, v, o, dO and the rows'
-    log-sum-exp read once, dq, dk, dv written once; 10·hd flops a visible
-    pair (QKᵀ, dO·Vᵀ, Pᵀ·dO, dS·K, dSᵀ·Q)."""
-    nbytes = itemsize * 4 * B * (H + KV) * S * hd + 4 * B * H * S
-    return bound(nbytes, 10 * hd * B * H * _visible_pairs(S, window), flops_per_s)
-
-
 def phase_train_kernels():
     """The forward kernels' log-sum-exp on both routes, and the backward
     kernel against autograd of the plain version and against its plain
@@ -1783,11 +1738,10 @@ def phase_train_kernels():
         library_ms = time_ms(lambda: torch.autograd.grad(out, (qx, kx, vx), do,
                                                          retain_graph=True))
         del out, qx, kx, vx
-        rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
         row = _report("flash_attention_bwd", f"{what} B={B} H={H} KV={KV} S={S} hd={hd} "
                       f"window={window} {str(dtype).split('.')[-1]}, {bwd_counter[13:]} route",
                       max(e[1] for e in errs), ms, plain_ms, library_ms,
-                      *_bwd_bound(B, H, KV, S, hd, window, q.element_size(), rate),
+                      *fa.flash_attention_bwd_cost(B, H, KV, S, hd, dtype, window).bound(),
                       note=" (vs the plain version; library: the backward of "
                            "scaled_dot_product_attention, is_causal or the boolean window "
                            "mask, KV expanded)")
@@ -1802,27 +1756,16 @@ def phase_train_kernels():
             kx, vx = k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1)
             sdpa = time_ms(lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=True))
             del kx, vx
+            fwd_bound = fa.flash_attention_cost(B, H, KV, S, hd, q.dtype).bound()[0]
             rows["forward_train"][train] = {"ms": fwd_lse, "ms_without_lse": fwd,
                                             "library_ms": sdpa,
-                                            "bound_ms": _fwd_bound(B, H, KV, S, hd)}
+                                            "bound_ms": fwd_bound}
             print(f"flash forward [{what}]: with lse {fwd_lse:.4f} ms, without {fwd:.4f} ms, "
                   f"scaled_dot_product_attention(is_causal=True, KV expanded) {sdpa:.4f} ms "
-                  f"(bound {_fwd_bound(B, H, KV, S, hd):.4f} ms)")
+                  f"(bound {fwd_bound:.4f} ms)")
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     return rows
-
-
-def _rwkv_bwd_flops(S: int, hd: int, W: int) -> int:
-    """Matrix-product flops of the chunked backward per (batch, head): per
-    chunk of n tokens dU, S_in·do, dS_out·v and k̃·dS_out (2·n·hd² each), P
-    = do·vᵀ and Aᵀ·do (2·n²·hd each) and the three pair sums (the pair
-    matrix and the intra-chunk parts of dr and dk, 2·hd a causal pair)."""
-    flops = 0
-    for t0 in range(0, S, W):
-        n = min(W, S - t0)
-        flops += 8 * n * hd * hd + 4 * n * n * hd + 3 * hd * n * (n - 1)
-    return flops
 
 
 def _grads_close(tag, got, want, names, rtol, atol_of_max):
@@ -1883,11 +1826,8 @@ def phase_scan_bwd_kernels():
         ms = time_ms(lambda: rg._backward(a, out, h0, dout, dl))
         plain_ms = time_ms(lambda: rglru_scan_bwd_plain(a, out, h0, dout, dl), reps=3, warmup=1)
         fwd_ms = time_ms(lambda: rg._forward(a, b, h0, share=False))
-        # a, out, dout (and h0, dh_last) read, da, db and dh0 written; a
-        # multiply-add and a multiply a step and channel
-        nbytes = 4 * (5 * B * S * C + B * C * (1 + with_h0 + with_dl))
         row = _report("rglru_scan_bwd", f"{what} B={B} S={S} C={C}", 0.0, ms, plain_ms, None,
-                      *bound(nbytes, 3 * B * S * C),
+                      *rg.rglru_scan_bwd_cost(B, S, C, with_h0, with_dl).bound(),
                       note=f" (bit for bit the plain version, two calls bit for bit; "
                            f"autograd of the plain forward within 1e-5·|a| + 1e-6·max: "
                            f"{err_a:.3e}; the forward {fwd_ms:.4f} ms)")
@@ -1950,17 +1890,11 @@ def phase_scan_bwd_kernels():
         plain_ms = time_ms(lambda: rwkv6_scan_bwd_plain(r, k, v, logw, u, do, chunk=W, s0=s0,
                                                         ds_final=df), reps=3, warmup=1)
         fwd_ms = time_ms(lambda: rw._forward(r, k, v, logw, u, W, s0, "chunked"))
-        chunks = -(-S // W)
-        size = r.element_size()
-        # r, k, v, logw, do, u, S_in of every chunk, S_final (and dS_final)
-        # read; dr, dk, dv, dlogw, du and dS0 written
-        nbytes = (B * H * S * hd * (6 * size + 4 + 4 + 4) + H * hd * 8
-                  + B * H * hd * hd * 4 * (chunks + 2 + with_df))
         row = _report("rwkv6_scan_bwd", f"{what} B={B} H={H} S={S} hd={hd} W={W} "
                       f"{str(dtype).split('.')[-1]} r/k/v{', s0' if with_s0 else ''}"
                       f"{', dS_final' if with_df else ''}", max(e for e, _ in errs), ms,
                       plain_ms, None,
-                      *bound(nbytes, B * H * _rwkv_bwd_flops(S, hd, W), TF32_FLOPS_PER_S),
+                      *rw.rwkv6_scan_bwd_cost(B, H, S, hd, W, dtype, with_df).bound(),
                       note=f" (vs the plain version, {max(r for _, r in errs):.2e} of the "
                            f"gradient's max |plain|; <= {'2^-7' if bf16 else '2e-3'}·|plain| "
                            f"+ 1e-3·max for dr/dk/dv, 2e-3·|plain| + 1e-3·max for dlogw, du, "
@@ -1975,11 +1909,6 @@ def phase_scan_bwd_kernels():
         del r, k, v, logw, do, o, s_out, scratch
         torch.cuda.empty_cache()
     return rows
-
-
-def _fwd_bound(B, H, KV, S, hd):
-    nbytes = 2 * (2 * B * H * S * hd + 2 * B * KV * S * hd)
-    return bound(nbytes, 4 * B * H * hd * _visible_pairs(S, 0), BF16_FLOPS_PER_S)[0]
 
 
 def _train_routing(cfg, steps: int, micro: int):
@@ -2193,13 +2122,13 @@ def _lm_gradient_leaf_kernels(N: int):
     rows = {"quantize_rows": _report(
         "quantize_rows", what, 0.0, time_ms(lambda: kq.quantize_rows(x, u, s, 127.0)),
         time_ms(lambda: kq.quantize_rows_plain(x, u, s, 127.0)), None,
-        *bound(N * 9 + 4, 6 * N), note=" (bit for bit)")}
+        *kq.quantize_cost(1, N, x.element_size()).bound(), note=" (bit for bit)")}
     check(torch.equal(kq.dequantize_rows(q, s), kq.dequantize_rows_plain(q, s)),
           "dequantize_rows differs [LM gradient leaf]")
     rows["dequantize_rows"] = _report(
         "dequantize_rows", what, 0.0, time_ms(lambda: kq.dequantize_rows(q, s)),
         time_ms(lambda: kq.dequantize_rows_plain(q, s)),
-        time_ms(lambda: torch.mul(q, s[:, None])), *bound(N * 5 + 4, 2 * N),
+        time_ms(lambda: torch.mul(q, s[:, None])), *kq.dequantize_cost(1, N, False).bound(),
         note=" (bit for bit; library: torch.mul(q, s))")
     del x, u, q
     torch.cuda.empty_cache()
@@ -2619,7 +2548,8 @@ def _forest_kernels(gen):
     their plain versions, timed, beside their bounds and ``torch.mm`` by the
     segment matrix. Returns each kernel's rows by shape."""
     from repro_torch.kernels import quantize as kq
-    from repro_torch.kernels.agg_reduce import (segment_agg_reduce, segment_agg_reduce_plain,
+    from repro_torch.kernels.agg_reduce import (agg_reduce_cost, agg_reduce_quant_cost,
+                                                segment_agg_reduce, segment_agg_reduce_plain,
                                                 segment_agg_reduce_quant,
                                                 segment_agg_reduce_quant_plain)
     N = N_FC1
@@ -2650,7 +2580,7 @@ def _forest_kernels(gen):
         out["agg_reduce"][tier] = _report(
             "agg_reduce", what, err, time_ms(lambda: segment_agg_reduce(x, wm, seg, n_seg)),
             time_ms(lambda: segment_agg_reduce_plain(x, wm, seg, n_seg)),
-            time_ms(lambda: torch.mm(S, x)), *agg_bound(C, N, n_seg, 4),
+            time_ms(lambda: torch.mm(S, x)), *agg_reduce_cost(C, N, n_seg, 4).bound(),
             note=f" (<= {ATOL} + {RTOL_OF_ABS_SUM}·Σ|w·x|; library: torch.mm by the "
                  f"{n_seg}×{C} segment matrix)")
         if tier == "θ":
@@ -2663,12 +2593,11 @@ def _forest_kernels(gen):
                   f"fused q differs from the unfused port route [{what}]")
             lvl = int((q.int() - qp.int()).abs().max())
             check(lvl <= 1, f"fused q off by {lvl} levels [{what}]")
-            nbytes = C * N * 4 + C * 4 + (2 * C + n_seg + 1) * 4 + n_seg * N * 5 + n_seg * 4
             out["agg_reduce_quant"][tier] = _report(
                 "agg_reduce_quant", what + " int8", float(lvl),
                 time_ms(lambda: segment_agg_reduce_quant(x, wm, seg, n_seg, u, 8)),
                 time_ms(lambda: segment_agg_reduce_quant_plain(x, wm, seg, n_seg, u, 8)), None,
-                *bound(nbytes, 2 * C * N + 6 * n_seg * N), note=" levels (θ bit for bit)")
+                *agg_reduce_quant_cost(C, N, n_seg, 4).bound(), note=" levels (θ bit for bit)")
             m = (torch.arange(n_seg, device="cuda") % 7 != 0).float()   # silent ONUs
             del qp, u
         else:
@@ -2683,7 +2612,7 @@ def _forest_kernels(gen):
                 "quantize_rows", f"fc1_w, hier {tier} rows R={R} N={N} int8", 0.0,
                 time_ms(lambda: kq.quantize_rows(got, u, s, 127.0)),
                 time_ms(lambda: kq.quantize_rows_plain(got, u, s, 127.0)), None,
-                *bound(R * N * 9 + R * 4, 6 * R * N), note=" (bit for bit)")
+                *kq.quantize_cost(R, N, 4).bound(), note=" (bit for bit)")
             del u
         R = q.shape[0]
         check(torch.equal(kq.dequantize_rows(q, s, m), kq.dequantize_rows_plain(q, s, m)),
@@ -2692,7 +2621,7 @@ def _forest_kernels(gen):
             "dequantize_rows", f"fc1_w, hier {tier} rows R={R} N={N}", 0.0,
             time_ms(lambda: kq.dequantize_rows(q, s, m)),
             time_ms(lambda: kq.dequantize_rows_plain(q, s, m)),
-            time_ms(lambda: torch.mul(q, s[:, None])), *bound(R * N * 5 + R * 8, 2 * R * N),
+            time_ms(lambda: torch.mul(q, s[:, None])), *kq.dequantize_cost(R, N, m is not None).bound(),
             note=" (bit for bit; library: torch.mul(q, s))")
         del x, got, q, S
         torch.cuda.empty_cache()
@@ -3032,7 +2961,8 @@ def _runtime_lm() -> dict:
 def _runtime_kernels(gen):
     """(h) agg_reduce at fc1_w at the runtime's shapes: 8 rows (a fedbuff
     buffer) into 16 ONU segments, 64 (the forest) and one (classical)."""
-    from repro_torch.kernels.agg_reduce import segment_agg_reduce, segment_agg_reduce_plain
+    from repro_torch.kernels.agg_reduce import (agg_reduce_cost, segment_agg_reduce,
+                                                segment_agg_reduce_plain)
     N, C, out = N_FC1, 8, {}
     rng = np.random.default_rng(17)
     x = torch.randn((C, N), generator=gen, device="cuda") * 1e-2
@@ -3053,7 +2983,7 @@ def _runtime_kernels(gen):
         out[f"{C}x{n_seg}"] = _report(
             "agg_reduce", what, err, time_ms(lambda: segment_agg_reduce(x, wm, seg, n_seg)),
             time_ms(lambda: segment_agg_reduce_plain(x, wm, seg, n_seg)),
-            time_ms(lambda: torch.mm(S, x)), *agg_bound(C, N, n_seg, 4),
+            time_ms(lambda: torch.mm(S, x)), *agg_reduce_cost(C, N, n_seg, 4).bound(),
             note=f" (library: torch.mm by the {n_seg}×{C} segment matrix)")
         del got, want, abs_sum, S
     return out
@@ -3568,6 +3498,193 @@ def phase_obs() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the cost model against the card
+# ---------------------------------------------------------------------------
+
+def cost_rows():
+    """(kernel, its cost function at the shape of its PERF.md §6 row, that
+    row's Bound ms)."""
+    import importlib
+    ag, kq, fa, rg, rw = (importlib.import_module(f"repro_torch.kernels.{m}") for m in
+                          ("agg_reduce", "quantize", "flash_attention", "rglru_scan",
+                           "rwkv6_scan"))
+    bf16 = torch.bfloat16
+    return (("agg_reduce", ag.agg_reduce_cost(128, N_FC1, 16, 4), 1.1043),
+            ("agg_reduce, classical (1')", ag.agg_reduce_cost(16, N_FC1, 1, 4), 0.1304),
+            ("agg_reduce_quant", ag.agg_reduce_quant_cost(128, N_FC1, 16, 4), 1.1350),
+            ("quantize_intb", kq.quantize_cost(16, N_FC1, 4), 0.2761),
+            ("dequantize_int8", kq.dequantize_cost(16, N_FC1, True), 0.1534),
+            ("topk_mask", kq.topk_mask_cost(128, N_FC1, 4, True), 1.9632),
+            ("flash_attention", fa.flash_attention_cost(4, 16, 1, 4096, 256, bf16, 2048),
+             0.4170),
+            ("rglru_scan", rg.rglru_scan_cost(4, 4096, 4096, True), 0.2404),
+            ("rwkv6_scan", rw.rwkv6_scan_cost(4, 48, 4096, 64, 64, bf16), 0.2113),
+            ("flash backward", fa.flash_attention_bwd_cost(8, 14, 2, 2048, 64, bf16), 0.1521),
+            ("rglru_scan backward", rg.rglru_scan_bwd_cost(8, 2048, 4096, False, False),
+             0.4007),
+            ("rwkv6_scan backward", rw.rwkv6_scan_bwd_cost(8, 48, 2048, 64, 64, bf16),
+             0.4244))
+
+
+# the cells phase 19 measures: phase 13's qwen2-0.5b step (batch 8 × 2048,
+# adamw, remat full) and phase 10's rwkv6-3b prefill (4 × 4096)
+COST_CELLS = (("qwen2-0.5b", ("train_8x2048", 2048, 8, "train"), "adamw"),
+              ("rwkv6-3b", ("prefill_4x4096", 4096, 4, "prefill"), "adamw"))
+# launch counters a kernel's reports are held to: (wrapper, counter)
+COST_COUNTERS = {"flash_attention": ("flash_attention", "launches"),
+                 "flash_attention_bwd": ("flash_attention", "launches_bwd"),
+                 "rglru_scan": ("rglru_scan", "launches"),
+                 "rglru_scan_bwd": ("rglru_scan", "launches_bwd"),
+                 "rwkv6_scan": ("rwkv6_scan", "launches"),
+                 "rwkv6_scan_bwd": ("rwkv6_scan", "launches_bwd")}
+
+
+def _card_args(meta_args, cfg, opt_name: str, gen):
+    """The cell's arguments on the card, leaf for leaf the shapes and types
+    of ``meta_args``: parameters from the port's init, the optimizer's own
+    state, random tokens and unit client weights."""
+    from repro_torch.models import transformer
+    from repro_torch.optim import make_optimizer
+    params = transformer.init_params(cfg, device="cuda")
+    args = [params]
+    if len(meta_args) == 3:
+        args.append(make_optimizer(opt_name).init(params))
+    batch = {}
+    for k, t in meta_args[-1].items():
+        if k == "tokens":
+            batch[k] = torch.randint(0, cfg.vocab_size, tuple(t.shape), generator=gen,
+                                     device="cuda", dtype=t.dtype)
+        else:
+            batch[k] = torch.ones(tuple(t.shape), dtype=t.dtype, device="cuda")
+    args.append(batch)
+    got = [(tuple(t.shape), t.dtype) for t in _leaves_of(args)]
+    want = [(tuple(t.shape), t.dtype) for t in _leaves_of(meta_args)]
+    check(got == want, f"phase 19: the card's arguments differ from the dry run's for {cfg.name}")
+    return args
+
+
+def _leaves_of(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves_of(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves_of(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def _by_op_diff(a, b) -> str:
+    keys = sorted(set(a.by_op) | set(b.by_op))
+    return ", ".join(f"{k}: card {a.by_op.get(k, 0):.0f} meta {b.by_op.get(k, 0):.0f}"
+                     for k in keys if a.by_op.get(k, 0) != b.by_op.get(k, 0))
+
+
+def phase_cost() -> None:
+    """Phase 19: (c) every kernel's cost function at its PERF.md §6 row's
+    shape gives that row's Bound ms; (a) one warm step of each cell counted
+    on the card equals the dry run's count on ``meta`` (flops by type and
+    bytes exactly), the kernels' reported launches equal their counters;
+    (b) the compute term does not exceed the measured warm time, the
+    reckoned peak memory lies within 25% of the measured one."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention, rglru_scan, rwkv6_scan
+    from repro_torch.launch import hw, roofline, specs
+    from repro_torch.models.config import ShapeConfig
+
+    card = _card_name()
+    for name, work, want in cost_rows():
+        ms, by = work.bound()
+        print(f"cost [{card}]: {name} bound {ms:.4f} ms ({by}), PERF.md §6 {want:.4f}")
+        check(round(ms, 4) == want, f"cost function of {name}: {ms:.4f} ms, want {want}")
+
+    wrappers = {"flash_attention": flash_attention, "rglru_scan": rglru_scan,
+                "rwkv6_scan": rwkv6_scan}
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    for arch, shape, opt_name in COST_CELLS:
+        cfg, shp = configs.get(arch), ShapeConfig(*shape)
+        label = f"{arch} {shp.kind} {shp.global_batch}x{shp.seq_len}"
+        t0 = time.perf_counter()
+        fn, meta_args = specs.input_specs(cfg, shp, None, None, opt_name)
+        with roofline.Counter() as meta:
+            fn(*meta_args)
+        meta_s = time.perf_counter() - t0
+        # earlier phases' objects in reference cycles, collected now rather
+        # than inside the measured steps (their memory would leave the base)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        state = _card_args(meta_args, cfg, opt_name, gen)
+        train = shp.kind == "train"
+
+        def step():
+            out = fn(*state)
+            if train:
+                state[0], state[1] = out[0], out[1]
+            return out
+
+        step()                     # cold
+        step()
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        warm = statistics.median(walls)
+        peak = torch.cuda.max_memory_allocated() - base
+        for w in wrappers.values():
+            _zero_launches(w)
+        with roofline.Counter() as c:
+            step()
+            torch.cuda.synchronize()
+        if c.flops != meta.flops or c.bytes != meta.bytes:
+            print(f"cost {label}: card {c.flops} {c.bytes:.0f} B, meta {meta.flops} "
+                  f"{meta.bytes:.0f} B; by operator: {_by_op_diff(c, meta)}")
+        check(c.flops == meta.flops, f"cost {label}: flops on the card {c.flops} != meta "
+                                     f"{meta.flops}")
+        check(c.bytes == meta.bytes, f"cost {label}: bytes on the card {c.bytes:.0f} != meta "
+                                     f"{meta.bytes:.0f}")
+        launched = {k: getattr(wrappers[w], attr) for k, (w, attr) in COST_COUNTERS.items()}
+        reported = {k: v["launches"] for k, v in c.kernels.items()}
+        check(reported == {k: n for k, n in launched.items() if n},
+              f"cost {label}: reported launches {reported}, counters {launched}")
+        check(c.kernels == meta.kernels, f"cost {label}: the card's kernel reports differ "
+                                         "from the dry run's")
+        compute_s = roofline.compute_seconds(c.flops)
+        memory_s = c.bytes / hw.HBM_BW
+        n_params = sum(t.numel() for t in _leaves_of(meta_args[0]))
+        tokens = shp.global_batch * shp.seq_len
+        model_flops = (6 if train else 2) * n_params * tokens
+        mfu = model_flops / (warm * hw.PEAK_FLOPS_BF16)
+        reckoned = roofline.tree_bytes(meta_args) + meta.peak
+        err = (reckoned - peak) / peak
+        print(f"cost [{card}] {label}: warm {warm:.4f} s (host clock, card synchronised, "
+              f"median of 3; {', '.join(f'{w:.4f}' for w in walls)}); flops "
+              f"{ {k: f'{v:.4e}' for k, v in c.flops.items()} } = meta's, bytes "
+              f"{c.bytes:.4e} = meta's; compute_s {compute_s:.4f} "
+              f"({100 * compute_s / warm:.1f}% of warm), memory_s {memory_s:.4f} (unfused, "
+              f"not held), roofline max {max(compute_s, memory_s):.4f} s = "
+              f"{100 * max(compute_s, memory_s) / warm:.1f}% of warm; model flops "
+              f"{model_flops:.4e} ({'6' if train else '2'}·N·D, N {n_params:,}), mfu "
+              f"{100 * mfu:.2f}%; peak reckoned {reckoned / 2**30:.2f} GiB (arguments "
+              f"{roofline.tree_bytes(meta_args) / 2**30:.2f} + live {meta.peak / 2**30:.2f}) "
+              f"vs max_memory_allocated {peak / 2**30:.2f} GiB above the {base / 2**30:.2f} "
+              f"GiB held before ({100 * err:+.1f}%, "
+              f"{'over' if err > 0 else 'under'}); kernels {reported}; meta count "
+              f"{meta_s:.1f} s")
+        check(compute_s <= warm, f"cost {label}: compute term {compute_s:.4f} s exceeds the "
+                                 f"measured {warm:.4f} s: a miscount")
+        check(abs(err) <= 0.25, f"cost {label}: reckoned peak {reckoned / 2**30:.2f} GiB vs "
+                                f"measured {peak / 2**30:.2f} GiB ({100 * err:+.1f}%)")
+        del state, fn, meta_args
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3627,6 +3744,7 @@ def main() -> int:
         launches[name] += n
     for name, n in phase(phase_obs).items():
         launches[name] += n
+    phase(phase_cost)
     print(f"total {time.perf_counter() - t0:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     table = (("agg_reduce", csrc + "agg_reduce.cu", "src/repro/kernels/agg_reduce.py:60"),

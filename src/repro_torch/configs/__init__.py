@@ -16,8 +16,25 @@ reference's.
 """
 from __future__ import annotations
 
+from typing import Dict
+
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.femnist_cnn import femnist_config
+
+# the reference's registry, in its order
+ARCH_IDS = (
+    "arctic_480b",
+    "qwen3_moe_30b_a3b",
+    "musicgen_large",
+    "qwen1_5_110b",
+    "deepseek_coder_33b",
+    "olmo_1b",
+    "qwen2_0_5b",
+    "llama3_2_vision_90b",
+    "recurrentgemma_9b",
+    "rwkv6_3b",
+    "femnist_cnn",
+)
 
 
 def recurrentgemma_9b() -> ModelConfig:
@@ -169,3 +186,7 @@ def get(name: str) -> ModelConfig:
 
 def get_smoke(name: str, **overrides) -> ModelConfig:
     return get(name).reduced(**overrides)
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get(a) for a in ARCH_IDS}

@@ -20,6 +20,12 @@ all-reduce over "pod" on the scattered shard, all-gather over "data", so
 all-reduce over ("pod", "data"). The cross-pod hop may travel as int8
 (stochastic rounding through the quantize kernel's wrapper, one scale per
 shard). ``mesh=None`` is one process: every collective is the identity.
+
+Under a cost counter (``launch.roofline.Counter``) each collective reports
+its kind, the mesh axes its group spans, its operand's bytes and the
+group's size (``kernels.cost.report_collective``); over an
+``AbstractMesh`` (a dry run) it takes ``meta`` tensors and returns the
+shape it would, without a process group.
 """
 from __future__ import annotations
 
@@ -31,8 +37,10 @@ import torch.distributed as dist
 
 from repro_torch.common.tree import flatten, unflatten
 from repro_torch.core.compression import Noise, dequantize_rows, quantize_leaf, uniform_noise
+from repro_torch.kernels import cost
 from repro_torch.kernels.agg_reduce import agg_reduce, segment_agg_reduce
-from repro_torch.launch.mesh import axes_group, mesh_shape
+from repro_torch.launch.mesh import (AbstractGroup, axes_group, group_axes, group_size,
+                                     mesh_shape)
 
 Tree = Dict[str, torch.Tensor]
 
@@ -149,13 +157,31 @@ _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_t
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 
+def _abstract(x: torch.Tensor, group) -> bool:
+    """Whether a collective over ``group`` only reckons (an abstract
+    group: ``meta`` tensors under a counter) or moves data; raises for a
+    ``meta`` tensor anywhere else."""
+    abstract = isinstance(group, AbstractGroup)
+    if (x.device.type == "meta") != abstract or (abstract and not cost.counting()):
+        raise ValueError("a collective takes meta tensors only over an AbstractMesh's group "
+                         "while a launch.roofline.Counter counts, and real tensors only "
+                         f"over a process group; got {x.device} over {type(group).__name__}")
+    return abstract
+
+
+def _report(kind: str, nbytes: int, group) -> None:
+    cost.report_collective(kind, group_axes(group), nbytes, group_size(group))
+
+
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     """(n,) -> (|group|, n): every peer's ``x``, in group-rank order."""
     if group is None:
         return x[None]
-    n = dist.get_world_size(group)
+    n = group_size(group)
     out = x.new_empty((n * x.numel(),))
-    _all_gather(out, x.contiguous().reshape(-1), group=group)
+    if not _abstract(x, group):
+        _all_gather(out, x.contiguous().reshape(-1), group=group)
+    _report("all-gather", out.numel() * out.element_size(), group)
     return out.reshape((n,) + tuple(x.shape))
 
 
@@ -163,8 +189,10 @@ def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
     """(|group|·n,) -> (n,): this rank's shard of the peers' sum."""
     if group is None:
         return x
-    out = x.new_empty((x.shape[0] // dist.get_world_size(group),))
-    _reduce_scatter(out, x.contiguous(), group=group)
+    out = x.new_empty((x.shape[0] // group_size(group),))
+    if not _abstract(x, group):
+        _reduce_scatter(out, x.contiguous(), group=group)
+    _report("reduce-scatter", x.numel() * x.element_size(), group)
     return out
 
 
@@ -173,7 +201,9 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     was: a gradient may come out of autograd with other strides)."""
     x = x.clone(memory_format=torch.contiguous_format)
     if group is not None:
-        dist.all_reduce(x, group=group)
+        if not _abstract(x, group):
+            dist.all_reduce(x, group=group)
+        _report("all-reduce", x.numel() * x.element_size(), group)
     return x
 
 

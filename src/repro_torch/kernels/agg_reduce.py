@@ -21,6 +21,10 @@ bit for bit. The CSR goes to the card through pinned memory, copied on
 the current stream without blocking the host. One segment (classical
 FedAvg, ``agg_reduce``) needs no CSR: the kernel takes its rows in order,
 so such a call builds and copies no table.
+
+``agg_reduce_cost`` and ``agg_reduce_quant_cost`` reckon a call's work
+(``kernels.cost``); each wrapper reports it to an attached counter, on
+``meta`` in place of any work.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
+from repro_torch.kernels.cost import Work
 from repro_torch.obs.profile import kernel_scope
 from repro_torch.kernels.quantize import (launch_quantize, qmax_of,
                                           quantize_rows_plain)
@@ -49,6 +54,22 @@ _ENTRIES = {**{name: _ARGTYPES for name in _DTYPES.values()},
 # pass A's grid, fixed up front so the (n_seg, blocks) absmax buffer is
 # known: one block per 1024 columns (256 threads × 4), at most 16,384
 ABSMAX_COLS_PER_BLOCK, ABSMAX_MAX_BLOCKS = 1024, 1 << 14
+
+
+def agg_reduce_cost(C: int, N: int, n_seg: int, itemsize: int) -> Work:
+    """out = per-segment Σ wm·x: x, wm and the CSR (C rows, n_seg + 1
+    offsets) read once, θ written once; 2·C·N f32 flops."""
+    return Work({"f32": 2 * C * N}, C * N * itemsize + C * 4 + (C + n_seg + 1) * 4,
+                n_seg * N * 4)
+
+
+def agg_reduce_quant_cost(C: int, N: int, n_seg: int, itemsize: int) -> Work:
+    """The fused aggregate + quantize: x, wm, both passes' tables and the
+    noise read once, q and the scales written once; the sums' 2·C·N flops
+    and the rounding's 6 a θ element."""
+    return Work({"f32": 2 * C * N + 6 * n_seg * N},
+                C * N * itemsize + C * 4 + (2 * C + n_seg + 1) * 4 + n_seg * N * 4,
+                n_seg * N + n_seg * 4)
 
 
 def _segments(seg_ids, n_rows: int, n_seg: int) -> np.ndarray:
@@ -88,15 +109,12 @@ def _check(x: torch.Tensor, wm: torch.Tensor, seg_ids, n_seg: int) -> np.ndarray
 
 
 def _on_card(name: str, x: torch.Tensor, wm: torch.Tensor) -> bool:
+    """True for a CUDA tensor (or a meta one under a counter: the card's
+    path without the launch), False for a CPU one; raises otherwise."""
     if x.ndim != 2 or wm.shape != (x.shape[0],):
         raise ValueError(f"want x (C, N) and wm (C,), got {tuple(x.shape)} "
                          f"and {tuple(wm.shape)}")
-    kind = x.device.type
-    if kind == "cpu":
-        return False
-    if kind != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
-    return True
+    return cost.device_kind(name, x) != "cpu"
 
 
 def _upload(table: np.ndarray, device) -> torch.Tensor:
@@ -120,6 +138,8 @@ def _launch(x: torch.Tensor, wm: torch.Tensor, seg: np.ndarray, n_seg: int,
     ``amax`` is given) on validated, non-empty CUDA inputs -> θ. One
     segment passes no table: the kernel's rows are then the identity."""
     C, N = x.shape
+    if x.device.type == "meta":
+        return torch.empty((n_seg, N), dtype=torch.float32, device=x.device)
     csr = None
     if n_seg > 1:
         # read on the current stream: when ``table`` is freed, the caching
@@ -139,19 +159,28 @@ def _launch(x: torch.Tensor, wm: torch.Tensor, seg: np.ndarray, n_seg: int,
     return out
 
 
+def _report_agg(x: torch.Tensor, n_seg: int) -> None:
+    cost.report("agg_reduce", lambda: agg_reduce_cost(*x.shape, n_seg, x.element_size()))
+
+
 @kernel_scope("kernels.agg_reduce")
+@cost.quiet
 def segment_agg_reduce(x: torch.Tensor, wm: torch.Tensor, seg_ids,
                        n_seg: int) -> torch.Tensor:
     """x: (C, N) f32/bf16; wm: (C,) f32; seg_ids: (C,) ints in [0, n_seg)
     -> (n_seg, N) f32, the per-segment weighted sums."""
     if not _on_card("segment_agg_reduce", x, wm):
-        return segment_agg_reduce_plain(x, wm, seg_ids, n_seg)
+        out = segment_agg_reduce_plain(x, wm, seg_ids, n_seg)
+        _report_agg(x, n_seg)
+        return out
     seg = _check(x, wm, seg_ids, n_seg)
     C, N = x.shape
     if C == 0 or N == 0 or n_seg == 0:
         return torch.zeros((n_seg, N), dtype=torch.float32, device=x.device)
     out = _launch(x, wm, seg, n_seg)
-    segment_agg_reduce.launches += 1
+    if x.is_cuda:
+        segment_agg_reduce.launches += 1
+    _report_agg(x, n_seg)
     return out
 
 
@@ -159,6 +188,7 @@ segment_agg_reduce.launches = 0   # kernel launches, for chip_smoke's path check
 
 
 @kernel_scope("kernels.agg_reduce")
+@cost.quiet
 def agg_reduce(x: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor
                ) -> torch.Tensor:
     """x: (C, N) f32/bf16; weights, mask: (C,) -> (N,) f32 = Σ_c w_c·m_c·x_c."""
@@ -182,6 +212,11 @@ def segment_agg_reduce_absmax(x: torch.Tensor, wm: torch.Tensor, seg_ids,
     return _launch(x, wm, seg, n_seg, amax), amax
 
 
+def _report_quant(x: torch.Tensor, n_seg: int) -> None:
+    cost.report("agg_reduce_quant",
+                lambda: agg_reduce_quant_cost(*x.shape, n_seg, x.element_size()))
+
+
 def segment_agg_reduce_quant_plain(x: torch.Tensor, wm: torch.Tensor, seg_ids,
                                    n_seg: int, noise: torch.Tensor, bits: int = 8
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -197,6 +232,7 @@ def segment_agg_reduce_quant_plain(x: torch.Tensor, wm: torch.Tensor, seg_ids,
 
 
 @kernel_scope("kernels.agg_reduce_quant")
+@cost.quiet
 def segment_agg_reduce_quant(x: torch.Tensor, wm: torch.Tensor, seg_ids,
                              n_seg: int, noise: torch.Tensor, bits: int = 8
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -212,7 +248,9 @@ def segment_agg_reduce_quant(x: torch.Tensor, wm: torch.Tensor, seg_ids,
         raise ValueError(f"noise must be ({n_seg}, {x.shape[1]}) float32, got "
                          f"{tuple(noise.shape)} {noise.dtype}")
     if not on_card:
-        return segment_agg_reduce_quant_plain(x, wm, seg_ids, n_seg, noise, bits)
+        out = segment_agg_reduce_quant_plain(x, wm, seg_ids, n_seg, noise, bits)
+        _report_quant(x, n_seg)
+        return out
     qmax = qmax_of(bits)
     C, N = x.shape
     if C == 0 or N == 0 or n_seg == 0:
@@ -225,7 +263,9 @@ def segment_agg_reduce_quant(x: torch.Tensor, wm: torch.Tensor, seg_ids,
     # between the passes, as the TPU computes it in jnp between its two calls
     scales = amax.amax(dim=1).clamp_min(1e-12) / qmax
     q = launch_quantize(theta, noise, scales, qmax)
-    segment_agg_reduce_quant.launches += 1
+    if x.is_cuda:
+        segment_agg_reduce_quant.launches += 1
+    _report_quant(x, n_seg)
     return q, scales
 
 
@@ -233,6 +273,7 @@ segment_agg_reduce_quant.launches = 0
 
 
 @kernel_scope("kernels.agg_reduce_quant")
+@cost.quiet
 def agg_reduce_quant(x: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor,
                      noise: torch.Tensor, bits: int = 8
                      ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -44,6 +44,14 @@ the TMA descriptors' rule; the wrapper raises otherwise), so a transposed
 view of the model's (B, S, heads, hd) activations goes in without a copy.
 The output and the gradients are (B, heads, S, hd), laid out in memory as
 (B, S, heads, hd), which is the model's layout.
+
+``flash_attention_cost`` and ``flash_attention_bwd_cost`` reckon a call's
+work (``kernels.cost``) from the (query, key) pairs the causal window
+admits. Under a counter each call reports it: on the card beside the
+launches, on ``meta`` in place of any work, and on the CPU beside the
+plain version, which then runs through ``FlashAttentionFn`` too (its
+backward ``flash_attention_bwd_plain``), so every device reports the same
+calls.
 """
 from __future__ import annotations
 
@@ -52,7 +60,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
+from repro_torch.kernels.cost import Work
 from repro_torch.obs.profile import kernel_scope
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -77,6 +86,38 @@ _BWD_ENTRIES = {
                     + [ctypes.c_int, ctypes.c_void_p])}
 TMA_ALIGN = 16   # bytes: the TMA descriptors' rule for strides and base addresses
 PLAIN_Q_BLOCK = 256   # the plain version's query rows per step (bounds memory)
+
+
+def visible_pairs(S: int, window: int = 0, causal: bool = True) -> int:
+    """(query, key) pairs the causal window admits: the attention's work."""
+    if not causal:
+        return S * S
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_attention_cost(B: int, H: int, KV: int, S: int, hd: int, dtype: torch.dtype,
+                         window: int = 0, causal: bool = True, with_lse: bool = False
+                         ) -> Work:
+    """q, k, v read once and o (and the rows' f32 log-sum-exp) written
+    once; 4·hd flops a visible pair (QKᵀ and P·V), on the tensor cores in
+    bf16, the CUDA cores in f32."""
+    size = dtype.itemsize
+    return Work({cost.work_type(dtype): 4 * B * H * hd * visible_pairs(S, window, causal)},
+                size * (B * H * S * hd + 2 * B * KV * S * hd),
+                size * B * H * S * hd + 4 * B * H * S * with_lse)
+
+
+def flash_attention_bwd_cost(B: int, H: int, KV: int, S: int, hd: int, dtype: torch.dtype,
+                             window: int = 0, causal: bool = True) -> Work:
+    """q, k, v, o, dO and the rows' log-sum-exp read once, dq, dk, dv
+    written once; 10·hd flops a visible pair (QKᵀ, dO·Vᵀ, Pᵀ·dO, dS·K,
+    dSᵀ·Q)."""
+    size = dtype.itemsize
+    return Work({cost.work_type(dtype): 10 * hd * B * H * visible_pairs(S, window, causal)},
+                size * (3 * B * H * S * hd + 2 * B * KV * S * hd) + 4 * B * H * S,
+                size * (B * H * S * hd + 2 * B * KV * S * hd))
 
 
 def _check_shapes(q, k, v):
@@ -218,6 +259,13 @@ def _forward(q, k, v, causal: bool, window: int, scale: float, softcap: float,
     """The forward kernel of q's type on (B, H, S, hd) tensors -> (o, lse);
     lse is (B, H, S) f32 when ``with_lse``, else None (no pointer passed)."""
     B, H, KV, S, hd = _check_shapes(q, k, v)
+    work = lambda: flash_attention_cost(B, H, KV, S, hd, q.dtype, window, causal,   # noqa: E731
+                                        with_lse)
+    if q.device.type == "cpu" and cost.counting():
+        out = flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale,
+                                    softcap=softcap, return_lse=with_lse)
+        cost.report("flash_attention", work)
+        return out if with_lse else (out, None)
     lib, entry, counter = ROUTES[q.dtype]
     out = _model_layout(B, H, S, hd, q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device) if with_lse
@@ -229,6 +277,9 @@ def _forward(q, k, v, causal: bool, window: int, scale: float, softcap: float,
     else:
         strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     strides += out.stride()[:3]
+    cost.report("flash_attention", work)
+    if q.device.type == "meta":
+        return out, lse
     fn = getattr(build.load(lib, {entry: _ARGTYPES}), entry)
     err = build.on_device(q.device, lambda stream: fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -242,9 +293,19 @@ def _forward(q, k, v, causal: bool, window: int, scale: float, softcap: float,
 
 
 @kernel_scope("kernels.flash_attention_bwd")
+@cost.quiet
 def _backward(q, k, v, o, lse, do, causal: bool, window: int, scale: float, softcap: float):
-    """The backward kernel's three launches -> (dq, dk, dv) in q's type."""
+    """The backward kernel's three launches -> (dq, dk, dv) in q's type; on
+    the CPU (under a counter) ``flash_attention_bwd_plain``."""
     B, H, KV, S, hd = _check_shapes(q, k, v)
+    work = lambda: flash_attention_bwd_cost(B, H, KV, S, hd, q.dtype, window,   # noqa: E731
+                                            causal)
+    if q.device.type == "cpu" and cost.counting():
+        grads = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, window=window,
+                                          scale=scale, softcap=softcap)
+        cost.report("flash_attention_bwd", work, launches=3)
+        # in the kernel's layout, so the operators downstream see its strides
+        return tuple(_model_layout(B, n, S, hd, q).copy_(g) for n, g in zip((H, KV, KV), grads))
     if do.dtype != q.dtype or do.shape != o.shape:
         raise TypeError(f"dO must be {q.dtype} {tuple(o.shape)}, got {do.dtype} "
                         f"{tuple(do.shape)}")
@@ -265,7 +326,6 @@ def _backward(q, k, v, o, lse, do, causal: bool, window: int, scale: float, soft
     Sp = -(-S // BWD_ROW_PAD) * BWD_ROW_PAD
     L, D = torch.empty((2, B, H, Sp), dtype=torch.float32, device=q.device)
     lse = lse.contiguous()
-    lib = build.load("flash_attention_bwd", _BWD_ENTRIES)
     calls = (
         (o.data_ptr(), do.data_ptr(), lse.data_ptr(), L.data_ptr(), D.data_ptr(),
          *o.stride()[:3], *do.stride()[:3], B, H, S, hd, int(bf16)),
@@ -273,6 +333,10 @@ def _backward(q, k, v, o, lse, do, causal: bool, window: int, scale: float, soft
            D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *strides,
            B, H, KV, S, hd, int(causal), int(window), scale, float(softcap), route)] * 2)
     counter = "launches_bwd_tc" if tc else "launches_bwd_fma"
+    cost.report("flash_attention_bwd", work, launches=len(calls))
+    if q.device.type == "meta":
+        return dq, dk, dv
+    lib = build.load("flash_attention_bwd", _BWD_ENTRIES)
     for entry, args in zip(_BWD_PASSES, calls):
         fn = getattr(lib, entry)
         err = build.on_device(q.device, lambda stream: fn(*args, stream))
@@ -310,16 +374,18 @@ def _launch(q, k, v, causal: bool, window: int, scale: float, softcap: float) ->
 
 
 @kernel_scope("kernels.flash_attention")
+@cost.quiet
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, scale=None,
                     softcap: float = 0.0) -> torch.Tensor:
     """q: (B, H, S, hd); k, v: (B, KV, S, hd), H a multiple of KV; f32 or
     bf16 -> (B, H, S, hd) in q's type. Query head h reads KV head h // (H//KV)."""
     B, H, KV, S, hd = _check_shapes(q, k, v)
-    if q.device.type == "cpu":
+    if cost.device_kind("flash_attention", q) == "cpu":
+        if cost.counting():
+            return _launch(q, k, v, causal, window,
+                           float(scale if scale is not None else 1.0 / math.sqrt(hd)), softcap)
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")

@@ -18,6 +18,10 @@ The TPU kernels' own signatures (one vector, one scale: ``quantize_intb``,
 single-row case. int4 values travel unpacked (int8 in [-7, 7]);
 ``pack_int4``/``unpack_int4`` are the wire layout, plain torch as they
 are jnp in the reference.
+
+``quantize_cost``, ``dequantize_cost`` and ``topk_mask_cost`` reckon a
+call's work (``kernels.cost``); each row-form wrapper reports it to an
+attached counter, on ``meta`` in place of any work.
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
+from repro_torch.kernels.cost import Work
 from repro_torch.obs.profile import kernel_scope
 
 MAX_ROWS = 65535      # rows ride the grid's y dimension
@@ -53,13 +58,28 @@ def _quantize_name(x, noise, scales, qmax: float) -> str:
     return _quantize_intb_name(x, noise, int(qmax).bit_length() + 1)
 
 
+def quantize_cost(R: int, N: int, itemsize: int) -> Work:
+    """x, the noise and the scales read once, q written once; 6 f32
+    operations an element (divide, add, subtract, round, two clamps)."""
+    return Work({"f32": 6 * R * N}, R * N * (itemsize + 4) + R * 4, R * N)
+
+
+def dequantize_cost(R: int, N: int, masked: bool) -> Work:
+    """q, the scales (and the row mask) read once, x̂ written once in f32;
+    2 f32 operations an element."""
+    return Work({"f32": 2 * R * N}, R * N + R * 4 * (1 + masked), R * N * 4)
+
+
+def topk_mask_cost(R: int, N: int, itemsize: int, masked: bool) -> Work:
+    """x, the thresholds (and the row mask) read once, y written once in
+    f32; 3 f32 operations an element."""
+    return Work({"f32": 3 * R * N}, R * N * itemsize + R * 4 * (1 + masked), R * N * 4)
+
+
 def _on_card(name: str, x: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
-    return True
+    """True for a CUDA tensor (or a meta one under a counter: the card's
+    path without the launch), False for a CPU one; raises otherwise."""
+    return cost.device_kind(name, x) != "cpu"
 
 
 def _check_rows(name: str, x: torch.Tensor, dtypes, *row_args) -> None:
@@ -86,6 +106,8 @@ _ENTRIES = {**{f"quantize_rows_{sfx}": [_P, _P, _P, _F, _I, _L, _P, _P]
 
 
 def _call(fn_name: str, *args, device) -> None:
+    if device.type == "meta":
+        return
     fn = getattr(build.load("quantize", _ENTRIES), fn_name)
     err = build.on_device(device, lambda stream: fn(*args, stream))
     if err != 0:
@@ -120,6 +142,7 @@ def launch_quantize(x: torch.Tensor, noise: torch.Tensor, scales: torch.Tensor,
 
 
 @kernel_scope(_quantize_name)
+@cost.quiet
 def quantize_rows(x: torch.Tensor, noise: torch.Tensor, scales: torch.Tensor,
                   qmax: float) -> torch.Tensor:
     """x: (R, N) f32/bf16; noise: (R, N) f32 in [0, 1); scales: (R,) f32
@@ -128,14 +151,19 @@ def quantize_rows(x: torch.Tensor, noise: torch.Tensor, scales: torch.Tensor,
     if noise.shape != x.shape or noise.dtype != torch.float32 or noise.device != x.device:
         raise ValueError(f"quantize_rows: noise must be {tuple(x.shape)} float32 "
                          f"on {x.device}")
+    work = lambda: quantize_cost(*x.shape, x.element_size())   # noqa: E731
     if not _on_card("quantize_rows", x):
-        return quantize_rows_plain(x, noise, scales, qmax)
+        q = quantize_rows_plain(x, noise, scales, qmax)
+        cost.report("quantize_rows", work)
+        return q
     if not (x.is_contiguous() and noise.is_contiguous() and scales.is_contiguous()):
         raise ValueError("quantize_rows: inputs must be contiguous")
     if x.numel() == 0:
         return torch.empty(x.shape, dtype=torch.int8, device=x.device)
     q = launch_quantize(x, noise, scales, qmax)
-    quantize_rows.launches += 1
+    if x.is_cuda:
+        quantize_rows.launches += 1
+    cost.report("quantize_rows", work)
     return q
 
 
@@ -154,13 +182,17 @@ def dequantize_rows_plain(q: torch.Tensor, scales: torch.Tensor,
 
 
 @kernel_scope("kernels.dequantize_int8")
+@cost.quiet
 def dequantize_rows(q: torch.Tensor, scales: torch.Tensor,
                     row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (R, N) int8; scales: (R,) f32; row_mask: (R,) f32 or None
     -> (R, N) f32 = (float(q) · s_r) · m_r."""
     _check_rows("dequantize_rows", q, (torch.int8,), scales, row_mask)
+    work = lambda: dequantize_cost(*q.shape, row_mask is not None)   # noqa: E731
     if not _on_card("dequantize_rows", q):
-        return dequantize_rows_plain(q, scales, row_mask)
+        out = dequantize_rows_plain(q, scales, row_mask)
+        cost.report("dequantize_rows", work)
+        return out
     if not all(t is None or t.is_contiguous() for t in (q, scales, row_mask)):
         raise ValueError("dequantize_rows: inputs must be contiguous")
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -169,7 +201,9 @@ def dequantize_rows(q: torch.Tensor, scales: torch.Tensor,
     R, N = q.shape
     _call("dequantize_rows_i8", q.data_ptr(), scales.data_ptr(), _ptr(row_mask), R, N,
           out.data_ptr(), device=q.device)
-    dequantize_rows.launches += 1
+    if q.is_cuda:
+        dequantize_rows.launches += 1
+    cost.report("dequantize_rows", work)
     return out
 
 
@@ -200,13 +234,18 @@ def topk_mask_rows_plain(x: torch.Tensor, thresh: torch.Tensor,
 
 
 @kernel_scope("kernels.topk_sparsify")
+@cost.quiet
 def topk_mask_rows(x: torch.Tensor, thresh: torch.Tensor,
                    row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (R, N) f32/bf16; thresh: (R,) f32; row_mask: (R,) f32 or None
     -> (R, N) f32 keeping |x| ≥ t_r (ties at the threshold all kept)."""
     _check_rows("topk_mask_rows", x, _INPUT_DTYPES, thresh, row_mask)
+    work = lambda: topk_mask_cost(*x.shape, x.element_size(),   # noqa: E731
+                                  row_mask is not None)
     if not _on_card("topk_mask_rows", x):
-        return topk_mask_rows_plain(x, thresh, row_mask)
+        out = topk_mask_rows_plain(x, thresh, row_mask)
+        cost.report("topk_mask_rows", work)
+        return out
     if not all(t is None or t.is_contiguous() for t in (x, thresh, row_mask)):
         raise ValueError("topk_mask_rows: inputs must be contiguous")
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
@@ -215,7 +254,9 @@ def topk_mask_rows(x: torch.Tensor, thresh: torch.Tensor,
     R, N = x.shape
     _call(f"topk_mask_rows_{_SUFFIX[x.dtype]}", x.data_ptr(), thresh.data_ptr(),
           _ptr(row_mask), R, N, out.data_ptr(), device=x.device)
-    topk_mask_rows.launches += 1
+    if x.is_cuda:
+        topk_mask_rows.launches += 1
+    cost.report("topk_mask_rows", work)
     return out
 
 
@@ -227,6 +268,7 @@ topk_mask_rows.launches = 0
 # ---------------------------------------------------------------------------
 
 @kernel_scope(_quantize_intb_name)
+@cost.quiet
 def quantize_intb(x: torch.Tensor, noise: torch.Tensor, bits: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (N,) f32/bf16, noise: (N,) f32 -> (q int8 (N,), scale f32 0-d).
@@ -244,6 +286,7 @@ quantize_int4 = functools.partial(quantize_intb, bits=4)
 
 
 @kernel_scope("kernels.dequantize_int8")
+@cost.quiet
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     if q.shape[0] == 0:
         return torch.zeros((0,), dtype=torch.float32, device=q.device)
@@ -254,6 +297,7 @@ dequantize_int4 = dequantize_int8   # same on-device pair; only the wire differs
 
 
 @kernel_scope("kernels.topk_sparsify")
+@cost.quiet
 def topk_mask(x: torch.Tensor, thresh) -> torch.Tensor:
     """x: (N,) -> (N,) f32 with |x| < thresh zeroed (dense output)."""
     if x.shape[0] == 0:
@@ -268,6 +312,7 @@ def topk_threshold(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 @kernel_scope("kernels.topk_sparsify")
+@cost.quiet
 def topk_sparsify(x: torch.Tensor, k: int) -> torch.Tensor:
     """x: (N,) -> dense (N,) f32 keeping the k largest-magnitude entries."""
     if x.shape[0] == 0:

@@ -12,6 +12,12 @@ serving calls it. Kernel and plain version compute ``a·h`` and then
 ``+ b`` (and the backward's products and sums) with a rounding each, so on
 the card they agree bit for bit; the reference model's
 ``associative_scan`` rounds in another order (rtol 1e-5).
+
+``rglru_scan_cost`` and ``rglru_scan_bwd_cost`` reckon a call's work
+(``kernels.cost``). Under a counter each call reports it: on the card
+beside the launch, on ``meta`` in place of any work, and on the CPU beside
+the plain version, which then runs through ``RglruScanFn`` too (its
+backward the plain backward), so every device reports the same calls.
 """
 from __future__ import annotations
 
@@ -20,11 +26,29 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
+from repro_torch.kernels.cost import Work
 from repro_torch.obs.profile import kernel_scope
 
 _ENTRIES = {"rglru_scan_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
             "rglru_scan_bwd_f32": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
+
+
+def rglru_scan_cost(B: int, S: int, C: int, with_h0: bool = True) -> Work:
+    """a, b (and h0) read once, out and h_last written once, f32; a
+    multiply-add a step and channel."""
+    return Work({"f32": 2 * B * S * C}, 4 * (2 * B * S * C + B * C * with_h0),
+                4 * (B * S * C + B * C))
+
+
+def rglru_scan_bwd_cost(B: int, S: int, C: int, with_h0: bool = True,
+                        with_dh_last: bool = False) -> Work:
+    """a, the forward's out and dout (and h0, dh_last) read once, da, db
+    and dh0 written once, f32; a multiply-add and a multiply a step and
+    channel."""
+    return Work({"f32": 3 * B * S * C},
+                4 * (3 * B * S * C + B * C * (with_h0 + with_dh_last)),
+                4 * (2 * B * S * C + B * C))
 
 
 def _check(a, b, h0):
@@ -80,6 +104,11 @@ def _forward(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor],
     allocated apart, so a cache that keeps h_last does not keep the whole of
     out alive, and autograd sees two outputs of their own."""
     B, S, C = a.shape
+    work = lambda: rglru_scan_cost(B, S, C, h0 is not None)   # noqa: E731
+    if a.device.type == "cpu" and cost.counting():
+        out = rglru_scan_plain(a, b, h0)
+        cost.report("rglru_scan", work)
+        return out
     if S == 1 and share:
         both = torch.empty((2, B, C), dtype=torch.float32, device=a.device)
         out, h_last = both[0].unsqueeze(1), both[1]
@@ -87,6 +116,9 @@ def _forward(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor],
         out = torch.empty((B, S, C), dtype=torch.float32, device=a.device)
         h_last = torch.empty((B, C), dtype=torch.float32, device=a.device)
     if B == 0 or C == 0:
+        return out, h_last
+    cost.report("rglru_scan", work)
+    if a.device.type == "meta":
         return out, h_last
     fn = build.load("rglru_scan", _ENTRIES).rglru_scan_f32
     args = (a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
@@ -99,18 +131,29 @@ def _forward(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor],
 
 
 @kernel_scope("kernels.rglru_scan_bwd")
+@cost.quiet
 def _backward(a, out, h0, dout, dh_last):
     """The backward kernel on the forward's tensors -> (da, db, dh0); dout
-    or dh_last None where that output took no gradient."""
+    or dh_last None where that output took no gradient. On the CPU (under
+    a counter) the plain backward."""
     B, S, C = a.shape
+    work = lambda: rglru_scan_bwd_cost(B, S, C, h0 is not None,   # noqa: E731
+                                       dh_last is not None)
     if dout is None:
         dout = torch.zeros_like(out)
+    if a.device.type == "cpu" and cost.counting():
+        grads = rglru_scan_bwd_plain(a, out, h0, dout, dh_last)
+        cost.report("rglru_scan_bwd", work)
+        return grads
     dout = dout.float().contiguous()
     if dh_last is not None:
         dh_last = dh_last.float().contiguous()
     da, db = torch.empty_like(out), torch.empty_like(out)
     dh0 = torch.empty((B, C), dtype=torch.float32, device=a.device)
     if B == 0 or C == 0:
+        return da, db, dh0
+    cost.report("rglru_scan_bwd", work)
+    if a.device.type == "meta":
         return da, db, dh0
     fn = build.load("rglru_scan", _ENTRIES).rglru_scan_bwd_f32
     args = (a.data_ptr(), out.data_ptr(), None if h0 is None else h0.data_ptr(),
@@ -151,15 +194,15 @@ def _launch(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor]
 
 
 @kernel_scope("kernels.rglru_scan")
+@cost.quiet
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """a, b: (B, S, C) f32; h0: (B, C) f32 or None -> (out (B, S, C), h_last
     (B, C)), both f32."""
     _check(a, b, h0)
-    if a.device.type == "cpu":
-        return rglru_scan_plain(a, b, h0)
-    if a.device.type != "cuda":
-        raise ValueError(f"rglru_scan runs on cuda or cpu, not {a.device}")
+    kind = cost.device_kind("rglru_scan", a)
+    if kind == "cpu":
+        return _launch(a, b, h0) if cost.counting() else rglru_scan_plain(a, b, h0)
     ins = (a, b) if h0 is None else (a, b, h0)
     if any(t.dtype != torch.float32 or t.device != a.device or not t.is_contiguous()
            for t in ins):

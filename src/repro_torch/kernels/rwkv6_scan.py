@@ -27,6 +27,13 @@ r, k, v (f32 or bf16) and logw (f32, ≤ 0) are (B, H, S, hd) with hd
 contiguous and any other strides; u is (H, hd). Returns o (B, H, S, hd)
 f32, laid out in memory as (B, S, H, hd) (the model's layout), and
 S_final (B, H, hd, hd) f32.
+
+``rwkv6_scan_cost`` and ``rwkv6_scan_bwd_cost`` reckon a call's work
+(``kernels.cost``): the bytes, and the chunked form's matrix products at
+the TF32 rate. Under a counter each call reports it: on the card beside
+the launches, on ``meta`` in place of any work, and on the CPU beside the
+plain version, which then runs through ``Rwkv6ScanFn`` too (its backward
+``rwkv6_scan_bwd_plain``), so every device reports the same calls.
 """
 from __future__ import annotations
 
@@ -35,7 +42,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
+from repro_torch.kernels.cost import Work
 from repro_torch.obs.profile import kernel_scope
 
 DEFAULT_CHUNK = 64
@@ -57,6 +65,56 @@ _ENTRIES = {entry: argtypes for entry, argtypes, _ in ROUTES.values()}
 # scratch (dS_out, decays, du partials), dr, dk, dv, dlogw, dS0; 9 × 3 strides
 _BWD_ENTRIES = {"rwkv6_scan_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 17
                 + [ctypes.c_longlong] * 27 + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
+
+
+def rwkv6_matmul_flops(S: int, hd: int, chunk: int) -> int:
+    """Matrix-product flops of the chunked form per (batch, head), whatever
+    implements it: per chunk of n tokens the cross-chunk and state products
+    (2·n·hd² each) and the causal pair matrix with its product with v
+    (hd·n(n − 1) and hd·n(n + 1), the u-bonus on the diagonal)."""
+    flops = 0
+    for t0 in range(0, S, chunk):
+        n = min(chunk, S - t0)
+        flops += 4 * n * hd * hd + 2 * hd * n * n
+    return flops
+
+
+def rwkv6_bwd_matmul_flops(S: int, hd: int, chunk: int) -> int:
+    """Matrix-product flops of the chunked backward per (batch, head): per
+    chunk of n tokens dU, S_in·do, dS_out·v and k̃·dS_out (2·n·hd² each), P
+    = do·vᵀ and Aᵀ·do (2·n²·hd each) and the three pair sums (the pair
+    matrix and the intra-chunk parts of dr and dk, 2·hd a causal pair)."""
+    flops = 0
+    for t0 in range(0, S, chunk):
+        n = min(chunk, S - t0)
+        flops += 8 * n * hd * hd + 4 * n * n * hd + 3 * hd * n * (n - 1)
+    return flops
+
+
+def rwkv6_scan_cost(B: int, H: int, S: int, hd: int, chunk: int, dtype: torch.dtype,
+                    with_s0: bool = False, chunk_states: bool = False) -> Work:
+    """r, k, v, logw (and s0) read once, o and S_final (and, under grad,
+    every chunk's S_in, kept for the backward) written once in f32; the
+    chunked form's matrix products at the TF32 rate (the kernels' 3 × TF32
+    products)."""
+    chunk = min(chunk, max(S, 1))
+    chunks = -(-S // chunk) if chunk_states else 0
+    return Work({"tf32": B * H * rwkv6_matmul_flops(S, hd, chunk)},
+                B * H * (S * hd * (3 * dtype.itemsize + 4) + with_s0 * hd * hd * 4),
+                B * H * (S * hd * 4 + (1 + chunks) * hd * hd * 4))
+
+
+def rwkv6_scan_bwd_cost(B: int, H: int, S: int, hd: int, chunk: int, dtype: torch.dtype,
+                        with_ds_final: bool = False) -> Work:
+    """r, k, v, logw, dO, u, every chunk's S_in, S_final (and dS_final)
+    read once, dr, dk, dv, dlogw, du and dS0 written once; the chunked
+    backward's matrix products at the TF32 rate."""
+    size = dtype.itemsize
+    chunks = -(-S // chunk)
+    return Work({"tf32": B * H * rwkv6_bwd_matmul_flops(S, hd, chunk)},
+                B * H * S * hd * (3 * size + 8) + H * hd * 4
+                + B * H * hd * hd * 4 * (chunks + 1 + with_ds_final),
+                B * H * S * hd * (3 * size + 4) + H * hd * 4 + B * H * hd * hd * 4)
 
 
 def _check(r, k, v, logw, u, s0):
@@ -194,6 +252,12 @@ def _forward(r, k, v, logw, u, chunk: int, s0, which: str):
     scratch): on the chunked route the scratch holds every chunk's S_in
     (B, H, chunks, hd, hd), on the decode route it is None."""
     B, H, S, hd = r.shape
+    work = lambda: rwkv6_scan_cost(B, H, S, hd, chunk, r.dtype, s0 is not None,   # noqa: E731
+                                   which == "chunked")
+    if r.device.type == "cpu" and cost.counting():
+        o, s_out = rwkv6_scan_plain(r, k, v, logw, u, chunk=chunk, s0=s0)
+        cost.report("rwkv6_scan", work)
+        return o, s_out, None
     entry, _, counter = ROUTES[which]
     u = u.float().contiguous()
     if s0 is not None:
@@ -215,6 +279,9 @@ def _forward(r, k, v, logw, u, chunk: int, s0, which: str):
         dec = torch.empty((B, H, chunks, hd), dtype=torch.float32, device=r.device)
         args = (ptrs + [scratch.data_ptr(), dec.data_ptr()]
                 + [s for t in (r, k, v, logw, o) for s in t.stride()[:3]] + [B, H, S, hd, chunk])
+    cost.report("rwkv6_scan", work)
+    if r.device.type == "meta":
+        return o, s_out, scratch
     fn = getattr(build.load("rwkv6_scan", _ENTRIES), entry)
     err = build.on_device(r.device, lambda stream: fn(_DTYPES[r.dtype], *args, stream))
     if err != 0:
@@ -225,12 +292,25 @@ def _forward(r, k, v, logw, u, chunk: int, s0, which: str):
 
 
 @kernel_scope("kernels.rwkv6_scan_bwd")
-def _backward(r, k, v, logw, u, s_out, scratch, do, ds_final, chunk: int):
+@cost.quiet
+def _backward(r, k, v, logw, u, s_out, scratch, do, ds_final, chunk: int, s0=None):
     """The backward kernel's three launches on the forward's tensors and
     its chunk states -> (dr, dk, dv in r's type, dlogw, du (H, hd), ds0);
-    do or ds_final None where that output took no gradient."""
+    do or ds_final None where that output took no gradient. On the CPU
+    (under a counter, where the forward kept no chunk states)
+    ``rwkv6_scan_bwd_plain`` from ``s0``."""
     B, H, S, hd = r.shape
     dev = r.device
+    work = lambda: rwkv6_scan_bwd_cost(B, H, S, hd, chunk, r.dtype,   # noqa: E731
+                                       ds_final is not None)
+    if dev.type == "cpu" and cost.counting():
+        if do is None:
+            do = torch.zeros((B, H, S, hd), dtype=torch.float32, device=dev)
+        *grads, du, ds0 = rwkv6_scan_bwd_plain(r, k, v, logw, u, do, chunk=chunk, s0=s0,
+                                               ds_final=ds_final)
+        cost.report("rwkv6_scan_bwd", work, launches=3)
+        # in the kernel's layout, so the operators downstream see its strides
+        return (*(_model_layout(B, H, S, hd, g.dtype, dev).copy_(g) for g in grads), du, ds0)
     if do is None:
         do = torch.zeros((B, H, S, hd), dtype=torch.float32, device=dev)
     do = do.float()
@@ -255,6 +335,9 @@ def _backward(r, k, v, logw, u, s_out, scratch, do, ds_final, chunk: int):
              dlogw.data_ptr(), ds0.data_ptr()]
             + [s for t in (r, k, v, logw, do, dr, dk, dv, dlogw) for s in t.stride()[:3]]
             + [B, H, S, hd, chunk])
+    cost.report("rwkv6_scan_bwd", work, launches=3)
+    if dev.type == "meta":
+        return dr, dk, dv, dlogw, du_part.sum((0, 2)), ds0
     fn = build.load("rwkv6_scan_bwd", _BWD_ENTRIES).rwkv6_scan_bwd
     err = build.on_device(dev, lambda stream: fn(_DTYPES[r.dtype], *args, stream))
     if err != 0:
@@ -272,16 +355,17 @@ class Rwkv6ScanFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, r, k, v, logw, u, s0, chunk):
         o, s_out, scratch = _forward(r, k, v, logw, u, chunk, s0, "chunked")
-        ctx.save_for_backward(r, k, v, logw, u, s_out, scratch)
+        ctx.save_for_backward(r, k, v, logw, u, s_out, scratch,
+                              s0 if scratch is None else None)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)
         return o, s_out
 
     @staticmethod
     def backward(ctx, do, ds_final):
-        r, k, v, logw, u, s_out, scratch = ctx.saved_tensors
+        r, k, v, logw, u, s_out, scratch, s0 = ctx.saved_tensors
         dr, dk, dv, dlogw, du, ds0 = _backward(r, k, v, logw, u, s_out, scratch, do, ds_final,
-                                               ctx.chunk)
+                                               ctx.chunk, s0)
         return dr, dk, dv, dlogw, du.to(u.dtype), ds0 if ctx.needs_input_grad[5] else None, None
 
 
@@ -296,6 +380,7 @@ def _launch(r, k, v, logw, u, chunk: int, s0):
 
 
 @kernel_scope("kernels.rwkv6_scan")
+@cost.quiet
 def rwkv6_scan(r, k, v, logw, u, *, chunk: int = DEFAULT_CHUNK,
                s0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """r, k, v: (B, H, S, hd) f32/bf16; logw: (B, H, S, hd) f32; u: (H, hd);
@@ -303,10 +388,10 @@ def rwkv6_scan(r, k, v, logw, u, *, chunk: int = DEFAULT_CHUNK,
     B, H, S, hd = _check(r, k, v, logw, u, s0)
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    if r.device.type == "cpu":
+    if cost.device_kind("rwkv6_scan", r) == "cpu":
+        if cost.counting():
+            return _launch(r, k, v, logw, u, min(chunk, max(S, 1)), s0)
         return rwkv6_scan_plain(r, k, v, logw, u, chunk=chunk, s0=s0)
-    if r.device.type != "cuda":
-        raise ValueError(f"rwkv6_scan runs on cuda or cpu, not {r.device}")
     if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
         raise TypeError(f"r, k, v must share float32 or bfloat16, got {r.dtype}, "
                         f"{k.dtype}, {v.dtype}")

@@ -6,14 +6,54 @@ inside a pod over "data", the scarce cross-pod hop over "pod"),
 ``("data", "model")`` for the train driver. The production meshes are
 functions, never built at import. Without an initialized process group
 the port takes ``mesh=None``: one process, nothing to reduce.
+
+An :class:`AbstractMesh` is a mesh shape ``{axis: size}`` without a
+process group: a dry run (``launch.dryrun``) drives the train step's
+schedule code over it on ``meta`` tensors, as rank 0, and its groups
+(:class:`AbstractGroup`) carry only their axes and size, so the
+collectives report what they would move (``core.aggregation``).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 import torch.distributed as dist
+
+
+class AbstractMesh:
+    """A mesh of ``shape`` ({axis: size}, in order) with no process group;
+    ``mesh`` holds the ranks as a ``DeviceMesh``'s does."""
+
+    def __init__(self, shape: Mapping[str, int]):
+        self.mesh_dim_names = tuple(shape)
+        self.mesh = torch.arange(math.prod(shape.values())).reshape(tuple(shape.values()))
+
+
+class AbstractGroup:
+    """An abstract mesh's group over ``axes`` (those of size > 1): its
+    size, and no members to talk to."""
+
+    def __init__(self, axes: Tuple[str, ...], size: int):
+        self.axes, self.size = axes, size
+
+
+# id(process group) -> (the group, the mesh axes of size > 1 it spans)
+_GROUP_AXES: Dict[int, Tuple[object, Tuple[str, ...]]] = {}
+
+
+def group_axes(group) -> Tuple[str, ...]:
+    """The mesh axes of size > 1 a group from :func:`axes_group` spans
+    (() for a group made elsewhere)."""
+    if isinstance(group, AbstractGroup):
+        return group.axes
+    return _GROUP_AXES.get(id(group), (None, ()))[1]
+
+
+def group_size(group) -> int:
+    return group.size if isinstance(group, AbstractGroup) else dist.get_world_size(group)
 
 
 def _world() -> int:
@@ -60,7 +100,7 @@ def mesh_shape(mesh) -> Dict[str, int]:
     """Axis name -> size ({} for ``mesh=None``)."""
     if mesh is None:
         return {}
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(zip(mesh.mesh_dim_names, map(int, mesh.mesh.shape)))
 
 
 def size(mesh) -> int:
@@ -75,7 +115,8 @@ def client_index(mesh, axes: Sequence[str]) -> Tuple[int, int]:
     if mesh is None:
         return 0, 1
     shape = mesh_shape(mesh)
-    coord = dict(zip(mesh.mesh_dim_names, device_coords(mesh)[dist.get_rank()]))
+    rank = 0 if isinstance(mesh, AbstractMesh) else dist.get_rank()
+    coord = dict(zip(mesh.mesh_dim_names, device_coords(mesh)[rank]))
     index, count = 0, 1
     for a in axes:
         index, count = index * shape[a] + coord[a], count * shape[a]
@@ -88,14 +129,21 @@ def axes_group(mesh, axes: Sequence[str]) -> Optional[dist.ProcessGroup]:
 
     One axis is the mesh's own group; several are a group built once per
     mesh (every rank builds every such group, in the same order, the first
-    time it asks: ranks call this in step, as collectives are)."""
+    time it asks: ranks call this in step, as collectives are). An
+    :class:`AbstractMesh`'s is an :class:`AbstractGroup`."""
     if mesh is None:
         return None
     axes = tuple(a for a in axes if a in mesh.mesh_dim_names)
     if not axes:
         return None
+    shape = mesh_shape(mesh)
+    wide = tuple(a for a in axes if shape[a] > 1)
+    if isinstance(mesh, AbstractMesh):
+        return AbstractGroup(wide, math.prod(shape[a] for a in axes))
     if len(axes) == 1:
-        return mesh.get_group(axes[0])
+        group = mesh.get_group(axes[0])
+        _GROUP_AXES.setdefault(id(group), (group, wide))
+        return group
     groups = mesh.__dict__.setdefault("_repro_axes_groups", {})
     if axes not in groups:
         names = list(mesh.mesh_dim_names)
@@ -107,4 +155,5 @@ def axes_group(mesh, axes: Sequence[str]) -> Optional[dist.ProcessGroup]:
             group = dist.new_group(ranks)
             if dist.get_rank() in ranks:
                 groups[axes] = group
+                _GROUP_AXES[id(group)] = (group, wide)
     return groups[axes]

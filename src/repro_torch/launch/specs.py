@@ -11,22 +11,41 @@ two-step, or the flat all-reduce), so a step gives the numbers of the
 reference's GSPMD step over the whole batch. ``transport="two_step_int8"``
 is the paper's protocol made explicit: the data step inside each pod, then
 the cross-pod hop as int8.
+
+And the abstract inputs of every (arch × shape) cell, the dry run's
+(``launch.dryrun``): ``batch_struct``, ``param_shardings``,
+``opt_state_struct``, ``cache_struct_sharded`` and ``input_specs``, which
+returns the cell's step function and its arguments as ``meta`` tensors
+(nothing allocated):
+
+  train    -> train_step(params, opt_state, batch)
+  prefill  -> prefill_step(params, batch)
+  decode   -> serve_step(params, batch, cache)   (one new token)
+
+Shapes are global: a data-parallel rank takes the global batch and keeps
+its rows, as the train step does on a real mesh. The reference attaches a
+``NamedSharding`` to each struct; the port's sharding is a spec tuple per
+leaf (``param_shardings``), and only the gradients' reduce schedule
+depends on it (``common.sharding.reduce_schedule``).
 """
 from __future__ import annotations
 
+import inspect
+import math
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.common.sharding import ShardingRules, reduce_schedule
+from repro_torch.common.sharding import (ShardingRules, filter_valid_spec,
+                                         logical_to_physical, reduce_schedule)
 from repro_torch.common.tree import flatten, unflatten
 from repro_torch.core.aggregation import (all_reduce, classical_allreduce, int8_pod_sum,
                                           two_step_allreduce)
 from repro_torch.core.compression import Noise, uniform_noise
-from repro_torch.launch.mesh import axes_group, client_index, mesh_shape, size
+from repro_torch.launch.mesh import AbstractMesh, axes_group, client_index, mesh_shape, size
 from repro_torch.models import transformer
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.optim import make_optimizer, tree_map
 
 
@@ -81,13 +100,16 @@ def grad_norm(grads) -> torch.Tensor:
 
 def _grads(params, objective):
     """(∂ objective()[0] / ∂ every leaf of ``params``, objective()[1]):
-    the leaves require grad only for the call."""
+    the leaves require grad only for the call. A leaf the objective does
+    not use (the token table under the frame frontend) gets zeros, as
+    ``jax.grad`` gives it."""
     leaves = list(_leaves(params))
     for t in leaves:
         t.requires_grad_(True)
     try:
         out, extra = objective()
-        grads = iter(torch.autograd.grad(out, leaves))
+        grads = iter(torch.autograd.grad(out, leaves, allow_unused=True,
+                                         materialize_grads=True))
     finally:
         for t in leaves:
             t.requires_grad_(False)
@@ -113,6 +135,9 @@ def _accumulate(grads, g):
 
 
 _CLIENT_AXES = ("pod", "data")
+_MOE_RANKS = ("MoE on more than one rank: the router's load-balance loss and capacity drops "
+              "are functions of the whole batch, which data-parallel ranks do not see; "
+              "ROADMAP.md Queue 1 item 1e")
 
 
 def _rank_micro_batches(batch, mesh, microbatches: int, per_micro: bool):
@@ -186,10 +211,7 @@ def make_train_step(cfg: ModelConfig, opt_name: str = "adamw", lr: float = 1e-4,
     if transport == "two_step_int8" and (mesh is None or "pod" not in mesh.mesh_dim_names):
         raise ValueError("transport='two_step_int8' needs a mesh with a 'pod' axis")
     if cfg.n_experts and size(mesh) > 1:
-        raise NotImplementedError(
-            "MoE on more than one rank: the router's load-balance loss and capacity drops "
-            "are functions of the whole batch, which data-parallel ranks do not see; "
-            "ROADMAP.md Queue 1 item 1e")
+        raise NotImplementedError(_MOE_RANKS)
     opt = make_optimizer(opt_name)
     if transport == "two_step_int8":
         return _two_step_int8_step(cfg, opt, lr, microbatches, mesh, seed)
@@ -301,3 +323,136 @@ def _two_step_int8_step(cfg, opt, lr, microbatches, mesh, seed):
 
     train_step.grad_norm = None
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs of a cell (the dry run's)
+# ---------------------------------------------------------------------------
+
+_META = torch.device("meta")
+INIT_TP = inspect.signature(transformer.init_params).parameters["tp"].default
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device=_META)
+
+
+def batch_struct(cfg: ModelConfig, shp: ShapeConfig, decode: bool = False,
+                 rows: int = 0):
+    """The cell's batch on ``meta``: tokens (or frames and labels),
+    patches (media when decoding), decode positions or the FL
+    ``client_weight``; ``rows`` (default the global batch) rows."""
+    B = rows or shp.global_batch
+    S = 1 if decode else shp.seq_len
+    d = cfg.d_model
+    batch = {}
+    if cfg.frontend == "frames":
+        batch["frames"] = _meta((B, S, d), torch.bfloat16)
+        batch["labels"] = _meta((B, S), torch.int32)
+    else:
+        batch["tokens"] = _meta((B, S), torch.int32)
+    if cfg.frontend == "patches":
+        batch["media" if decode else "patches"] = _meta((B, cfg.n_frontend_tokens, d),
+                                                        torch.bfloat16)
+    if decode:
+        batch["pos"] = _meta((B, 1), torch.int32)
+    else:
+        batch["client_weight"] = _meta((B,), torch.float32)
+    return batch
+
+
+def _spec_tree(params, logical, mesh_shape, rules):
+    if isinstance(params, dict):
+        return {k: _spec_tree(params[k], logical[k], mesh_shape, rules) for k in params}
+    # an axis the mesh lacks (every axis, on one card) shards nothing
+    spec = tuple(None if ax is None or any(a not in mesh_shape for a in
+                                           ((ax,) if isinstance(ax, str) else ax)) else ax
+                 for ax in logical_to_physical(rules, logical))
+    return filter_valid_spec(mesh_shape, spec, tuple(params.shape))
+
+
+def param_shardings(cfg: ModelConfig, mesh_shape: Optional[Dict[str, int]] = None,
+                    rules: Optional[ShardingRules] = None):
+    """(parameters on ``meta``, the spec tree: per leaf, its logical axes
+    through ``rules`` onto ``mesh_shape``'s axes, an axis dropped where it
+    does not divide the dimension). Query heads pad to the "model" axis's
+    size, as the reference's; on a mesh without one, as the port's own init
+    pads them (``transformer.init_params``' tp = 16), so the tree is the one
+    the card trains and serves."""
+    mesh_shape = dict(mesh_shape or {})
+    params, logical = transformer.abstract_params(cfg, tp=mesh_shape.get("model", INIT_TP))
+    return params, _spec_tree(params, logical, mesh_shape, rules or ShardingRules())
+
+
+def opt_state_struct(opt_name: str, params_abs):
+    """The optimizer state of ``params_abs`` on ``meta`` (f32 moments;
+    AdamW's and Yogi's step counter int32)."""
+    make_optimizer(opt_name)    # validates the name before shaping state
+    if opt_name == "sgd":
+        return {}
+    f32 = lambda x: _meta(x.shape, torch.float32)   # noqa: E731
+    if opt_name == "sgdm":
+        return {"mu": tree_map(f32, params_abs)}
+    if opt_name in ("adamw", "yogi"):
+        return {"m": tree_map(f32, params_abs), "v": tree_map(f32, params_abs),
+                "t": _meta((), torch.int32)}
+    raise ValueError(opt_name)
+
+
+def cache_struct_sharded(cfg: ModelConfig, shp: ShapeConfig, rows: int = 0):
+    """The decode cache of the cell on ``meta`` (``transformer.init_cache``:
+    the unit's stacked, the tail's; each attention layer's position a host
+    int32), ``rows`` (default the global batch) rows."""
+    return transformer.init_cache(cfg, rows or shp.global_batch, shp.seq_len, device=_META)
+
+
+def make_prefill_step(cfg: ModelConfig, cache_len: int):
+    def prefill_step(params, batch):
+        return transformer.prefill(params, batch, cfg, cache_len)
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    def serve_step(params, batch, cache):
+        return transformer.decode_step(params, batch, cache, cfg)
+    return serve_step
+
+
+def _meta_noise(shapes):
+    return [_meta(s, torch.float32) for s in shapes]
+
+
+def input_specs(cfg: ModelConfig, shp: ShapeConfig, mesh_shape: Optional[Dict[str, int]] = None,
+                rules: Optional[ShardingRules] = None, opt_name: str = "adamw",
+                microbatches: int = 1, transport: str = "gspmd"):
+    """Everything the dry run needs for one cell: (fn, args), the args on
+    ``meta``. ``mesh_shape`` ({axis: size}; None or one rank: one card)
+    becomes an ``AbstractMesh`` the train step reduces over, its
+    collectives reckoned. A serving cell on a data-parallel mesh serves
+    each rank's share of the batch with nothing to reduce."""
+    mesh_shape = dict(mesh_shape or {})
+    n_ranks = math.prod(mesh_shape.values()) if mesh_shape else 1
+    params, _ = param_shardings(cfg, mesh_shape, rules)
+    if shp.kind == "train":
+        mesh = AbstractMesh(mesh_shape) if n_ranks > 1 else None
+        step = make_train_step(cfg, opt_name, microbatches=microbatches, transport=transport,
+                               mesh=mesh, rules=rules)
+        fn = step
+        if transport == "two_step_int8":
+            def fn(params, opt_state, batch):
+                return step(params, opt_state, batch, noise=_meta_noise)
+        return fn, (params, opt_state_struct(opt_name, params), batch_struct(cfg, shp))
+    clients = math.prod(mesh_shape.get(a, 1) for a in _CLIENT_AXES)
+    if shp.global_batch % clients:
+        raise ValueError(f"batch {shp.global_batch} does not split over {clients} ranks")
+    rows = shp.global_batch // clients
+    if cfg.n_experts and clients > 1:
+        raise NotImplementedError(_MOE_RANKS)
+    if shp.kind == "prefill":
+        batch = batch_struct(cfg, shp, rows=rows)
+        batch.pop("client_weight")
+        return make_prefill_step(cfg, cache_len=shp.seq_len), (params, batch)
+    if shp.kind == "decode":
+        return make_serve_step(cfg), (params, batch_struct(cfg, shp, decode=True, rows=rows),
+                                      cache_struct_sharded(cfg, shp, rows))
+    raise ValueError(shp.kind)

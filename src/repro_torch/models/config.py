@@ -3,7 +3,8 @@
 The port keeps its own copy (pure dataclasses, no framework code) so it
 imports nothing of the JAX package: every field, the language-model
 layer-plan properties (parameter counts, active ones too) and
-``reduced()``.
+``reduced()``; and the assignment's input shapes (``ShapeConfig``,
+``ALL_SHAPES``, ``shape_by_name``).
 ``tests/test_torch_femnist_cnn.py`` and ``tests/test_torch_lm.py`` hold
 the two copies field for field.
 """
@@ -163,3 +164,26 @@ class ModelConfig:
             small = dict(name=self.name + "-smoke", cnn_fc=64, cnn_channels=(4, 8))
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell of the assignment."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train|prefill|decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def shape_by_name(name: str) -> ShapeConfig:
+    for s in ALL_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)

@@ -47,9 +47,9 @@ def norm(x, p, kind: str, eps: float = 1e-6):
 def norm_params(pb, name: str, d: int, kind: str):
     sub = pb.sub(name)
     if kind in ("rms", "ln"):
-        sub.param("scale", (d,), init="zeros")
+        sub.param("scale", (d,), ("embed",), init="zeros")
     if kind == "ln":
-        sub.param("bias", (d,), init="zeros")
+        sub.param("bias", (d,), ("embed",), init="zeros")
     return sub
 
 
@@ -92,18 +92,23 @@ def pad_to_multiple(n: int, m: int) -> int:
 
 def attn_params(pb, cfg, tp: int = 16):
     """QKV(+bias) + output projection, query heads padded to a multiple of
-    ``tp`` (zero-init pad heads whose outputs are masked, as the reference)."""
+    ``tp`` (zero-init pad heads whose outputs are masked, as the reference).
+    The KV heads' logical axis is "heads" (sharded with the query heads) for
+    MHA whose heads divide ``tp``, else "kv_heads" (replicated), as the
+    reference's."""
     d, hd, H, KV = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     Hp = pad_to_multiple(H, tp) if cfg.tp_pad_heads else H
+    shard_kv = cfg.shard_kv_mha and KV == H == Hp and H % tp == 0
+    kv_ax = "heads" if shard_kv else "kv_heads"
     sub = pb.sub("attn")
-    sub.param("wq", (d, Hp, hd))
-    sub.param("wk", (d, KV, hd))
-    sub.param("wv", (d, KV, hd))
-    sub.param("wo", (Hp, hd, d))
+    sub.param("wq", (d, Hp, hd), ("embed", "heads", "head_dim"))
+    sub.param("wk", (d, KV, hd), ("embed", kv_ax, "head_dim"))
+    sub.param("wv", (d, KV, hd), ("embed", kv_ax, "head_dim"))
+    sub.param("wo", (Hp, hd, d), ("heads", "head_dim", "embed"))
     if cfg.qkv_bias:
-        sub.param("bq", (Hp, hd), init="zeros")
-        sub.param("bk", (KV, hd), init="zeros")
-        sub.param("bv", (KV, hd), init="zeros")
+        sub.param("bq", (Hp, hd), ("heads", "head_dim"), init="zeros")
+        sub.param("bk", (KV, hd), (kv_ax, "head_dim"), init="zeros")
+        sub.param("bv", (KV, hd), (kv_ax, "head_dim"), init="zeros")
     return Hp
 
 
@@ -258,14 +263,14 @@ def mlp_params(pb, cfg, name: str = "mlp"):
     d, ff = cfg.d_model, cfg.d_ff
     sub = pb.sub(name)
     if cfg.mlp == "swiglu":
-        sub.param("wg", (d, ff))
-        sub.param("wu", (d, ff))
-        sub.param("wd", (ff, d))
+        sub.param("wg", (d, ff), ("embed", "mlp"))
+        sub.param("wu", (d, ff), ("embed", "mlp"))
+        sub.param("wd", (ff, d), ("mlp", "embed"))
     else:
-        sub.param("w1", (d, ff))
-        sub.param("b1", (ff,), init="zeros")
-        sub.param("w2", (ff, d))
-        sub.param("b2", (d,), init="zeros")
+        sub.param("w1", (d, ff), ("embed", "mlp"))
+        sub.param("b1", (ff,), ("mlp",), init="zeros")
+        sub.param("w2", (ff, d), ("mlp", "embed"))
+        sub.param("b2", (d,), ("embed",), init="zeros")
 
 
 def mlp_block(x, p, cfg):

@@ -50,14 +50,22 @@ def capacity(cfg, seq_len: int) -> int:
 def moe_params(pb, cfg, name: str = "moe"):
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     sub = pb.sub(name)
-    sub.param("router", (d, E), scale=0.1)
+    sub.param("router", (d, E), ("embed", None), scale=0.1)
     if cfg.mlp == "swiglu":
-        sub.param("wg", (E, d, ff))
-        sub.param("wu", (E, d, ff))
-        sub.param("wd", (E, ff, d))
+        sub.param("wg", (E, d, ff), ("experts", "embed", None))
+        sub.param("wu", (E, d, ff), ("experts", "embed", None))
+        sub.param("wd", (E, ff, d), ("experts", None, "embed"))
     else:
-        sub.param("w1", (E, d, ff))
-        sub.param("w2", (E, ff, d))
+        sub.param("w1", (E, d, ff), ("experts", "embed", None))
+        sub.param("w2", (E, ff, d), ("experts", None, "embed"))
+
+
+def _one_hot(ids, n: int):
+    """f32 one-hot of integer ids over ``n`` classes: ``F.one_hot``'s
+    values by the same operators on every device (its CPU form checks the
+    ids' range on the host, its CUDA form scatters, its meta form
+    compares), so a cost count is alike on each."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).float()
 
 
 def _route(x, p, cfg):
@@ -70,7 +78,7 @@ def _route(x, p, cfg):
     # fraction routed (top-1 proxy)
     E = cfg.n_experts
     me = probs.mean((0, 1))
-    ce = F.one_hot(topi[..., 0], E).float().mean((0, 1))
+    ce = _one_hot(topi[..., 0], E).mean((0, 1))
     return topv, topi, E * (me * ce).sum()
 
 
@@ -143,8 +151,8 @@ def moe_block_einsum(x, p, cfg):
     keep = keep.float()
     pos = pos.clamp(max=C - 1)
     # dispatch tensor (B, S, k, E, C)
-    de = F.one_hot(topi, E).float() * keep[..., None]
-    dc = F.one_hot(pos, C).float()
+    de = _one_hot(topi, E) * keep[..., None]
+    dc = _one_hot(pos, C)
     disp = torch.einsum("bske,bskc->bsec", de, dc)
     xd = torch.einsum("bsec,bsd->ebcd", disp, x.float()).to(x.dtype)
     yd = _expert_ffn(xd.reshape(E, B * C, d), p, cfg).view(E, B, C, d)

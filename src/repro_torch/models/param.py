@@ -1,7 +1,9 @@
 """Parameter builder — the counterpart of ``repro.models.param.ParamBuilder``.
 
 Parameters are plain nested dicts of tensors with the reference's names
-and shapes. Every leaf is drawn from one explicit ``torch.Generator`` on
+and shapes; a parallel dict of logical-axis tuples (the reference's names,
+``("embed", "mlp")``) is built by the same calls, so init code cannot drift
+from the sharding specs (``launch.specs.param_shardings``). Every leaf is drawn from one explicit ``torch.Generator`` on
 the target device and made there, leaf by leaf, so a full-width model
 never passes through host memory. The init kinds are the reference's:
 ``normal`` with std ``scale/√shape[0]``, ``zeros``, ``ones``, ``uniform``
@@ -12,7 +14,7 @@ a leading ``(n,)`` axis, drawn as the reference re-draws its stacked unit
 leaves: a leaf of two or more dimensions whose type numpy counts as
 floating is normal with std ``1/√shape[0]`` whatever its own kind (its
 ``scale`` is not used); any other leaf is its own init repeated ``n``
-times. numpy does not count bfloat16 as floating, so in a bf16 model
+times; its logical axes gain a leading ``"layers"``. numpy does not count bfloat16 as floating, so in a bf16 model
 every unit repeats the first one's weights — the reference's behaviour,
 copied as it is (ROADMAP.md Queue 3). The draws differ from JAX's
 (another generator), so the tests carry parameters across with
@@ -38,6 +40,7 @@ class ParamBuilder:
         self.device = torch.device(device)
         self.stack = stack
         self.params: dict = {}
+        self.logical: dict = {}
 
     def _draw(self, shape: Tuple[int, ...], init: str, scale: float) -> torch.Tensor:
         f32 = dict(dtype=torch.float32, device=self.device)
@@ -54,10 +57,12 @@ class ParamBuilder:
             return torch.linspace(-scale, scale, math.prod(shape), **f32).reshape(shape)
         raise ValueError(init)
 
-    def param(self, name: str, shape: Tuple[int, ...], init: str = "normal",
-              scale: float = 1.0, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    def param(self, name: str, shape: Tuple[int, ...], logical: Tuple[Optional[str], ...],
+              init: str = "normal", scale: float = 1.0,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        shape, logical = tuple(shape), tuple(logical)
+        assert len(shape) == len(logical), (name, shape, logical)
         dtype = dtype or self.dtype
-        shape = tuple(shape)
         if self.stack is None:
             arr = self._draw(shape, init, scale)
         elif dtype in _REDRAWN and len(shape) >= 2:
@@ -67,11 +72,13 @@ class ParamBuilder:
         else:
             arr = self._draw(shape, init, scale).expand((self.stack,) + shape)
         self.params[name] = arr.to(dtype).contiguous()
+        self.logical[name] = logical if self.stack is None else ("layers",) + logical
         return self.params[name]
 
     def sub(self, name: str) -> "ParamBuilder":
         child = ParamBuilder(self.gen, self.dtype, self.device, self.stack)
         self.params[name] = child.params
+        self.logical[name] = child.logical
         return child
 
     def build(self) -> dict:

@@ -19,15 +19,15 @@ _C_RGLRU = 8.0  # Griffin's fixed gate sharpness
 def rglru_params(pb, cfg, name: str = "rglru"):
     d, r, cw = cfg.d_model, cfg.rnn_width, cfg.conv_width
     sub = pb.sub(name)
-    sub.param("w_in", (d, r))
-    sub.param("w_gate", (d, r))
-    sub.param("w_out", (r, d))
-    sub.param("conv_w", (cw, r), scale=0.5)
-    sub.param("conv_b", (r,), init="zeros")
+    sub.param("w_in", (d, r), ("embed", "mlp"))
+    sub.param("w_gate", (d, r), ("embed", "mlp"))
+    sub.param("w_out", (r, d), ("mlp", "embed"))
+    sub.param("conv_w", (cw, r), ("conv", "mlp"), scale=0.5)
+    sub.param("conv_b", (r,), ("mlp",), init="zeros")
     # diagonal RG-LRU gates (per-channel linear + bias), as the reference
-    sub.param("w_rg", (d, r), scale=0.5)
-    sub.param("w_ig", (d, r), scale=0.5)
-    sub.param("lam", (r,), init="linspace", scale=2.0)   # Λ spread
+    sub.param("w_rg", (d, r), ("embed", "mlp"), scale=0.5)
+    sub.param("w_ig", (d, r), ("embed", "mlp"), scale=0.5)
+    sub.param("lam", (r,), ("mlp",), init="linspace", scale=2.0)   # Λ spread
 
 
 def _causal_conv(u, w, b, state=None):

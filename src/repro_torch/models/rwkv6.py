@@ -37,31 +37,31 @@ def rwkv_time_params(pb, cfg, name: str = "time"):
     H, Hp = rwkv_heads(cfg)
     D = Hp * hd
     sub = pb.sub(name)
-    sub.param("mu_base", (d,), init="uniform", scale=0.5)
-    sub.param("lora_a", (d, lora), scale=0.5)
+    sub.param("mu_base", (d,), ("embed",), init="uniform", scale=0.5)
+    sub.param("lora_a", (d, lora), ("embed", "lora"), scale=0.5)
     for s in _STREAMS:
-        sub.param(f"mu_{s}", (d,), init="uniform", scale=0.5)
-        sub.param(f"lora_b_{s}", (lora, d), init="zeros")
-    sub.param("wr", (d, D))
-    sub.param("wk", (d, D))
-    sub.param("wv", (d, D))
-    sub.param("wg", (d, D))
-    sub.param("wo", (D, d))
-    sub.param("decay_base", (D,), init="linspace", scale=1.5)
-    sub.param("decay_a", (d, lora), scale=0.5)
-    sub.param("decay_b", (lora, D), init="zeros")
-    sub.param("bonus_u", (Hp, hd), init="uniform", scale=0.5)
-    sub.param("ln_out", (Hp * hd,), init="ones")
+        sub.param(f"mu_{s}", (d,), ("embed",), init="uniform", scale=0.5)
+        sub.param(f"lora_b_{s}", (lora, d), ("lora", "embed"), init="zeros")
+    sub.param("wr", (d, D), ("embed", "mlp"))
+    sub.param("wk", (d, D), ("embed", "mlp"))
+    sub.param("wv", (d, D), ("embed", "mlp"))
+    sub.param("wg", (d, D), ("embed", "mlp"))
+    sub.param("wo", (D, d), ("mlp", "embed"))
+    sub.param("decay_base", (D,), ("mlp",), init="linspace", scale=1.5)
+    sub.param("decay_a", (d, lora), ("embed", "lora"), scale=0.5)
+    sub.param("decay_b", (lora, D), ("lora", "mlp"), init="zeros")
+    sub.param("bonus_u", (Hp, hd), ("heads", "head_dim"), init="uniform", scale=0.5)
+    sub.param("ln_out", (Hp * hd,), ("mlp",), init="ones")
 
 
 def rwkv_channel_params(pb, cfg, name: str = "channel"):
     d, ff = cfg.d_model, cfg.d_ff
     sub = pb.sub(name)
-    sub.param("mu_k", (d,), init="uniform", scale=0.5)
-    sub.param("mu_r", (d,), init="uniform", scale=0.5)
-    sub.param("wk", (d, ff))
-    sub.param("wv", (ff, d))
-    sub.param("wr", (d, d), scale=0.5)
+    sub.param("mu_k", (d,), ("embed",), init="uniform", scale=0.5)
+    sub.param("mu_r", (d,), ("embed",), init="uniform", scale=0.5)
+    sub.param("wk", (d, ff), ("embed", "mlp"))
+    sub.param("wv", (ff, d), ("mlp", "embed"))
+    sub.param("wr", (d, d), ("embed", None), scale=0.5)
 
 
 def _token_shift(x, x_prev_last: Optional[torch.Tensor]):

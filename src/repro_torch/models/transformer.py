@@ -107,15 +107,21 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 def _build_params(cfg: ModelConfig, generator, dev: torch.device, tp: int = 16):
     """``init_params`` on any device (``meta`` gives the shapes alone)."""
+    return _builder(cfg, generator, dev, tp).build()
+
+
+def _builder(cfg: ModelConfig, generator, dev: torch.device, tp: int = 16) -> ParamBuilder:
+    """The builder of ``init_params``: its ``params`` and their ``logical``
+    axes."""
     pb = ParamBuilder(generator, _dtype(cfg), dev)
     V, d = cfg.vocab_size, cfg.d_model
-    pb.param("embed", (V, d), scale=1.0)
+    pb.param("embed", (V, d), ("vocab_rows", "tensor_cols"), scale=1.0)
     if cfg.frontend == "frames":
-        pb.param("frame_proj", (d, d))
+        pb.param("frame_proj", (d, d), ("embed", "mlp"))
     if cfg.frontend == "patches":
-        pb.param("patch_proj", (d, d))
+        pb.param("patch_proj", (d, d), ("embed", "mlp"))
     unit = ParamBuilder(generator, _dtype(cfg), dev, stack=cfg.n_units)
-    pb.params["unit"] = unit.params
+    pb.params["unit"], pb.logical["unit"] = unit.params, unit.logical
     for i, kind in enumerate(cfg.block_pattern):
         _sublayer_params(unit.sub(f"{i}_{kind}"), cfg, kind, tp)
     tail = pb.sub("tail")
@@ -123,8 +129,17 @@ def _build_params(cfg: ModelConfig, generator, dev: torch.device, tp: int = 16):
         _sublayer_params(tail.sub(f"{i}_{kind}"), cfg, kind, tp)
     L.norm_params(pb, "final_norm", d, cfg.norm)
     if not cfg.tie_embeddings:
-        pb.param("lm_head", (d, V))
-    return pb.build()
+        pb.param("lm_head", (d, V), ("embed", "vocab"))
+    return pb
+
+
+def abstract_params(cfg: ModelConfig, tp: int = 16):
+    """(parameters on the ``meta`` device, their logical axes): the
+    reference's ``init_params(cfg, abstract=True, tp=tp)``, two nested
+    dicts of one layout; unit leaves are ``(n_units, …)`` with a leading
+    "layers" axis. Nothing is allocated."""
+    pb = _builder(cfg, None, torch.device("meta"), tp)
+    return pb.params, pb.logical
 
 
 def _index(tree, i: int):
@@ -275,13 +290,24 @@ def _unit_step(cfg: ModelConfig, positions, media=None):
                                         preserve_rng_state=False, **kw)
 
 
+def _units(tree, n: int):
+    """The ``n`` units of a stacked tree, each a tree of views, from one
+    ``unbind`` per leaf: under grad each leaf's gradient is then one
+    ``stack`` of the units' (linear in n), where ``n`` indexing views
+    would each scatter into a zeroed copy of the whole stack (quadratic)."""
+    if isinstance(tree, dict):
+        subs = {k: _units(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in subs.items()} for i in range(n)]
+    return torch.unbind(tree)
+
+
 def forward(params, batch, cfg: ModelConfig):
     """Full forward: returns (pre-head activations, labels, aux)."""
     x, media, labels, positions = embed_inputs(params, batch, cfg)
     step = _unit_step(cfg, positions, media)
     aux_total = 0.0
-    for i in range(cfg.n_units):
-        x, aux = step(x, _index(params["unit"], i))
+    for unit_p in _units(params["unit"], cfg.n_units):
+        x, aux = step(x, unit_p)
         aux_total = aux_total + aux
     for i, kind in enumerate(cfg.tail_pattern):
         x, _, aux = _apply_sublayer(x, params["tail"][f"{i}_{kind}"], cfg, kind, positions,
@@ -328,7 +354,7 @@ def loss_mask(cfg: ModelConfig, B: int, S: int, device) -> torch.Tensor:
     """Ones, but the last position (its shifted label is void)."""
     mask = torch.ones((B, S), dtype=torch.float32, device=device)
     if cfg.frontend != "frames":
-        mask[:, -1] = 0.0
+        mask[:, -1].zero_()
     return mask
 
 

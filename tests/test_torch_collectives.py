@@ -409,6 +409,62 @@ def test_two_step_int8_stateless_optimizer_needs_noise(eight):
     assert "stateless optimizer needs an explicit noise=" in eight[0]["stateless"]
 
 
+# ------------------------------------------------------------ the cost count
+
+# (name, transport, rules) of the train step whose collectives are counted
+COST_FORMS = (("two_step", "gspmd", sharding.ShardingRules()),
+              ("classical", "gspmd", sharding.ShardingRules().replicated()),
+              ("two_step_int8", "two_step_int8", sharding.ShardingRules()))
+COST_BATCH, COST_SEQ = 8, 16
+
+
+def _cost_ranks(rank, world, shape):
+    """Per form, the collective bytes by mesh axis that this rank's train
+    step records under a counter (reduced olmo-1b, sgd, f32)."""
+    from repro_torch.launch.roofline import Counter
+    mesh = mesh_mod.make_test_mesh(tuple(shape.values()), tuple(shape), "cpu")
+    cfg = configs.get_smoke("olmo-1b", dtype="float32")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = {"tokens": torch.zeros((COST_BATCH, COST_SEQ), dtype=torch.int32),
+             "client_weight": torch.ones(COST_BATCH)}
+    out = {}
+    for name, transport, rules in COST_FORMS:
+        step = specs.make_train_step(cfg, "sgd", 0.1, transport=transport, mesh=mesh,
+                                     rules=rules)
+        kw = ({"noise": lambda shapes: [torch.rand(s) for s in shapes]}
+              if transport == "two_step_int8" else {})
+        with Counter() as c:
+            step(params, {}, batch, **kw)
+        out[name] = (c.coll, c.n_coll)
+    return out
+
+
+@pytest.fixture(scope="module", params=[{"pod": 2, "data": 2}, {"pod": 2, "data": 4}],
+                ids=["pod2_data2", "pod2_data4"])
+def cost_world(request, tmp_path_factory):
+    shape = request.param
+    return shape, _spawn(tmp_path_factory.mktemp("cost"), math.prod(shape.values()),
+                         _cost_ranks, shape)
+
+
+@pytest.mark.parametrize("form", [f[0] for f in COST_FORMS])
+def test_collective_bytes_reckoned_on_meta_equal_a_gloo_run(cost_world, form):
+    """The same step over an AbstractMesh of the same shape, on meta: every
+    rank of the gloo world recorded the bytes the dry run reckons, by axis,
+    exactly; and the paper's claim: SFL moves fewer pod bytes than the flat
+    all-reduce."""
+    from repro_torch.launch import segments
+    from repro_torch.models.config import ShapeConfig
+    shape, ranks = cost_world
+    _, transport, rules = dict((f[0], f) for f in COST_FORMS)[form]
+    cfg = configs.get_smoke("olmo-1b", dtype="float32")
+    meta = segments.count_step(cfg, ShapeConfig("t", COST_SEQ, COST_BATCH, "train"), shape,
+                               rules, "sgd", 1, transport)
+    assert all(r[form] == (meta.coll, meta.n_coll) for r in ranks), (ranks[0][form], meta.coll)
+    assert set(meta.coll) == {"pod", "data"}
+    assert ranks[0]["two_step"][0]["pod"] < ranks[0]["classical"][0]["pod"]
+
+
 # ------------------------------------------------------------ one process
 
 def test_mesh_none_is_one_process():
