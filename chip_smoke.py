@@ -101,8 +101,10 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              masked scores), and flash attention's backward kernel against
              autograd of the plain version and against its plain version at
              qwen2-0.5b's, olmo-1b's and qwen3-moe-30b-a3b's train shapes
-             (8 × 2048 tokens, the bf16 wgmma route), recurrentgemma-9b's windowed MQA shape (hd
-             256, the CUDA-core route), a ragged S and an f32 case; two
+             (8 × 2048 tokens, the bf16 wgmma route), olmo-100m's (the
+             training example's, 8 × 256, MHA 8 heads), recurrentgemma-9b's
+             windowed MQA shape (hd 256, the CUDA-core route), a ragged S
+             and an f32 case; two
              calls on the same inputs give the same bits; times as in phase
              3, the bound at the bf16 tensor-core rate (10·hd flops a
              visible pair) or the bytes, the backward of
@@ -257,13 +259,28 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              compute term at most the measured warm time (flops at peak are
              a floor), mfu and the share of the roofline printed, the
              reckoned peak memory within 25% of ``max_memory_allocated``.
+20. examples — each ``examples_torch/*.py`` through its ``main(argv)``
+             in this process: train_femnist_sfl at full width (N = 128, 2
+             rounds; then 1 round with ``--compress int8``),
+             train_femnist_hier at full width (2 PONs, 1 round),
+             train_femnist_async (the reduced CNN, fedbuff, 2 windows),
+             quickstart, train_lm (olmo-100m at full width, 10 steps, a
+             checkpoint under a temporary directory) and serve_lm
+             (recurrentgemma-9b ``--smoke``); each example's wall time and
+             launches by kernel, each kernel it must reach launched, every
+             kernel it launched held against its plain version on the
+             inputs of its first call at each signature the example gave it
+             (``HeldCalls``: shapes, strides, types and scalar arguments),
+             its output checked (rows and accuracy, the classical benchmark
+             involving no more clients than SFL, finite losses, the
+             checkpoint, the tokens' shape).
 
 Every bound (phases 3-17) comes from the kernels' cost functions
 (``kernels.*_cost``) at ``launch.hw``'s peaks. Phases 4, 7, 10, 10b, 13,
-15, 16, 17 and 18 are the main paths (the FEMNIST
+15, 16, 17, 18 and 20 are the main paths (the FEMNIST
 round uncompressed and compressed, LM serving, LM training, the LM gradient
 exchange, the event-simulator transport and hier_sfl, the event-driven
-runtime, the traced runs). The last lines are the
+runtime, the traced runs, the examples). The last lines are the
 ``kernels`` JSON object and then ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 
@@ -1669,6 +1686,8 @@ def phase_train_kernels():
              torch.bfloat16, "recurrentgemma-9b"),
             ("qwen3-moe-30b-a3b train, GQA 32 -> 4", 8, 32, 4, 2048, 64, 0, torch.bfloat16,
              "qwen3-moe-30b-a3b"),
+            ("olmo-100m train (the training example), MHA", 8, 8, 8, 256, 64, 0,
+             torch.bfloat16, "olmo-100m"),
             ("recurrentgemma-9b shape: MQA, hd 256, window 2048", 1, 16, 1, 4096, 256, 2048,
              torch.bfloat16, None),
             ("ragged S", 4, 14, 2, 1999, 64, 0, torch.bfloat16, None),
@@ -3684,6 +3703,306 @@ def phase_cost() -> None:
         del state, fn, meta_args
         torch.cuda.empty_cache()
 
+# ---------------------------------------------------------------------------
+# phase 20: the examples
+# ---------------------------------------------------------------------------
+
+# (example, its argv, the kernels its run must launch); the FEMNIST ones
+# at the full width but for async and quickstart (the reference's reduced
+# CNN), train_lm at olmo-100m's full width cut to 10 steps
+EXAMPLES = (
+    ("train_femnist_sfl", ["--full", "--rounds", "2", "--n-selected", "128"],
+     ("agg_reduce",)),
+    ("train_femnist_sfl", ["--full", "--rounds", "1", "--n-selected", "128",
+                           "--compress", "int8"],
+     ("agg_reduce_quant", "quantize_rows", "dequantize_rows", "agg_reduce")),
+    ("train_femnist_hier", ["--full", "--rounds", "1", "--n-pons", "2"], ("agg_reduce",)),
+    ("train_femnist_async", ["--rounds", "2"], ("agg_reduce",)),
+    ("quickstart", [], ("agg_reduce",)),
+    ("train_lm", ["--steps", "10"], ("flash_attention", "flash_attention_bwd")),
+    ("serve_lm", [], ("flash_attention", "rglru_scan")),
+)
+
+
+def _example(name: str):
+    """``examples_torch/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", os.path.join(ROOT, "examples_torch", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _clone(v):
+    """A copy of a kernel's argument: a tensor with its own strides (a view
+    into a wider tensor keeps its layout, a broadcast dimension stays
+    one), a numpy array, a tuple of them."""
+    if isinstance(v, torch.Tensor):
+        base = v
+        for d, st in enumerate(v.stride()):
+            if st == 0:
+                base = base.narrow(d, 0, min(1, v.shape[d]))
+        out = torch.empty_strided(base.size(), base.stride(), dtype=v.dtype, device=v.device)
+        return out.copy_(base).expand(v.shape)
+    if isinstance(v, np.ndarray):
+        return v.copy()
+    if isinstance(v, tuple):
+        return tuple(_clone(x) for x in v)
+    return v
+
+
+def _extent(t: torch.Tensor) -> int:
+    """The bytes ``_clone`` allocates for ``t``."""
+    if t.numel() == 0:
+        return 0
+    return (1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))) * t.element_size()
+
+
+def _signature(v):
+    if isinstance(v, torch.Tensor):
+        return ("tensor", tuple(v.shape), tuple(v.stride()), str(v.dtype))
+    if isinstance(v, np.ndarray):
+        return ("array", v.shape)
+    if isinstance(v, tuple):
+        return tuple(_signature(x) for x in v)
+    return repr(v)
+
+
+def _held_flash(orig, a):
+    from repro_torch.kernels import flash_attention_plain
+    o, lse = orig(**a)
+    po, plse = flash_attention_plain(a["q"], a["k"], a["v"], causal=a["causal"],
+                                     window=a["window"], scale=a["scale"],
+                                     softcap=a["softcap"], return_lse=True)
+    err, ok = (_within(o, po, 2.0 ** -7, 1e-5) if a["q"].dtype == torch.bfloat16
+               else _within(o, po, 2e-5, 2e-5))
+    if lse is not None:
+        err_l, ok_l = _within(lse, plse, 1e-5, 1e-5)
+        ok = ok and ok_l
+    return err, ok
+
+
+def _held_flash_bwd(orig, a):
+    from repro_torch.kernels import flash_attention_bwd_plain
+    got = orig(**a)
+    want = flash_attention_bwd_plain(*(a[k] for k in ("q", "k", "v", "o", "lse", "do")),
+                                     causal=a["causal"], window=a["window"],
+                                     scale=a["scale"], softcap=a["softcap"])
+    tol = (2.0 ** -7, 1e-4) if a["q"].dtype == torch.bfloat16 else (1e-4, 1e-4)
+    worst, ok = 0.0, True
+    for g, w in zip(got, want):
+        err, ok_g = _within(g, w, tol[0], tol[1] * float(w.float().abs().max()))
+        worst, ok = max(worst, err), ok and ok_g
+    return worst, ok
+
+
+def _held_rglru(orig, a):
+    from repro_torch.kernels import rglru_scan_plain
+    got = orig(**a)
+    want = rglru_scan_plain(a["a"], a["b"], a["h0"])
+    return (max(float((g - w).abs().max()) for g, w in zip(got, want)),
+            all(torch.equal(g, w) for g, w in zip(got, want)))
+
+
+def _held_rglru_bwd(orig, a):
+    from repro_torch.kernels import rglru_scan_bwd_plain
+    got = orig(**a)
+    dout = a["dout"] if a["dout"] is not None else torch.zeros_like(a["out"])
+    want = rglru_scan_bwd_plain(a["a"], a["out"], a["h0"], dout, a["dh_last"])
+    return (max(float((g - w).abs().max()) for g, w in zip(got, want)),
+            all(torch.equal(g, w) for g, w in zip(got, want)))
+
+
+def _held_agg(orig, a):
+    from repro_torch.kernels import segment_agg_reduce_plain
+    x, wm, seg, n_seg = a["x"], a["wm"], a["seg"], a["n_seg"]
+    amax = None if a["amax"] is None else torch.empty_like(a["amax"])
+    got = orig(x, wm, seg, n_seg, amax)
+    want = segment_agg_reduce_plain(x, wm, seg, n_seg)
+    abs_sum = segment_agg_reduce_plain(x.abs(), wm.abs(), seg, n_seg)
+    ok = bool(((got - want).abs() <= ATOL + RTOL_OF_ABS_SUM * abs_sum).all())
+    if amax is not None:      # the fused form's pass A: each segment's max|θ|
+        ok = ok and torch.equal(amax.amax(1), got.abs().amax(1))
+    return float((got - want).abs().max()), ok
+
+
+def _held_quantize(orig, a):
+    from repro_torch.kernels import quantize_rows_plain
+    got = orig(**a)
+    want = quantize_rows_plain(a["x"], a["noise"], a["scales"], a["qmax"])
+    return float((got.float() - want.float()).abs().max()), torch.equal(got, want)
+
+
+def _held_dequantize(orig, a):
+    from repro_torch.kernels import dequantize_rows, dequantize_rows_plain
+    q, (scales, mask) = a["x"], a["row_args"]
+    got, want = dequantize_rows(q, scales, mask), dequantize_rows_plain(q, scales, mask)
+    return float((got - want).abs().max()), torch.equal(got, want)
+
+
+class HeldCalls:
+    """While open, the first call of each kernel at each signature (shapes,
+    strides, types, scalar arguments) that the path gives it, with its
+    inputs copied; ``hold()`` then runs the kernel again on those inputs
+    and holds it against its plain version, at the tolerances of the
+    phases that hold it at their own shapes (flash attention as phases 9
+    and 12, the scans and quantize bit for bit, agg_reduce within
+    ATOL + RTOL_OF_ABS_SUM·Σ|w·x|). Recorded where each wrapper launches:
+    its module's launch function, the one its counter steps beside."""
+
+    # (module, function, kernel of the kernels line, its check)
+    SITES = (("flash_attention", "_forward", "flash_attention", _held_flash),
+             ("flash_attention", "_backward", "flash_attention_bwd", _held_flash_bwd),
+             ("rglru_scan", "_forward", "rglru_scan", _held_rglru),
+             ("rglru_scan", "_backward", "rglru_scan_bwd", _held_rglru_bwd),
+             ("agg_reduce", "_launch", "agg_reduce", _held_agg),
+             ("agg_reduce", "launch_quantize", "quantize_rows", _held_quantize),
+             ("quantize", "launch_quantize", "quantize_rows", _held_quantize),
+             # dequantize_rows launches through raw pointers: its tensors are
+             # seen where it checks them, first thing in the wrapper
+             ("quantize", "_check_rows", "dequantize_rows", _held_dequantize))
+    MAX_BYTES = 16 << 30          # copies kept at once; later signatures go unheld
+
+    def __enter__(self):
+        import importlib
+        import inspect
+        self.calls, self.saved, self.nbytes, self.skipped = {}, [], 0, 0
+        for mod_name, fn_name, kernel, check_fn in self.SITES:
+            mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+            orig = getattr(mod, fn_name)
+            self.saved.append((mod, fn_name, orig))
+            setattr(mod, fn_name, self._recording(orig, inspect.signature(orig), kernel,
+                                                  check_fn))
+        return self
+
+    def _recording(self, orig, sig, kernel, check_fn):
+        def recorded(*args, **kwargs):
+            a = sig.bind(*args, **kwargs)
+            a.apply_defaults()
+            a = dict(a.arguments)
+            if kernel == "dequantize_rows" and a["name"] != "dequantize_rows":
+                return orig(*args, **kwargs)
+            name = "agg_reduce_quant" if kernel == "agg_reduce" and a["amax"] is not None \
+                else kernel
+            tensors = [v for v in a.values() if isinstance(v, torch.Tensor)]
+            key = (name, _signature(tuple(a.values())))
+            if tensors and tensors[0].is_cuda and key not in self.calls:
+                size = sum(_extent(t) for t in tensors)
+                if self.nbytes + size <= self.MAX_BYTES:
+                    self.nbytes += size
+                    self.calls[key] = (orig, check_fn, {k: _clone(v) for k, v in a.items()})
+                else:
+                    self.skipped += 1
+            return orig(*args, **kwargs)
+        return recorded
+
+    def __exit__(self, *exc):
+        for mod, fn_name, orig in self.saved:
+            setattr(mod, fn_name, orig)
+
+    def hold(self, label: str) -> dict:
+        """Each recorded call run again and held; returns {kernel: (calls
+        held, the largest |kernel − plain|)}."""
+        out = {}
+        for (name, _), (orig, check_fn, a) in self.calls.items():
+            err, ok = check_fn(orig, a)
+            check(ok, f"{label}: {name} disagrees with its plain version at the path's "
+                      f"shapes {[tuple(v.shape) for v in a.values() if torch.is_tensor(v)]}"
+                      f" (max |diff| {err})")
+            n, worst = out.get(name, (0, 0.0))
+            out[name] = (n + 1, max(worst, err))
+        self.calls.clear()
+        torch.cuda.synchronize()
+        return out
+
+
+def _all_counters() -> dict:
+    """Every kernel of the kernels line: (wrapper, its counter)."""
+    out = {k: (fn, "launches") for k, fn in _counters().items()}
+    for k, fn in _lm_counters().items():
+        out[k], out[k + "_bwd"] = (fn, "launches"), (fn, "launches_bwd")
+    return out
+
+
+def _check_example(name: str, argv, out, tmp: str) -> None:
+    """What each example's return must show on the card."""
+    if name.startswith("train_femnist_") and name != "train_femnist_async":
+        modes = [k[:-len("_acc")] for k in out[0] if k.endswith("_acc")]
+        check(len(out) == int(argv[argv.index("--rounds") + 1]) and len(modes) == 2,
+              f"{name}: {len(out)} rows of {modes}")
+        for r in out:
+            check(all(0.0 <= r[f"{m}_acc"] <= 1.0 for m in modes), f"{name}: acc {r}")
+            # the classical benchmark involves fewer clients than SFL
+            check(r["classical_involved"] <= r[f"{modes[1]}_involved"], f"{name}: {r}")
+    elif name == "train_femnist_async":
+        check(len(out) > 0 and all(math.isfinite(r.get("acc", 0.0)) for r in out),
+              f"{name}: {len(out)} rows")
+        check(out[-1]["t_s"] <= 2 * 25.0, f"{name}: t_s {out[-1]['t_s']} past the budget")
+    elif name == "quickstart":
+        check(out["classical"]["involved"] < out["sfl"]["involved"], f"{name}: {out}")
+        check(out["sfl"]["upstream_mbits"] < out["classical"]["upstream_mbits"],
+              f"{name}: {out}")
+        check(0.0 <= out["sfl"]["acc"] <= 1.0 and out["sfl"]["uplink_models"] > 0,
+              f"{name}: {out}")
+    elif name == "train_lm":
+        losses = out["history"].column("loss")
+        check(len(losses) == 10 and all(math.isfinite(x) for x in losses),
+              f"{name}: losses {losses}")
+        check(os.path.isdir(os.path.join(tmp, "ck", "step_10")), f"{name}: no checkpoint")
+        print(f"example {name}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+              f"checkpoint {sorted(os.listdir(os.path.join(tmp, 'ck')))}")
+    elif name == "serve_lm":
+        check(tuple(out["tokens"].shape) == (4, 33), f"{name}: tokens {out['tokens'].shape}")
+        check(bool(torch.isfinite(out["logits"].float()).all()), f"{name}: logits not finite")
+
+
+def phase_examples() -> dict:
+    """Phase 20: every ``examples_torch/*.py`` through its ``main(argv)`` on
+    the card, in this process (the wrappers' counters see each launch):
+    each example's wall time and launches by kernel, each kernel it must
+    reach launched, every kernel it launched held against its plain
+    version at the shapes it gave it (``HeldCalls``), its output checked.
+    Returns the launches by kernel."""
+    import tempfile
+    counters = _all_counters()
+    launches = dict.fromkeys(counters, 0)
+    card = _card_name()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv, must in EXAMPLES:
+            argv = argv + (["--ckpt", os.path.join(tmp, "ck")] if name == "train_lm" else [])
+            mod = _example(name)
+            for fn, _ in counters.values():
+                _zero_launches(fn)
+            torch.cuda.synchronize()
+            with HeldCalls() as held:
+                t0 = time.perf_counter()
+                out = mod.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            counts = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+            label = f"example {name} {' '.join(argv).replace(tmp, '<tmp>')}"
+            print(f"{label}: {wall:.1f} s [{card}]; launches "
+                  f"{ {k: n for k, n in counts.items() if n} }")
+            for k in must:
+                check(counts[k] > 0, f"example {name}: {k} never launched")
+            # every kernel the run launched, held against its plain version
+            # on the inputs of its first call at each signature
+            t0 = time.perf_counter()
+            n_skipped, by_kernel = held.skipped, held.hold(label)
+            for k, n in counts.items():
+                check(n == 0 or k in by_kernel, f"{label}: {k} launched but never held")
+            print(f"{label}: held at the path's shapes (calls, max |kernel - plain|) "
+                  f"{by_kernel}, {n_skipped} signatures past the copy budget, "
+                  f"{time.perf_counter() - t0:.1f} s")
+            _check_example(name, argv, out, tmp)
+            for k, n in counts.items():
+                launches[k] += n
+            del out
+            gc.collect()
+            torch.cuda.empty_cache()
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3745,6 +4064,8 @@ def main() -> int:
     for name, n in phase(phase_obs).items():
         launches[name] += n
     phase(phase_cost)
+    for name, n in phase(phase_examples).items():
+        launches[name] += n
     print(f"total {time.perf_counter() - t0:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     table = (("agg_reduce", csrc + "agg_reduce.cu", "src/repro/kernels/agg_reduce.py:60"),

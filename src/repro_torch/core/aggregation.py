@@ -18,8 +18,12 @@ upstream the cross-pod "pod" axis. Two-step is reduce-scatter over "data",
 all-reduce over "pod" on the scattered shard, all-gather over "data", so
 1/|data| of the model crosses the scarce hop; classical is the flat
 all-reduce over ("pod", "data"). The cross-pod hop may travel as int8
-(stochastic rounding through the quantize kernel's wrapper, one scale per
-shard). ``mesh=None`` is one process: every collective is the identity.
+(stochastic rounding through the quantize kernel's wrapper): at one scale
+per shard in ``two_step_allreduce``, at the whole pod-summed leaf's in the
+``two_step_int8`` transport (:func:`int8_two_step_leaf`), as the
+reference's two forms scale; both run one leaf's schedule,
+:func:`two_step_leaf`. ``mesh=None`` is one process: every
+collective is the identity.
 
 Under a cost counter (``launch.roofline.Counter``) each collective reports
 its kind, the mesh axes its group spans, its operand's bytes and the
@@ -39,6 +43,7 @@ from repro_torch.common.tree import flatten, unflatten
 from repro_torch.core.compression import Noise, dequantize_rows, quantize_leaf, uniform_noise
 from repro_torch.kernels import cost
 from repro_torch.kernels.agg_reduce import agg_reduce, segment_agg_reduce
+from repro_torch.kernels.quantize import quantize_rows
 from repro_torch.launch.mesh import (AbstractGroup, axes_group, group_axes, group_size,
                                      mesh_shape)
 
@@ -196,13 +201,14 @@ def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """The peers' sum of ``x`` (a new contiguous tensor; ``x`` is left as it
-    was: a gradient may come out of autograd with other strides)."""
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The peers' sum of ``x`` (or their ``op``: ``dist.ReduceOp.MAX``), a
+    new contiguous tensor; ``x`` is left as it was: a gradient may come out
+    of autograd with other strides."""
     x = x.clone(memory_format=torch.contiguous_format)
     if group is not None:
         if not _abstract(x, group):
-            dist.all_reduce(x, group=group)
+            dist.all_reduce(x, op=op, group=group)
         _report("all-reduce", x.numel() * x.element_size(), group)
     return x
 
@@ -225,30 +231,85 @@ def _axis_group(mesh, axis: Optional[str]):
     return axes_group(mesh, (axis,))
 
 
-def int8_pod_sum(x: torch.Tensor, noise: torch.Tensor, pod_group) -> torch.Tensor:
+def _group_rank(group) -> int:
+    """This rank's index in ``group`` (0 without a group or over an
+    abstract one)."""
+    if group is None or isinstance(group, AbstractGroup):
+        return 0
+    return dist.get_group_rank(group, dist.get_rank())
+
+
+def int8_pod_sum(x: torch.Tensor, noise: torch.Tensor, pod_group,
+                 scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Σ over pods of each pod's ``x`` sent as int8: stochastic rounding at
-    one scale for the whole of ``x`` (the quantize kernel's one-row call),
-    q and the scale all-gathered over "pod", then Σ_p float(q_p) · s_p.
-    Every pod draws the same ``noise``, as the reference's replicated key."""
-    q, s = quantize_leaf(x, noise, 8)
+    one scale (the quantize kernel's one-row call), q and the scale
+    all-gathered over "pod", then Σ_p float(q_p) · s_p. The scale is the
+    whole of ``x``'s, max(max|x|, 1e-12) / 127, unless ``scale`` (0-d f32)
+    is given. Every pod draws the same ``noise``, as the reference's
+    replicated key."""
+    if scale is None:
+        q, s = quantize_leaf(x, noise, 8)
+    else:
+        s = scale.reshape(1)
+        q = quantize_rows(x.reshape(1, -1), noise.reshape(1, -1), s, 127.0)
     q_all = all_gather(q.reshape(-1), pod_group)
     s_all = all_gather(s.reshape(1), pod_group).reshape(-1)
     return dequantize_rows(q_all, s_all).sum(0).reshape(x.shape)
 
 
+def two_step_leaf(x: torch.Tensor, n_data: int, data_group, pod_group, hop: bool = True,
+                  noise: Optional[torch.Tensor] = None, leaf_scale: bool = False
+                  ) -> torch.Tensor:
+    """One leaf of the two-step schedule, in f32: flattened and zero-padded
+    to a multiple of ``n_data`` (|data|), reduce-scattered over "data" (the
+    ONU step: this rank's shard of the pod's sum), summed over "pod" (the
+    CPS hop; ``hop=False`` skips it), all-gathered over "data", the padding
+    dropped.
+
+    With ``noise`` (the shard's, uniform in [0, 1)) the hop is int8
+    (:func:`int8_pod_sum`): at the shard's own scale, or with
+    ``leaf_scale`` at the whole pod-summed leaf's, max(max|x|, 1e-12) / 127,
+    from an all-reduce of the shards' max over "data"."""
+    flat, pad = _flatten_pad(x.float(), n_data)
+    shard = reduce_scatter(flat, data_group)
+    if hop and noise is None:
+        shard = all_reduce(shard, pod_group)
+    elif hop:
+        scale = None
+        if leaf_scale:
+            amax = all_reduce(shard.abs().amax(), data_group, op=dist.ReduceOp.MAX)
+            scale = amax.clamp_min(1e-12) / 127.0
+        shard = int8_pod_sum(shard, noise, pod_group, scale=scale)
+    full = all_gather(shard, data_group).reshape(-1)
+    return (full[:-pad] if pad else full).reshape(x.shape)
+
+
+def int8_two_step_leaf(x: torch.Tensor, noise: torch.Tensor, data_group, pod_group
+                       ) -> torch.Tensor:
+    """Σ over every rank of its ``x`` with the cross-pod hop as int8, each
+    data rank sending its shard at the whole pod-summed leaf's scale: the
+    ``two_step_int8`` transport's exchange of one gradient leaf
+    (:func:`two_step_leaf`). ``noise`` is drawn at the leaf's shape, alike
+    on every rank; each rank quantizes with its shard's slice of it, so the
+    numbers are element for element those of quantizing the whole
+    pod-summed leaf, and 1/|data| of its int8 bytes leave each rank."""
+    n_data = 1 if data_group is None else group_size(data_group)
+    n = -(-x.numel() // n_data)
+    lo = _group_rank(data_group) * n
+    u = _flatten_pad(noise, n_data)[0][lo:lo + n]
+    return two_step_leaf(x, n_data, data_group, pod_group, noise=u, leaf_scale=True)
+
+
 def two_step_allreduce(tree, mesh, data_axis: str = "data", pod_axis: Optional[str] = "pod",
                        compress: Optional[str] = None, noise: Optional[Noise] = None):
     """Hierarchical sum of every rank's tree, in f32, leaves in the
-    reference's order (sorted keys).
-
-    reduce-scatter over ``data_axis`` (the ONU step), sum over
-    ``pod_axis`` of the scattered shard (the CPS hop; None skips it),
-    all-gather over ``data_axis``; each leaf flattened and zero-padded to a
-    multiple of |data|. ``compress="int8"`` sends the cross-pod shard as
-    int8 (:func:`int8_pod_sum`, one scale per shard) and then REQUIRES
-    explicit ``noise`` (a ``torch.Generator`` seeded alike on every rank
-    and fresh every call, or a ``uniform_noise(shapes)`` callable): the
-    shard shapes are drawn in leaf order, as the reference splits its key.
+    reference's order (sorted keys), each leaf by :func:`two_step_leaf`
+    (``pod_axis=None`` skips the CPS hop). ``compress="int8"`` sends the
+    cross-pod shard as int8 (:func:`int8_pod_sum`, one scale per shard) and
+    then REQUIRES explicit ``noise`` (a ``torch.Generator`` seeded alike on
+    every rank and fresh every call, or a ``uniform_noise(shapes)``
+    callable): the shard shapes are drawn in leaf order, as the reference
+    splits its key.
     """
     if compress not in (None, "int8"):
         raise ValueError(f"compress must be None or 'int8', not {compress!r}")
@@ -265,16 +326,10 @@ def two_step_allreduce(tree, mesh, data_axis: str = "data", pod_axis: Optional[s
     if compress == "int8" and pod_axis is not None and leaves:
         noises = uniform_noise(noise, [(-(-x.numel() // n_data),) for x in leaves],
                                leaves[0].device)
-    out = []
-    for x in leaves:
-        f, pad = _flatten_pad(x.float(), n_data)
-        shard = reduce_scatter(f, data_g)
-        if pod_axis is not None:
-            shard = (int8_pod_sum(shard, next(noises), pod_g) if noises is not None
-                     else all_reduce(shard, pod_g))
-        full = all_gather(shard, data_g).reshape(-1)
-        out.append((full[:-pad] if pad else full).reshape(x.shape))
-    return unflatten(tree, out)
+    return unflatten(tree, [
+        two_step_leaf(x, n_data, data_g, pod_g, hop=pod_axis is not None,
+                      noise=None if noises is None else next(noises))
+        for x in leaves])
 
 
 def classical_allreduce(tree, mesh, axes: Tuple[str, ...] = ("pod", "data")):

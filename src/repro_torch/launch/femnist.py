@@ -12,18 +12,19 @@ columns of ``examples/train_femnist_sfl.py`` (``--per-pon-selected`` as
     PYTHONPATH=src python -m repro_torch.launch.femnist --rounds 2 --device cpu \
         --strategy hier_sfl --n-pons 2
 
-The PON flags are the reference's (``pon.add_pon_cli_args``: the DBA
-policy, TWDM wavelengths, background load, the metro forest and the
-simulator engine). ``--strategy`` (sfl_two_step, classical, fedprox,
-fedopt, hier_sfl) is compared against classical, with ``--fedprox-mu``,
-``--server-opt`` and ``--server-lr``. ``--compress {none,int8,int4,topk}``
-(with ``--topk-frac`` and ``--error-feedback``) compresses what crosses
-every upstream tier: each ONU's θ (and under hier_sfl each OLT's Φ and the
-metro node's Ψ), each involved client's δ under classical. The
-observability flags are the reference's (``obs.add_obs_cli_args``:
-``--trace-out``, ``--metrics-out``, ``--report-out``, ``--health``,
-``--incidents-out``, ``--slo-*``): the trace and metrics cover every
-compared strategy, the run bundle the last one's config and History.
+The flags are the reference's shared set (``fl.add_experiment_cli_args``):
+the PON transport (the DBA policy, TWDM wavelengths, background load, the
+metro forest and the simulator engine), ``--strategy`` (sfl_two_step,
+classical, fedprox, fedopt, hier_sfl; compared against classical) with
+``--fedprox-mu``, ``--server-opt`` and ``--server-lr``, the backup and
+failure knobs (``--overselect``, ``--p-crash``, ``--p-transient``), and
+``--compress {none,int8,int4,topk}`` (with ``--topk-frac`` and
+``--error-feedback``), which compresses what crosses every upstream tier:
+each ONU's θ (and under hier_sfl each OLT's Φ and the metro node's Ψ), each
+involved client's δ under classical. Its observability flags
+(``--trace-out``, ``--metrics-out``, ``--report-out``, ``--health``,
+``--incidents-out``, ``--slo-*``) trace every compared strategy; the run
+bundle holds the last one's config and History.
 """
 from __future__ import annotations
 
@@ -36,12 +37,13 @@ from repro_torch import configs, device as device_mod, fl, obs
 from repro_torch.core.fedavg import FLConfig
 from repro_torch.data import femnist
 from repro_torch.models import femnist_cnn
-from repro_torch.pon import PonConfig, add_pon_cli_args, pon_config_from_args
+from repro_torch.pon import PonConfig, pon_config_from_args
 
 
 def run(n_rounds: int = 30, n_selected: int = 128, full: bool = False,
         seed: int = 0, modes: Sequence[str] = ("classical", "sfl"),
         pon: Optional[PonConfig] = None, overselect: float = 0.0,
+        p_crash: float = 0.0, p_transient: float = 0.0,
         params: Optional[Dict[str, torch.Tensor]] = None,
         device: str | torch.device = "cuda", local_steps: int = 8,
         compress: str = "none", topk_frac: float = 0.01,
@@ -53,9 +55,10 @@ def run(n_rounds: int = 30, n_selected: int = 128, full: bool = False,
     the loop holds the History, the final parameters
     (``loop.backend.params``) and the RNG stream. ``pon`` gives the
     transport and the topology (``n_onus``, ``clients_per_onu``,
-    ``n_pons``). ``params`` (port layout, e.g. bridged from the reference's
-    init) replaces the seeded init; ``local_steps`` is H, the paper's 8 by
-    default. ``strategy_kwargs`` (``fl.strategy_kwargs_from_args``' dict)
+    ``n_pons``); ``overselect``, ``p_crash`` and ``p_transient`` are the
+    loop's backup and failure knobs. ``params`` (port layout, e.g. bridged
+    from the reference's init) replaces the seeded init; ``local_steps`` is
+    H, the paper's 8 by default. ``strategy_kwargs`` (``fl.strategy_kwargs_from_args``' dict)
     are filtered per mode, so the classical baseline takes none of another
     strategy's knobs; ``compress``, ``topk_frac`` and ``error_feedback`` set
     every strategy's wire compression. ``data`` (``femnist.generate``'s
@@ -90,7 +93,8 @@ def run(n_rounds: int = 30, n_selected: int = 128, full: bool = False,
                                           sample_counts=counts)
         exp = fl.ExperimentConfig(fl=flc, strategy=fl.canonical_name(mode),
                                   strategy_kwargs=tuple(sorted(skw.items())),
-                                  overselect=overselect, n_rounds=n_rounds, seed=seed)
+                                  overselect=overselect, p_crash=p_crash,
+                                  p_transient=p_transient, n_rounds=n_rounds, seed=seed)
         loop = fl.RoundLoop(exp, backend)
         hist = loop.run()
         results[mode] = {"accs": [a if a is not None else 0.0
@@ -100,7 +104,38 @@ def run(n_rounds: int = 30, n_selected: int = 128, full: bool = False,
     return results
 
 
-def main(argv=None):
+def run_from_args(args, n_selected: int):
+    """``run`` with the values of the shared flag set
+    (``fl.add_experiment_cli_args``) and ``--rounds``, ``--full``,
+    ``--seed``, ``--device``: each strategy of
+    ``fl.comparison_modes(args.strategy)`` at ``n_selected`` clients."""
+    return run(n_rounds=args.rounds, n_selected=n_selected, full=args.full,
+               seed=args.seed, modes=fl.comparison_modes(args.strategy),
+               pon=pon_config_from_args(args), overselect=args.overselect,
+               p_crash=args.p_crash, p_transient=args.p_transient,
+               device=args.device, compress=args.compress,
+               topk_frac=args.topk_frac, error_feedback=args.error_feedback,
+               strategy_kwargs=fl.strategy_kwargs_from_args(args))
+
+
+def print_rows(res) -> list:
+    """Print ``run``'s result as the reference's CSV (round, each mode's
+    accuracy, each mode's involved clients); return its rows as dicts."""
+    modes = list(res)
+    print("round," + ",".join(f"{m}_acc" for m in modes)
+          + "," + ",".join(f"{m}_involved" for m in modes))
+    rows = []
+    for i in range(len(res[modes[0]]["accs"])):
+        print(f"{i},"
+              + ",".join(f"{res[m]['accs'][i]:.4f}" for m in modes) + ","
+              + ",".join(f"{res[m]['involved'][i]:.0f}" for m in modes))
+        rows.append({"round": i, **{f"{m}_acc": res[m]["accs"][i] for m in modes},
+                     **{f"{m}_involved": res[m]["involved"][i] for m in modes}})
+    return rows
+
+
+def main(argv=None) -> list:
+    """The CLI; returns the printed rows (``print_rows``)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=30)
     ap.add_argument("--n-selected", type=int, default=128)
@@ -110,25 +145,8 @@ def main(argv=None):
     ap.add_argument("--full", action="store_true",
                     help="exact LEAF CNN (26.4 MB updates); default reduced")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--strategy", default="sfl_two_step",
-                    help=f"{'|'.join(fl.strategy_names())} (aliases: sfl, hier); "
-                         "compared against classical")
-    add_pon_cli_args(ap)
-    fl.add_strategy_cli_args(ap)
-    ap.add_argument("--compress", default="none",
-                    choices=["none", "int8", "int4", "topk"],
-                    help="wire compression for every transport tier "
-                         "(θ/Φ/Ψ or client uploads): stochastic-rounding "
-                         "int8/int4 or magnitude top-k (DESIGN.md §17)")
-    ap.add_argument("--topk-frac", type=float, default=0.01,
-                    help="top-k: fraction of elements kept per leaf "
-                         "(wire bills value+index per kept element)")
-    ap.add_argument("--error-feedback", action="store_true",
-                    help="carry the compression residual into the next "
-                         "round (EF-SGD; per-tier for sfl/hier, per-client "
-                         "for classical)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    obs.add_obs_cli_args(ap)
+    fl.add_experiment_cli_args(ap)
     args = ap.parse_args(argv)
 
     modes = fl.comparison_modes(args.strategy)
@@ -137,23 +155,14 @@ def main(argv=None):
     sess = obs.session_from_args(args, driver="round_loop")
     res = {}
     try:
-        res = run(n_rounds=args.rounds, n_selected=n_selected, full=args.full,
-                  seed=args.seed, modes=modes, pon=pon_config_from_args(args),
-                  device=args.device, compress=args.compress,
-                  topk_frac=args.topk_frac, error_feedback=args.error_feedback,
-                  strategy_kwargs=fl.strategy_kwargs_from_args(args))
+        res = run_from_args(args, n_selected)
     finally:
         # the artifacts (of what ran, should run raise), then the ambient
         # context restored; the bundle holds the last strategy's run
         last = res[modes[-1]]["loop"] if res else None
         sess.finish(cfg=last.cfg if last else None,
                     history=last.history if last else None)
-    print("round," + ",".join(f"{m}_acc" for m in modes)
-          + "," + ",".join(f"{m}_involved" for m in modes))
-    for i in range(args.rounds):
-        print(f"{i},"
-              + ",".join(f"{res[m]['accs'][i]:.4f}" for m in modes) + ","
-              + ",".join(f"{res[m]['involved'][i]:.0f}" for m in modes))
+    rows = print_rows(res)
     if args.compress != "none":
         wire = res[modes[0]]["loop"].history.column("wire_mbits")[0]
         print(f"# wire: {args.compress} payload {wire} Mb per model "
@@ -161,6 +170,7 @@ def main(argv=None):
     finals = " | ".join(f"{m} {res[m]['accs'][-1]:.3f}" for m in modes)
     print(f"\nfinal accuracy ({args.n_pons} PON(s), N={n_selected}): {finals} "
           "(paper: 0.77 vs 0.85 at N=128)")
+    return rows
 
 
 if __name__ == "__main__":

@@ -139,7 +139,8 @@ def run(arch: Union[str, ModelConfig], *, smoke: bool = False, batch: int = 4,
             "params": params, "cfg": cfg, "prefill_s": t_prefill, "decode_s": t_decode}
 
 
-def main(argv=None):
+def main(argv=None) -> Dict[str, Any]:
+    """The reference's CLI (and ``--device``); returns :func:`run`'s dict."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--smoke", action="store_true")
@@ -150,8 +151,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    run(args.arch, smoke=args.smoke, batch=args.batch, prompt_len=args.prompt_len,
-        gen=args.gen, temperature=args.temperature, seed=args.seed, device=args.device)
+    return run(args.arch, smoke=args.smoke, batch=args.batch, prompt_len=args.prompt_len,
+               gen=args.gen, temperature=args.temperature, seed=args.seed,
+               device=args.device)
 
 
 if __name__ == "__main__":

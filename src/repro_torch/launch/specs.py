@@ -40,8 +40,8 @@ import torch
 from repro_torch.common.sharding import (ShardingRules, filter_valid_spec,
                                          logical_to_physical, reduce_schedule)
 from repro_torch.common.tree import flatten, unflatten
-from repro_torch.core.aggregation import (all_reduce, classical_allreduce, int8_pod_sum,
-                                          two_step_allreduce)
+from repro_torch.core.aggregation import (all_reduce, classical_allreduce,
+                                          int8_two_step_leaf, two_step_allreduce)
 from repro_torch.core.compression import Noise, uniform_noise
 from repro_torch.launch.mesh import AbstractMesh, axes_group, client_index, mesh_shape, size
 from repro_torch.models import transformer
@@ -195,11 +195,12 @@ def make_train_step(cfg: ModelConfig, opt_name: str = "adamw", lr: float = 1e-4,
       type at one micro-batch; summing the accumulated micro-batches once
       gives the same sum with 1/m of the collectives.
     * ``transport="two_step_int8"`` (needs "pod" in the mesh): the
-      gradients of ``unnormalized_loss_fn``, summed over "data" (the ONU
-      step, in f32); each pod-summed leaf crosses "pod" as int8 at one
-      scale per leaf (``core.aggregation.int8_pod_sum``), with noise drawn
-      leaf by leaf (sorted keys) from ``noise`` or, by default, from
-      (``seed``, ``opt_state["t"]``), alike on every pod; then
+      gradients of ``unnormalized_loss_fn``, reduce-scattered over "data"
+      (the ONU step, in f32); each data rank's shard of a pod-summed leaf
+      crosses "pod" as int8 at that leaf's one scale
+      (``core.aggregation.int8_two_step_leaf``), with noise drawn at each
+      leaf's shape (sorted keys) from ``noise`` or, by default, from
+      (``seed``, ``opt_state["t"]``), alike on every rank; then
       K = Σ_pod weight, gradients / max(K, 1e-6), loss = Σ_pod nll / K.
 
     MoE configs on more than one rank raise: the router's load-balance loss
@@ -310,10 +311,10 @@ def _two_step_int8_step(cfg, opt, lr, microbatches, mesh, seed):
         summed = []
         for i, x in enumerate(leaves):
             leaves[i] = None
-            # the ONU step (the pod's sum over "data", f32), then the CPS hop:
-            # the pod's sum crosses "pod" as int8, one scale a leaf
-            summed.append(int8_pod_sum(all_reduce(x.float(), data_group), next(noises),
-                                       pod_group))
+            # the ONU step (each data rank's shard of the pod's sum, f32),
+            # then the CPS hop: the shard crosses "pod" as int8 at the pod
+            # leaf's scale
+            summed.append(int8_two_step_leaf(x, next(noises), data_group, pod_group))
         tot, K = all_reduce(tot_cnt, pod_group).unbind()
         K = K.clamp_min(1e-6)
         grads = unflatten(params, [g / K for g in summed])

@@ -180,7 +180,8 @@ def run(arch: Union[str, ModelConfig] = "qwen2-0.5b", *, smoke: bool = False, st
             "start_step": step0}
 
 
-def main(argv=None):
+def main(argv=None) -> Dict[str, Any]:
+    """The reference's CLI; returns :func:`run`'s dict."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--smoke", action="store_true", help="reduced config (CPU)")
@@ -233,6 +234,7 @@ def main(argv=None):
         sess.finish(cfg=res.get("exp"), history=res.get("history"))
         if started:
             dist.destroy_process_group()
+    return res
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
-"""The port's first rule: ``src/repro_torch``, ``chip_smoke.py`` and the
-port's tools (``tools/*.py``) import ``torch`` and never ``jax`` nor
-anything of the JAX package ``repro`` —
+"""The port's first rule: ``src/repro_torch``, ``chip_smoke.py``, the
+port's tools (``tools/*.py``) and its examples (``examples_torch/*.py``)
+import ``torch`` and never ``jax`` nor anything of the JAX package
+``repro`` —
 not at module level and not inside a function. Each file is parsed with
 ``ast`` (nothing is imported), one case per file."""
 import ast
@@ -11,7 +12,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted(p.relative_to(ROOT).as_posix()
                for p in [*(ROOT / "src" / "repro_torch").rglob("*.py"),
-                         *(ROOT / "tools").glob("*.py")]) + ["chip_smoke.py"]
+                         *(ROOT / "tools").glob("*.py"),
+                         *(ROOT / "examples_torch").glob("*.py")]) + ["chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -29,6 +31,7 @@ def _imported_modules(tree):
 
 def test_the_port_has_files():
     assert len(FILES) > 20 and "src/repro_torch/launch/serve.py" in FILES
+    assert len([p for p in FILES if p.startswith("examples_torch/")]) == 6
 
 
 @pytest.mark.parametrize("path", FILES)
