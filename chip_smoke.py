@@ -274,13 +274,27 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              its output checked (rows and accuracy, the classical benchmark
              involving no more clients than SFL, finite losses, the
              checkpoint, the tokens' shape).
+21. fsdp   — FSDP over "data" and MoE over data ranks on NCCL with a
+             world of one (a ("pod", "data", "model") mesh of (1, 1, 1),
+             phase 15's file rendezvous): qwen3-moe-30b-a3b at full width
+             cut to 4 layers (phase 13's setting: bf16, remat full, batch
+             8 × 2048, sgdm, lr 3e-4), 2 steps each with mesh=None, under
+             the FSDP rules (every gather and reduce-scatter a copy on one
+             rank) and with ``transport="two_step_int8"``: FSDP's losses and
+             parameters against mesh=None's (bit for bit or by how much),
+             the int8 step-0 loss within 1e-6 of FSDP's, the router's
+             all-reduced statistics against the local ones; each way's warm
+             step s, peak memory, and the bytes the gathers moved a step;
+             flash attention (forward and backward), quantize_rows and
+             dequantize_rows launched and held against their plain versions
+             at the path's shapes (``HeldCalls``).
 
 Every bound (phases 3-17) comes from the kernels' cost functions
 (``kernels.*_cost``) at ``launch.hw``'s peaks. Phases 4, 7, 10, 10b, 13,
-15, 16, 17, 18 and 20 are the main paths (the FEMNIST
+15, 16, 17, 18, 20 and 21 are the main paths (the FEMNIST
 round uncompressed and compressed, LM serving, LM training, the LM gradient
 exchange, the event-simulator transport and hier_sfl, the event-driven
-runtime, the traced runs, the examples). The last lines are the
+runtime, the traced runs, the examples, FSDP and MoE over data ranks). The last lines are the
 ``kernels`` JSON object and then ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 
@@ -1526,8 +1540,8 @@ def _consistency(tag, params, batch, cfg, rel_tol):
     real_route = moe._route
 
     def recording(into):
-        def route(x, p, c):
-            topv, topi, aux = real_route(x, p, c)
+        def route(x, p, c, group=None):
+            topv, topi, aux = real_route(x, p, c, group)
             into.append(topi.sort(-1).values)       # every position's set
             return topv, topi, aux
         return route
@@ -4004,6 +4018,186 @@ def phase_examples() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 21: FSDP over "data" and MoE over data ranks
+# ---------------------------------------------------------------------------
+
+FSDP_RUN = ("qwen3-moe-30b-a3b", {"n_layers": 4}, "sgdm", 2)   # phase 13's cut
+
+
+class _GatherTap:
+    """While open, the bytes each kind of collective reported (the
+    all-gathers' outputs, the reduce-scatters' inputs)."""
+
+    def __enter__(self):
+        from repro_torch.core import aggregation
+        self.mod, self.orig, self.bytes = aggregation, aggregation._report, {}
+
+        def report(kind, nbytes, group):
+            self.bytes[kind] = self.bytes.get(kind, 0) + nbytes
+            return self.orig(kind, nbytes, group)
+        aggregation._report = report
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._report = self.orig
+
+
+def _fsdp_router_check(cfg, params, group) -> None:
+    """The router of unit 0 on a (8, 2048, d) input: its statistics
+    all-reduced over a group of one against the local ones."""
+    from repro_torch.models import moe
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((TRAIN["batch"], TRAIN["seq"], cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    p = {"router": params["unit"]["0_attn"]["moe"]["router"][0]}
+    with torch.no_grad():
+        lv, li, laux = moe._route(x, p, cfg)
+        gv, gi, gaux = moe._route(x, p, cfg, group)
+    same = torch.equal(laux, gaux)
+    rel = abs(float(gaux) - float(laux)) / abs(float(laux))
+    print(f"fsdp: router load-balance loss all-reduced {float(gaux):.9f}, local "
+          f"{float(laux):.9f} ({'bit for bit' if same else f'rel {rel:.2e}'}); top-k "
+          f"{'equal' if torch.equal(li, gi) and torch.equal(lv, gv) else 'DIFFER'}")
+    check(torch.equal(li, gi) and torch.equal(lv, gv) and rel <= 1e-6,
+          "fsdp: the router's all-reduced statistics differ from the local ones")
+
+
+def phase_fsdp() -> dict:
+    """Phase 21: FSDP over "data" and MoE over data ranks on NCCL with a
+    world of one; returns the launches of each kernel on its main path."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data import lm as lm_data
+    from repro_torch.kernels import dequantize_rows, quantize_rows
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import specs
+    from repro_torch.launch.train import build_rules
+    from repro_torch.models import transformer
+    from repro_torch.optim import make_optimizer
+
+    name, cut, opt, steps = FSDP_RUN
+    cfg = dataclasses.replace(configs.get(name), **cut)
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    weights = torch.from_numpy(
+        np.random.default_rng(0).integers(50, 400, B).astype(np.float32)).cuda()
+    batches = [{"tokens": torch.from_numpy(b["tokens"]).cuda(), "client_weight": weights}
+               for b in lm_data.lm_batches(0, steps, B, S, cfg.vocab_size)]
+    counters = dict(_lm_counters(), quantize_rows=quantize_rows,
+                    dequantize_rows=dequantize_rows)
+    launches = dict.fromkeys(("flash_attention", "flash_attention_bwd", "quantize_rows",
+                              "dequantize_rows"), 0)
+    card = _card_name()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as d:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(d, "rendezvous"),
+                                rank=0, world_size=1)
+        try:
+            mesh = mesh_mod.make_test_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+            ways = {"mesh=None": {}, "fsdp": {"mesh": mesh, "rules": build_rules(mesh, "sfl")},
+                    "two_step_int8": {"mesh": mesh, "transport": "two_step_int8"}}
+            runs = {}
+            for label, kw in ways.items():
+                params = transformer.init_params(
+                    cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+                step = specs.make_train_step(cfg, opt, TRAIN["lr"], seed=0, **kw)
+                check((step.layout is not None) == (label == "fsdp"),
+                      f"fsdp: {label} holds {'shards' if step.layout else 'full replicas'}")
+                if step.layout is not None:
+                    params = step.layout.shard(params)
+                state = make_optimizer(opt).init(params)
+                for fn in counters.values():
+                    _zero_launches(fn)
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                losses, dts = [], []
+                with HeldCalls() as held, _GatherTap() as tap:
+                    for i, batch in enumerate(batches):
+                        # sgdm keeps no step counter: the int8 hop's noise a step
+                        noise = ({"noise": torch.Generator(device="cuda").manual_seed(i)}
+                                 if label == "two_step_int8" else {})
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        params, state, loss = step(params, state, batch, **noise)
+                        losses.append(float(loss))
+                        torch.cuda.synchronize()
+                        dts.append(time.perf_counter() - t0)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                counts = {"flash_attention": counters["flash_attention"].launches,
+                          "flash_attention_bwd": counters["flash_attention"].launches_bwd,
+                          "quantize_rows": quantize_rows.launches,
+                          "dequantize_rows": dequantize_rows.launches}
+                gathered = tap.bytes.get("all-gather", 0) / steps
+                print(f"fsdp {name} {cut} {opt} {label}: losses {losses}; step s cold "
+                      f"{dts[0]:.3f} warm {dts[-1]:.3f} ({B * S / dts[-1]:.0f} tokens/s); "
+                      f"peak {peak:.2f} GiB; all-gathered {gathered / 2**30:.3f} GiB a step, "
+                      f"reduce-scattered {tap.bytes.get('reduce-scatter', 0) / steps / 2**30:.3f}"
+                      f" GiB [{card}]; launches {counts}")
+                check(all(math.isfinite(x) for x in losses), f"fsdp {label}: a loss is not "
+                                                             "finite")
+                must = ["flash_attention", "flash_attention_bwd"] + (
+                    ["quantize_rows", "dequantize_rows"] if label == "two_step_int8" else [])
+                for k in must:
+                    check(counts[k] > 0, f"fsdp {label}: {k} never launched")
+                if label == "fsdp":
+                    check(gathered > 0, "fsdp: no all-gather on the FSDP path")
+                by_kernel = held.hold(f"fsdp {label}")
+                for k, n in counts.items():
+                    check(n == 0 or k in by_kernel, f"fsdp {label}: {k} launched, never held")
+                print(f"fsdp {label}: held at the path's shapes (calls, max |kernel - plain|) "
+                      f"{by_kernel}, {held.skipped} signatures past the copy budget")
+                for k, n in counts.items():
+                    launches[k] += n
+                if label == "fsdp":
+                    params = step.layout.gather(params)
+                    _fsdp_router_check(cfg, params, mesh_mod.axes_group(mesh, ("pod", "data")))
+                runs[label] = dict(losses=losses, params=None if label == "two_step_int8" else
+                                   {k: v.cpu() for k, v in _named_leaves(params)})
+                del params, state, step
+            _fsdp_compare(runs)
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _named_leaves(tree, pre=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{pre}{k}/")
+        else:
+            yield pre + k, v
+
+
+def _fsdp_compare(runs) -> None:
+    """FSDP against mesh=None (losses, parameters) and the int8 step-0 loss
+    against FSDP's."""
+    one, fsdp, int8 = runs["mesh=None"], runs["fsdp"], runs["two_step_int8"]
+    same, worst, worst_rel, n_diff, n = True, 0.0, 0.0, 0, 0
+    for k, v in one["params"].items():
+        v, got = v.cuda(), fsdp["params"][k].cuda()
+        same = same and torch.equal(got, v)
+        diff = (got.float() - v.float()).abs()
+        worst = max(worst, float(diff.max()))
+        worst_rel = max(worst_rel, float(diff.max()) / max(float(v.float().abs().max()), 1e-30))
+        n_diff += int((diff > 0).sum())
+        n += v.numel()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(fsdp["losses"], one["losses"]))
+    print(f"fsdp vs mesh=None: losses {fsdp['losses']} vs {one['losses']} (rel {loss_rel:.2e}); "
+          f"parameters {'bit for bit' if same else f'{n_diff:,} of {n:,} elements differ, max |diff| {worst:.3e} ({worst_rel:.2e} of the leaf max)'}")
+    check(loss_rel <= 1e-5, "fsdp: losses differ from mesh=None's")
+    # an element may land one bf16 rounding apart where the sums' order differs
+    check(worst_rel <= 2.0 ** -7, "fsdp: parameters differ from mesh=None's past a bf16 step")
+    rel0 = abs(int8["losses"][0] - fsdp["losses"][0]) / abs(fsdp["losses"][0])
+    print(f"fsdp: two_step_int8 step-0 loss {int8['losses'][0]!r}, gspmd (FSDP) "
+          f"{fsdp['losses'][0]!r} (rel {rel0:.2e}, held to 1e-6)")
+    check(rel0 <= 1e-6, "fsdp: the int8 step-0 loss differs from gspmd's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -4065,6 +4259,8 @@ def main() -> int:
         launches[name] += n
     phase(phase_cost)
     for name, n in phase(phase_examples).items():
+        launches[name] += n
+    for name, n in phase(phase_fsdp).items():
         launches[name] += n
     print(f"total {time.perf_counter() - t0:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"

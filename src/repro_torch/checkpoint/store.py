@@ -14,6 +14,12 @@ dict keys in sorted order, tuple and list items by index
 (``0/unit/0_attn/attn/wq``, ``1/m/embed``, ``1/t`` for ``(params,
 opt_state)``). bfloat16, which numpy lacks, is stored as its uint16 bits
 under the logical dtype ``"bfloat16"``, as the reference stores it.
+
+A tree of FSDP shards (``launch.specs.FsdpLayout``) goes with its
+``sharding_tree`` of ``common.sharding.Place``s: ``save_checkpoint``
+gathers every shard over ``group`` and rank 0 writes the full leaves, and
+``restore_checkpoint`` gives each rank its slice. A checkpoint so written
+restores on one process, and a one-process checkpoint onto shards.
 """
 from __future__ import annotations
 
@@ -24,6 +30,9 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.common.sharding import shard_or_replicate
 
 
 def _flatten_with_paths(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
@@ -34,6 +43,16 @@ def _flatten_with_paths(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, A
     if tree is None:        # an empty subtree, as in JAX
         return []
     return [("/".join(prefix), tree)]
+
+
+def _places(tree, places) -> list:
+    """The place of every leaf of ``tree`` in flattening order, from a tree
+    of its structure whose leaves (or whole subtrees) may be None."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _places(tree[k], places and places[k])]
+    if isinstance(tree, (tuple, list)):
+        return [p for i, v in enumerate(tree) for p in _places(v, places and places[i])]
+    return [] if tree is None else [places]
 
 
 def _unflatten(tree, leaves):
@@ -67,8 +86,31 @@ def _from_numpy(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None,
-                    shard_size: int = 2 ** 30) -> str:
-    """Atomically persist a tree of tensors. Returns the final directory."""
+                    shard_size: int = 2 ** 30, sharding_tree=None, group=None
+                    ) -> Optional[str]:
+    """Atomically persist a tree of tensors. Returns the final directory.
+
+    With ``sharding_tree`` (a ``Place`` or None per leaf) the leaves are
+    shards: every rank of the world calls, each sharded leaf is gathered
+    over ``group``, rank 0 alone writes (the others return None), and no
+    rank returns before the step is on disk."""
+    if sharding_tree is not None:
+        from repro_torch.core.aggregation import gather_dim
+        places = iter(_places(tree, sharding_tree))
+        with torch.no_grad():
+            tree = _unflatten(tree, iter([x if pl is None else gather_dim(x, pl.dim, group)
+                                          for (_, x), pl in zip(_flatten_with_paths(tree),
+                                                                places)]))
+        if dist.is_initialized() and dist.get_rank() != 0:
+            dist.barrier()
+            return None
+    final = _write(ckpt_dir, step, tree, extra, shard_size)
+    if sharding_tree is not None and dist.is_initialized():
+        dist.barrier()          # a rank may look for the latest step next
+    return final
+
+
+def _write(ckpt_dir: str, step: int, tree, extra: Optional[dict], shard_size: int) -> str:
     tmp = os.path.join(ckpt_dir, f"tmp_{step}")
     final = os.path.join(ckpt_dir, f"step_{step}")
     if os.path.exists(tmp):
@@ -115,28 +157,32 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, tree_like):
+def restore_checkpoint(ckpt_dir: str, step: int, tree_like, sharding_tree=None):
     """Restore into the structure of ``tree_like`` -> (tree, extra, step).
     Each leaf takes the checkpoint's dtype and the device of the leaf of
     ``tree_like`` it replaces (the CPU for a non-tensor); a missing leaf
-    raises KeyError, a shape that differs ValueError."""
+    raises KeyError, a shape that differs ValueError. With
+    ``sharding_tree`` (a ``Place`` or None per leaf) each rank keeps its
+    slice of a stored leaf, the reference's elastic restore."""
     final = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {e["path"]: e for e in manifest["entries"]}
     shards: dict = {}
     out = []
+    places = iter(_places(tree_like, sharding_tree))
     for name, leaf in _flatten_with_paths(tree_like):
+        place = next(places)
         if name not in by_path:
             raise KeyError(f"checkpoint missing leaf {name}")
         entry = by_path[name]
         sid = entry["shard"]
         if sid not in shards:
             shards[sid] = np.load(os.path.join(final, f"shard_{sid}.npz"))
-        arr = shards[sid][entry["key"]]
+        x = shard_or_replicate(_from_numpy(shards[sid][entry["key"]], entry["dtype"], "cpu"),
+                               place)
         want = tuple(leaf.shape) if hasattr(leaf, "shape") else None
-        if want is not None and tuple(arr.shape) != want:
-            raise ValueError(f"{name}: checkpoint shape {arr.shape} != {want}")
-        device = leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
-        out.append(_from_numpy(arr, entry["dtype"], device))
+        if want is not None and tuple(x.shape) != want:
+            raise ValueError(f"{name}: checkpoint shape {tuple(x.shape)} != {want}")
+        out.append(x.to(leaf.device if isinstance(leaf, torch.Tensor) else "cpu"))
     return _unflatten(tree_like, iter(out)), manifest["extra"], manifest["step"]

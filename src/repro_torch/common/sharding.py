@@ -8,20 +8,23 @@ two-step reduce-scatter in the pod, all-reduce across pods, all-gather)
 and the classical benchmark (``replicated()``: a flat all-reduce) are
 data rather than different model code.
 
-The port runs data parallel with full replicas on every rank, so here the
-rules choose how the gradients are reduced (:func:`reduce_schedule`); the
-memory that FSDP saves and tensor parallelism wait on more than one card
-(ROADMAP.md Queue 1 item 1e). :func:`logical_to_physical` returns a plain
-tuple, the port's stand-in for ``PartitionSpec``, and ``constrain`` is the
-identity, as the reference's is outside a mesh.
+The rules choose how the gradients are reduced (:func:`reduce_schedule`)
+and, under FSDP, which dimension of each parameter a rank holds a shard of
+(:func:`sharding_tree`: per leaf a :class:`Place`, or None where the leaf
+stays replicated); :func:`shard_or_replicate` cuts a rank's slice of a
+full tensor. Tensor and expert parallelism wait on ROADMAP.md Queue 1
+item 1e. :func:`logical_to_physical` returns a plain tuple, the port's
+stand-in for ``PartitionSpec``, and ``constrain`` is the identity, as the
+reference's is outside a mesh.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 Axis = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[Axis, ...]
+
 
 def pad_to_multiple(n: int, m: int) -> int:
     """Smallest multiple of m that is >= n."""
@@ -114,7 +117,8 @@ def spec_tree(rules: ShardingRules, logical_tree) -> Any:
 
 def constrain(x, rules: ShardingRules, logical: Sequence[Optional[str]]):
     """The identity: the reference's sharding constraint is a no-op
-    outside a mesh, and the port holds full replicas."""
+    outside a mesh, and the port's activations are never sharded (FSDP
+    gathers the parameters instead)."""
     return x
 
 
@@ -131,17 +135,58 @@ def filter_valid_spec(mesh_shape: Mapping[str, int], spec: Spec,
     return tuple(out)
 
 
+class Place(NamedTuple):
+    """Where a rank's shard of a leaf lies: block ``index`` of ``count``
+    equal blocks along dimension ``dim``."""
+    dim: int
+    index: int
+    count: int
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and not isinstance(x, Place) and all(
+        e is None or isinstance(e, (str, tuple)) for e in x)
+
+
+def sharding_tree(specs, axes: Axis, mesh_shape: Mapping[str, int], index: int):
+    """The reference's ``sharding_tree`` for FSDP: per leaf of a spec tree
+    (``filter_valid_spec``'s, so every sharded dimension divides), the
+    :class:`Place` of this rank's shard along the dimension mapped onto
+    ``axes`` (the rules' ``fsdp``), block ``index`` of the axes' size; None
+    where no dimension is (the leaf stays replicated, as GSPMD leaves it)."""
+    wanted = set(_axes(axes))
+    count = 1
+    for a in wanted:
+        count *= mesh_shape.get(a, 1)
+    if _is_spec(specs):
+        for dim, ax in enumerate(specs):
+            if wanted & set(_axes(ax)):
+                return Place(dim, index, count)
+        return None
+    return {k: sharding_tree(v, axes, mesh_shape, index) for k, v in specs.items()}
+
+
+def shard_or_replicate(x, place: Optional[Place]):
+    """This rank's slice of the full tensor ``x`` (a contiguous copy), or
+    ``x`` itself where ``place`` is None."""
+    if place is None:
+        return x
+    n = x.shape[place.dim] // place.count
+    return x.narrow(place.dim, place.index * n, n).contiguous()
+
+
 def reduce_schedule(rules: ShardingRules, mesh_shape: Mapping[str, int]) -> str:
     """How the rules reduce the gradients of a data-parallel step:
     "two_step" when FSDP is on (reduce-scatter over "data", all-reduce over
-    "pod", all-gather over "data"), "classical" when it is off (a flat
-    all-reduce over the client axes). Tensor or expert parallelism over a
-    mesh axis larger than 1 raises: the port holds full replicas."""
+    "pod"; the parameters gathered over "data"), "classical" when it is off
+    (a flat all-reduce over the client axes). Tensor or expert parallelism
+    over a mesh axis larger than 1 raises: the port shards over "data"
+    alone."""
     for role, ax in (("tensor", rules.tensor), ("expert", rules.expert)):
         wide = [a for a in _axes(ax) if mesh_shape.get(a, 1) > 1]
         if wide:
             raise NotImplementedError(
                 f"{role} parallelism over mesh axis {wide[0]!r} (size "
-                f"{mesh_shape[wide[0]]}) is not ported: the port runs data parallel with "
-                "full replicas; ROADMAP.md Queue 1 item 1e")
+                f"{mesh_shape[wide[0]]}) is not ported: the port runs data parallel, its "
+                "parameters sharded over 'data' at most; ROADMAP.md Queue 1 item 1e")
     return "two_step" if _axes(rules.fsdp) else "classical"

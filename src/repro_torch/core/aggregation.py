@@ -17,7 +17,10 @@ regime; ``launch.mesh``): the ONUs are the pod-local "data" axis, the PON
 upstream the cross-pod "pod" axis. Two-step is reduce-scatter over "data",
 all-reduce over "pod" on the scattered shard, all-gather over "data", so
 1/|data| of the model crosses the scarce hop; classical is the flat
-all-reduce over ("pod", "data"). The cross-pod hop may travel as int8
+all-reduce over ("pod", "data"). Under FSDP the train step holds
+parameter shards and :class:`GatherShard` gathers each where it is used;
+its backward reduce-scatters the gradient onto the shard (the ONU step).
+The cross-pod hop may travel as int8
 (stochastic rounding through the quantize kernel's wrapper): at one scale
 per shard in ``two_step_allreduce``, at the whole pod-summed leaf's in the
 ``two_step_int8`` transport (:func:`int8_two_step_leaf`), as the
@@ -211,6 +214,47 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
             dist.all_reduce(x, op=op, group=group)
         _report("all-reduce", x.numel() * x.element_size(), group)
     return x
+
+
+def gather_dim(shard: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The peers' shards joined along ``dim`` in group-rank order: the full
+    tensor of an FSDP leaf (one all-gather)."""
+    if group is None:
+        return shard
+    blocks = all_gather(shard.contiguous(), group)           # (n, *shard)
+    shape = list(shard.shape)
+    shape[dim] *= blocks.shape[0]
+    return blocks.movedim(0, dim).reshape(shape)
+
+
+def scatter_dim(full: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of the peers' sum of ``full``, summed
+    in f32 and returned in ``full``'s type (one reduce-scatter): the
+    gradient of :func:`gather_dim`."""
+    if group is None:
+        return full
+    n = group_size(group)
+    shape = list(full.shape)
+    shape[dim] //= n
+    # the blocks rank-major and in f32, in one copy
+    blocks = full.unflatten(dim, (n, shape[dim])).movedim(dim, 0).to(
+        torch.float32, memory_format=torch.contiguous_format)
+    return reduce_scatter(blocks.reshape(-1), group).reshape(shape).to(full.dtype)
+
+
+class GatherShard(torch.autograd.Function):
+    """FSDP's gather of a parameter shard: forward :func:`gather_dim` (an
+    all-gather over "data"), backward :func:`scatter_dim` (a
+    reduce-scatter: the ONU step, each gradient landing on its shard)."""
+
+    @staticmethod
+    def forward(ctx, shard, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return gather_dim(shard, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return scatter_dim(grad, ctx.dim, ctx.group), None, None
 
 
 def _flatten_pad(x: torch.Tensor, n: int) -> Tuple[torch.Tensor, int]:

@@ -55,7 +55,8 @@ def backend_wire_scale(backend) -> float:
     spec = backend.strategy.compression_spec()
     if not spec.active:
         return 1.0
-    return spec.wire_scale(getattr(backend, "params", None))
+    tree = getattr(backend, "wire_tree", None) or getattr(backend, "params", None)
+    return spec.wire_scale(tree)
 
 
 class ClientStackedBackend:
@@ -205,8 +206,10 @@ class GradientBackend:
     the flat all-reduce — so the collective form of the paper's
     aggregation is induced by the same Strategy the client-stacked regime
     uses. ``mesh=None`` is one process. Owns the parameters (random, from
-    ``seed``, or ``params``) and the optimizer's state, both on ``device``,
-    full replicas on every rank. Its rounds draw nothing from the loop's
+    ``seed``, or ``params``) and the optimizer's state, both on ``device``:
+    under FSDP (``train_step.layout``) each rank's shards of them, else full
+    replicas on every rank; ``wire_tree`` keeps the full leaves' shapes on
+    ``meta`` for the wire's bill. Its rounds draw nothing from the loop's
     RNG: every rank builds each round's tokens, ``lm_batches(seed * 1000 +
     rnd, ...)``, and the train step keeps the rank's rows.
     """
@@ -220,7 +223,7 @@ class GradientBackend:
         from repro_torch import device as device_mod
         from repro_torch.launch import specs
         from repro_torch.models import transformer
-        from repro_torch.optim import make_optimizer
+        from repro_torch.optim import make_optimizer, tree_map
 
         self.device = device_mod.resolve(device)
         self.cfg = model_cfg
@@ -234,14 +237,18 @@ class GradientBackend:
                               else rng.integers(50, 400, n).astype(np.float32))
         self.onu_ids = (onu_ids if onu_ids is not None
                         else np.zeros(len(self.sample_counts), np.int64))
-        self.params = (transformer.init_params(
+        params = (transformer.init_params(
             model_cfg, torch.Generator(device=self.device).manual_seed(seed), self.device)
             if params is None else params)
-        self.opt = make_optimizer(opt_name)
-        self.opt_state = self.opt.init(self.params)
+        self.wire_tree = tree_map(lambda p: p.to("meta"), params)
         self.mesh = mesh
         self.train_step = specs.make_train_step(model_cfg, opt_name, lr, microbatches,
                                                 mesh=mesh, rules=rules, seed=seed)
+        self.layout = self.train_step.layout
+        self.params = params if self.layout is None else self.layout.shard(params)
+        del params
+        self.opt = make_optimizer(opt_name)
+        self.opt_state = self.opt.init(self.params)
 
     def round_weights(self, selected: np.ndarray, mask: np.ndarray) -> np.ndarray:
         """The batch rows' client weights, k_ij · mask, ``batch`` of them."""

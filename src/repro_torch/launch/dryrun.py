@@ -15,11 +15,17 @@ keys (README.md lists the keys whose meaning differs).
 
 Meshes: ``--mesh card`` (the default) is one H100. ``--mesh pod=2,data=16``
 (any ``axis=size`` list over "pod" and "data") is data parallel: every
-rank holds the replicas, takes the global batch and keeps its rows, and
-the gradients' schedule runs over an ``AbstractMesh`` whose collectives
-report their bytes. ``--mesh single|multi|both`` (16×16 and 2×16×16 with
-tensor parallelism over "model") raise, as MoE on more than one rank does:
-the port runs no tensor or expert parallelism (ROADMAP.md Queue 1 item 1e).
+rank takes the global batch and keeps its rows, and the step runs over an
+``AbstractMesh`` whose collectives report their bytes. Under ``--mode
+sfl`` a train cell is FSDP: each rank holds its shards of the parameters
+and the optimizer's state (``argument_gb`` counts the shards; ``params``
+stays the whole model's count), and the per-unit all-gathers and
+reduce-scatters are "data" bytes; ``--mode classical`` and
+``--transport two_step_int8`` hold full replicas. MoE cells count the
+router's statistics all-reduced over the ranks. ``--mesh
+single|multi|both`` (16×16 and 2×16×16 with tensor parallelism over
+"model") raise: the port runs no tensor or expert parallelism (ROADMAP.md
+Queue 1 item 1e).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k
@@ -131,7 +137,7 @@ def parse_mesh(spec: str) -> Tuple[str, Dict[str, int]]:
 
 def _check_mesh(shape: Dict[str, int], rules) -> None:
     """Raise for tensor or expert parallelism, which the port does not run
-    (item 1e; MoE on more than one rank raises in ``specs``)."""
+    (item 1e)."""
     from repro_torch.common.sharding import reduce_schedule
     if math.prod(shape.values()) <= 1:
         return
@@ -177,7 +183,9 @@ def run_cell(arch: str, shape_name: str, mesh_spec: str, mode: str, opt_name: st
            "active_params": cfg.active_param_count}
     t0 = time.time()
     fn, args = S.input_specs(cfg, shp, shape, rules, opt_name, micro, transport)
-    rec["params"] = sum(t.numel() for t in roofline.tensors(args[0]))
+    # the whole model's count (a rank's arguments may hold FSDP shards)
+    rec["params"] = sum(t.numel() for t in roofline.tensors(S.param_shardings(cfg, shape,
+                                                                                rules)[0]))
     with roofline.Counter() as c:
         out = fn(*args)
     rec["compile_s"] = round(time.time() - t0, 2)

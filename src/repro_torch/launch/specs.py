@@ -3,14 +3,17 @@
 (the MoE load-balance term included), on one card or data parallel over a
 ``torch.distributed`` mesh (``launch.mesh``).
 
-Every rank holds full replicas of the parameters and the optimizer state
-and takes the round's global batch, keeping the rows of its ("pod",
-"data") coordinate. The gradients are summed by the schedule that the
-sharding rules choose (``common.sharding.reduce_schedule``: FSDP's
-two-step, or the flat all-reduce), so a step gives the numbers of the
-reference's GSPMD step over the whole batch. ``transport="two_step_int8"``
-is the paper's protocol made explicit: the data step inside each pod, then
-the cross-pod hop as int8.
+Every rank takes the round's global batch and keeps the rows of its
+("pod", "data") coordinate. Under the reference's default rules
+(``fsdp="data"``) the step is FSDP: each rank holds its shards of the
+parameters and the optimizer's state (:class:`FsdpLayout`), gathers them
+where the forward uses them, and the gathers' backward reduce-scatters
+each gradient onto its shard; the replicated rules hold full replicas and
+sum the gradients by the flat all-reduce. Either way a step gives the
+numbers of the reference's GSPMD step over the whole batch, MoE's router
+statistics included. ``transport="two_step_int8"`` is the paper's
+protocol made explicit, on full replicas: the data step inside each pod,
+then the cross-pod hop as int8.
 
 And the abstract inputs of every (arch × shape) cell, the dry run's
 (``launch.dryrun``): ``batch_struct``, ``param_shardings``,
@@ -22,11 +25,11 @@ returns the cell's step function and its arguments as ``meta`` tensors
   prefill  -> prefill_step(params, batch)
   decode   -> serve_step(params, batch, cache)   (one new token)
 
-Shapes are global: a data-parallel rank takes the global batch and keeps
-its rows, as the train step does on a real mesh. The reference attaches a
-``NamedSharding`` to each struct; the port's sharding is a spec tuple per
-leaf (``param_shardings``), and only the gradients' reduce schedule
-depends on it (``common.sharding.reduce_schedule``).
+Shapes are global but for FSDP's shards: a data-parallel rank takes the
+global batch and keeps its rows, as the train step does on a real mesh.
+The reference attaches a ``NamedSharding`` to each struct; the port's
+sharding is a spec tuple per leaf (``param_shardings``), from which the
+FSDP layout takes each leaf's sharded dimension.
 """
 from __future__ import annotations
 
@@ -37,23 +40,29 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.common.sharding import (ShardingRules, filter_valid_spec,
-                                         logical_to_physical, reduce_schedule)
+from repro_torch.common.sharding import (ShardingRules, _axes, filter_valid_spec,
+                                         logical_to_physical, reduce_schedule,
+                                         shard_or_replicate, sharding_tree)
 from repro_torch.common.tree import flatten, unflatten
-from repro_torch.core.aggregation import (all_reduce, classical_allreduce,
-                                          int8_two_step_leaf, two_step_allreduce)
+from repro_torch.core.aggregation import (GatherShard, all_reduce, gather_dim,
+                                          int8_two_step_leaf)
 from repro_torch.core.compression import Noise, uniform_noise
-from repro_torch.launch.mesh import AbstractMesh, axes_group, client_index, mesh_shape, size
+from repro_torch.launch.mesh import AbstractMesh, axes_group, client_index, mesh_shape
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.optim import make_optimizer, tree_map
 
 
-def _weighted_pieces(params, batch, cfg: ModelConfig):
+def _weighted_pieces(params, batch, cfg: ModelConfig, router_group=None, layout=None):
     """(Σ weighted nll, Σ weight, aux): the loss mask with each row scaled
     by its ``client_weight`` (k_ij · mask, the FL weight folded into the
-    batch), and the MoE router's load-balance loss."""
-    x, labels, aux = transformer.forward(params, batch, cfg)
+    batch), and the MoE router's load-balance loss (with ``router_group``
+    this rank's part of the group's: ``moe._route``). With an FSDP
+    ``layout`` the parameters are shards, gathered where they are used."""
+    gather = None
+    if layout is not None:
+        params, gather = layout.gather_outer(params), layout.gather_unit
+    x, labels, aux = transformer.forward(params, batch, cfg, gather, router_group)
     B, S, _ = x.shape
     mask = transformer.loss_mask(cfg, B, S, x.device)
     w = batch.get("client_weight")
@@ -74,13 +83,16 @@ def weighted_loss_fn(params, batch, cfg: ModelConfig):
     return loss, {"xent": loss, "aux": aux}
 
 
-def unnormalized_loss_fn(params, batch, cfg: ModelConfig):
+def unnormalized_loss_fn(params, batch, cfg: ModelConfig, router_group=None):
     """(Σ weighted nll, Σ weight): the SFL objective before normalisation,
     for transports that normalise after the cross-pod reduce; the MoE term
-    enters the sum scaled by max(Σ weight, 1)."""
-    tot, cnt, aux = _weighted_pieces(params, batch, cfg)
+    enters the sum scaled by max(Σ weight, 1). With ``router_group`` (the
+    data ranks of a pod) the router's statistics and that Σ weight are the
+    group's, and the rank's sum its part of the group's."""
+    tot, cnt, aux = _weighted_pieces(params, batch, cfg, router_group)
     if cfg.n_experts:
-        tot = tot + transformer.aux_loss(cfg, aux) * torch.clamp(cnt, min=1.0)
+        K = cnt if router_group is None else all_reduce(cnt.detach(), router_group)
+        tot = tot + transformer.aux_loss(cfg, aux) * torch.clamp(K, min=1.0)
     return tot, cnt
 
 
@@ -135,29 +147,29 @@ def _accumulate(grads, g):
 
 
 _CLIENT_AXES = ("pod", "data")
-_MOE_RANKS = ("MoE on more than one rank: the router's load-balance loss and capacity drops "
-              "are functions of the whole batch, which data-parallel ranks do not see; "
-              "ROADMAP.md Queue 1 item 1e")
 
 
-def _rank_micro_batches(batch, mesh, microbatches: int, per_micro: bool):
+def _rank_micro_batches(batch, mesh, microbatches: int, outer=()):
     """This rank's rows of the global batch, as its micro-batches.
 
-    ``per_micro``: micro-batch i is the rank's share of the global
-    micro-batch i (rows i·B/m .. (i+1)·B/m, split over the ranks in
-    ("pod", "data") order), so each global micro-batch is normalised by
-    its own weight, as the reference's scan over the sharded batch.
-    Otherwise the rank's block is rows r·B/R .. (r+1)·B/R (the pod's block,
-    split over "data"), cut into m micro-batches."""
-    r, R = client_index(mesh, [a for a in _CLIENT_AXES if a in mesh.mesh_dim_names])
+    The batch splits into blocks over the ``outer`` axes (the pods, for
+    ``two_step_int8``: each pod its block), each block into m micro-batches,
+    and micro-batch i of a block over the remaining client axes in ("pod",
+    "data") order: the rank's rows of micro-batch i. Each micro-batch of a
+    block is then normalised (and routed, under MoE) as one, as the
+    reference's scan over the sharded batch."""
+    names = [a for a in _CLIENT_AXES if a in mesh.mesh_dim_names]
+    o, O = client_index(mesh, [a for a in names if a in outer])
+    r, R = client_index(mesh, [a for a in names if a not in outer])
     B = next(iter(batch.values())).shape[0]
-    if B % (R * microbatches):
-        raise ValueError(f"batch {B} does not split over {R} ranks x {microbatches} "
+    if B % (O * R * microbatches):
+        raise ValueError(f"batch {B} does not split over {O * R} ranks x {microbatches} "
                          "microbatches")
-    if not per_micro:
-        return _micro_batches(_rows(batch, r * B // R, (r + 1) * B // R), microbatches)
-    n, k = B // microbatches, B // (microbatches * R)
-    return [_rows(batch, i * n + r * k, i * n + (r + 1) * k) for i in range(microbatches)]
+    block = B // O
+    n = block // microbatches
+    k = n // R
+    return [_rows(batch, o * block + i * n + r * k, o * block + i * n + (r + 1) * k)
+            for i in range(microbatches)]
 
 
 def _step_noise(seed: int, opt_state, device) -> torch.Generator:
@@ -173,6 +185,87 @@ def _step_noise(seed: int, opt_state, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(mixed))
 
 
+class FsdpLayout:
+    """FSDP over the rules' ``fsdp`` axes of a mesh (the reference's
+    ``fsdp="data"``): per parameter leaf the ``Place`` of this rank's shard
+    along the dimension ``param_shardings`` maps onto those axes, or None
+    where none divides and the leaf stays replicated
+    (``common.sharding.sharding_tree``). The optimizer's state mirrors the
+    parameters, so its moments shard alike."""
+
+    def __init__(self, cfg: ModelConfig, mesh, rules: ShardingRules):
+        shape = mesh_shape(mesh)
+        axes = tuple(a for a in _axes(rules.fsdp) if a in shape)
+        _, specs = param_shardings(cfg, shape, rules)
+        self.group = axes_group(mesh, axes)
+        self.places = sharding_tree(specs, axes, shape, client_index(mesh, axes)[0])
+        # a unit's leaves as the forward takes them: the stacked axis unbound
+        self.unit_places = tree_map(lambda pl: pl and pl._replace(dim=pl.dim - 1),
+                                    self.places.get("unit", {}))
+
+    def state_places(self, opt_state):
+        """The places of an optimizer state: a moment tree each, its step
+        counter replicated."""
+        return {k: self.places if isinstance(v, dict) else None
+                for k, v in opt_state.items()}
+
+    def shard(self, tree, places=None):
+        """This rank's shards of a full tree (the parameters by default)."""
+        return tree_map(shard_or_replicate, tree, places or self.places)
+
+    def gather(self, tree, places=None):
+        """The full tree of a sharded one (collective: every rank calls)."""
+        with torch.no_grad():
+            return tree_map(lambda x, pl: x if pl is None else gather_dim(x, pl.dim, self.group),
+                            tree, places or self.places)
+
+    def _gathered(self, tree, places):
+        return tree_map(lambda x, pl: x if pl is None
+                        else GatherShard.apply(x, pl.dim, self.group), tree, places)
+
+    def gather_outer(self, params):
+        """Every leaf but the unit's gathered, differentiably: the
+        embedding, the tail and the head, once a forward."""
+        return {k: v if k == "unit" else self._gathered(v, self.places[k])
+                for k, v in params.items()}
+
+    def gather_unit(self, unit_p):
+        """One unit's leaves gathered, differentiably (inside the unit's
+        remat boundary: ``transformer._unit_step``)."""
+        return self._gathered(unit_p, self.unit_places)
+
+    def groups(self, pod_group, client_group):
+        """Per leaf, the group its gradient is all-reduced over: a shard's,
+        summed over "data" by the gathers' backward, over "pod" (the CPS
+        step); a replicated leaf's over every client rank."""
+        return tree_map(lambda pl: client_group if pl is None else pod_group, self.places)
+
+    def grad_norm(self, grads) -> torch.Tensor:
+        """The global L2 norm: the shards' squares all-reduced over the FSDP
+        group, each replicated leaf counted once."""
+        sq = {True: [], False: []}
+        tree_map(lambda g, pl: sq[pl is None].append(torch.linalg.vector_norm(g.float()) ** 2),
+                 grads, self.places)
+        total = all_reduce(torch.stack(sq[False]).sum(), self.group) if sq[False] else 0.0
+        return torch.sqrt(total + (torch.stack(sq[True]).sum() if sq[True] else 0.0))
+
+
+def fsdp_layout(cfg: ModelConfig, mesh, rules: Optional[ShardingRules] = None,
+                transport: str = "gspmd") -> Optional[FsdpLayout]:
+    """The :class:`FsdpLayout` the train step of these arguments holds its
+    parameters in, or None for full replicas: ``mesh=None``, the
+    replicated rules, the ``two_step_int8`` transport, or rules whose
+    ``fsdp`` names no axis of the mesh."""
+    rules = rules or ShardingRules()
+    if mesh is None:
+        return None
+    if reduce_schedule(rules, mesh_shape(mesh)) != "two_step" or transport != "gspmd":
+        return None
+    if not any(a in mesh.mesh_dim_names for a in _axes(rules.fsdp)):
+        return None
+    return FsdpLayout(cfg, mesh, rules)
+
+
 def make_train_step(cfg: ModelConfig, opt_name: str = "adamw", lr: float = 1e-4,
                     microbatches: int = 1, transport: str = "gspmd", mesh=None,
                     rules: Optional[ShardingRules] = None, seed: int = 0):
@@ -183,42 +276,58 @@ def make_train_step(cfg: ModelConfig, opt_name: str = "adamw", lr: float = 1e-4,
     accumulates their gradients in f32, then divides by ``microbatches``;
     the loss is the slices' mean and the optimizer runs once. The step
     keeps the last gradient's global norm in ``train_step.grad_norm`` (a
-    0-d f32 tensor on the card).
+    0-d f32 tensor on the card) and its parameters' layout in
+    ``train_step.layout`` (:func:`fsdp_layout`).
 
-    ``mesh=None`` or a world of one runs the one-card step. On a mesh of
-    more ranks each takes the global batch, keeps its rows, and:
+    ``mesh=None`` runs the one-card step. On a mesh each rank takes the
+    global batch and keeps its rows, and:
 
-    * ``transport="gspmd"``: all-reduces each micro-batch's Σ weight K
-      first, differentiates its rows' Σ weighted nll / max(K, 1e-6), and
-      sums the gradients in f32 by ``rules``' schedule (default
-      ``ShardingRules()``: FSDP's two-step), cast back to the parameters'
-      type at one micro-batch; summing the accumulated micro-batches once
-      gives the same sum with 1/m of the collectives.
-    * ``transport="two_step_int8"`` (needs "pod" in the mesh): the
-      gradients of ``unnormalized_loss_fn``, reduce-scattered over "data"
-      (the ONU step, in f32); each data rank's shard of a pod-summed leaf
-      crosses "pod" as int8 at that leaf's one scale
-      (``core.aggregation.int8_two_step_leaf``), with noise drawn at each
-      leaf's shape (sorted keys) from ``noise`` or, by default, from
-      (``seed``, ``opt_state["t"]``), alike on every rank; then
-      K = Σ_pod weight, gradients / max(K, 1e-6), loss = Σ_pod nll / K.
+    * ``transport="gspmd"`` under rules whose ``fsdp`` names a mesh axis
+      (default ``ShardingRules()``: "data"): FSDP. Each rank holds its
+      shards of the parameters and of the optimizer's state
+      (``train_step.layout.shard`` cuts them from full trees). A forward
+      gathers each unit's leaves inside its remat boundary and the other
+      leaves once (``core.aggregation.GatherShard``: all-gather over
+      "data"); the backward reduce-scatters each gradient onto its shard
+      (the ONU step). Each micro-batch's Σ weight K is all-reduced first and
+      its rows' Σ weighted nll / max(K, 1e-6) differentiated; after the
+      micro-batches the shard gradients are all-reduced over "pod" (the CPS
+      step) and each replicated leaf's over every client rank, in f32, cast
+      back to the parameters' type at one micro-batch. The optimizer, being
+      elementwise, updates the shards.
+    * ``transport="gspmd"`` under the replicated rules (``classical``):
+      full replicas, the same objective, the gradients summed by the flat
+      all-reduce over ("pod", "data").
+    * ``transport="two_step_int8"`` (needs "pod" in the mesh): full
+      replicas; the gradients of ``unnormalized_loss_fn`` over the pod's
+      micro-batches, reduce-scattered over "data" (the ONU step, in f32);
+      each data rank's shard of a pod-summed leaf crosses "pod" as int8 at
+      that leaf's one scale (``core.aggregation.int8_two_step_leaf``), with
+      noise drawn at each leaf's shape (sorted keys) from ``noise`` or, by
+      default, from (``seed``, ``opt_state["t"]``), alike on every rank;
+      then K = Σ_pod weight, gradients / max(K, 1e-6), loss = Σ_pod nll / K.
 
-    MoE configs on more than one rank raise: the router's load-balance loss
-    and its capacity drops are functions of the whole batch (ROADMAP.md
+    MoE: the router's load-balance statistics are those of the global
+    micro-batch, all-reduced over the client ranks (over "data" alone, the
+    pod's rows, under ``two_step_int8``); each rank's loss carries its part
+    (``moe._route``). Capacity is per row. Tensor or expert parallelism over
+    a "model" axis larger than 1 raises (``reduce_schedule``, ROADMAP.md
     Queue 1 item 1e).
     """
     if transport not in ("gspmd", "two_step_int8"):
         raise ValueError(f"unknown transport {transport!r}")
     if transport == "two_step_int8" and (mesh is None or "pod" not in mesh.mesh_dim_names):
         raise ValueError("transport='two_step_int8' needs a mesh with a 'pod' axis")
-    if cfg.n_experts and size(mesh) > 1:
-        raise NotImplementedError(_MOE_RANKS)
     opt = make_optimizer(opt_name)
+    layout = fsdp_layout(cfg, mesh, rules, transport)     # tensor parallelism raises
     if transport == "two_step_int8":
-        return _two_step_int8_step(cfg, opt, lr, microbatches, mesh, seed)
-    if size(mesh) == 1:
-        return _one_rank_step(cfg, opt, lr, microbatches)
-    return _data_parallel_step(cfg, opt, lr, microbatches, mesh, rules or ShardingRules())
+        step = _two_step_int8_step(cfg, opt, lr, microbatches, mesh, seed)
+    elif mesh is None:
+        step = _one_rank_step(cfg, opt, lr, microbatches)
+    else:
+        step = _data_parallel_step(cfg, opt, lr, microbatches, mesh, layout)
+    step.grad_norm, step.layout = None, layout
+    return step
 
 
 def _one_rank_step(cfg, opt, lr, microbatches):
@@ -244,46 +353,46 @@ def _one_rank_step(cfg, opt, lr, microbatches):
         new_params, new_state = opt.update(params, grads, opt_state, lr)
         return new_params, new_state, loss
 
-    train_step.grad_norm = None
     return train_step
 
 
-def _data_parallel_step(cfg, opt, lr, microbatches, mesh, rules):
-    schedule = reduce_schedule(rules, mesh_shape(mesh))
+def _data_parallel_step(cfg, opt, lr, microbatches, mesh, layout):
+    """The gspmd step on a mesh: FSDP with ``layout``, else full replicas
+    and the flat all-reduce."""
     names = mesh.mesh_dim_names
-    client_axes = tuple(a for a in _CLIENT_AXES if a in names)
-    client_group = axes_group(mesh, client_axes)
+    client_group = axes_group(mesh, tuple(a for a in _CLIENT_AXES if a in names))
+    pod_group = axes_group(mesh, ("pod",))
 
-    def reduce(grads):
-        if schedule == "two_step":
-            return two_step_allreduce(grads, mesh, "data", "pod" if "pod" in names else None)
-        return classical_allreduce(grads, mesh, client_axes)
+    def reduce(g, group, p):
+        """One leaf's sum in f32, in the parameter's type at one
+        micro-batch, else / microbatches: a leaf at a time, so the step
+        never holds a second tree of f32 gradients."""
+        s = all_reduce(g.float(), group)
+        return s.to(p.dtype) if microbatches == 1 else s.div_(microbatches)
 
     def micro_grads(params, mb):
         def objective():
-            tot, cnt, _ = _weighted_pieces(params, mb, cfg)
+            tot, cnt, aux = _weighted_pieces(params, mb, cfg, client_group, layout)
             K = all_reduce(cnt.detach(), client_group).clamp_min(1e-6)
-            return tot / K, (tot / K).detach()
+            loss = tot / K + transformer.aux_loss(cfg, aux)
+            return loss, loss.detach()
         return _grads(params, objective)
 
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
         grads, losses = None, []
-        for mb in _rank_micro_batches(batch, mesh, microbatches, per_micro=True):
+        for mb in _rank_micro_batches(batch, mesh, microbatches):
             g, loss = micro_grads(params, mb)
             grads = g if microbatches == 1 else _accumulate(grads, g)
             losses.append(loss)
             del g
-        summed = reduce(grads)
-        if microbatches == 1:
-            grads = tree_map(lambda s, p: s.to(p.dtype), summed, params)
-        else:
-            grads = tree_map(lambda s: s / microbatches, summed)
+        groups = (tree_map(lambda _: client_group, params) if layout is None
+                  else layout.groups(pod_group, client_group))
+        grads = tree_map(reduce, grads, groups, params)
         loss = all_reduce(torch.stack(losses), client_group).mean()
-        train_step.grad_norm = grad_norm(grads)
+        train_step.grad_norm = grad_norm(grads) if layout is None else layout.grad_norm(grads)
         new_params, new_state = opt.update(params, grads, opt_state, lr)
         return new_params, new_state, loss
 
-    train_step.grad_norm = None
     return train_step
 
 
@@ -294,9 +403,9 @@ def _two_step_int8_step(cfg, opt, lr, microbatches, mesh, seed):
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor],
                    noise: Optional[Noise] = None):
         grads, tot, cnt = None, 0.0, 0.0
-        for mb in _rank_micro_batches(batch, mesh, microbatches, per_micro=False):
+        for mb in _rank_micro_batches(batch, mesh, microbatches, outer=("pod",)):
             def objective():
-                t, c = unnormalized_loss_fn(params, mb, cfg)
+                t, c = unnormalized_loss_fn(params, mb, cfg, data_group)
                 return t, (t.detach(), c.detach())
             g, (t, c) = _grads(params, objective)
             grads = g if microbatches == 1 else _accumulate(grads, g)
@@ -304,7 +413,8 @@ def _two_step_int8_step(cfg, opt, lr, microbatches, mesh, seed):
             del g
         leaves = flatten(grads)
         del grads
-        tot_cnt = all_reduce(torch.stack([tot, cnt]), data_group)
+        tot, K = all_reduce(all_reduce(torch.stack([tot, cnt]), data_group), pod_group).unbind()
+        K = K.clamp_min(1e-6)
         dev = leaves[0].device
         noises = uniform_noise(noise if noise is not None else _step_noise(seed, opt_state, dev),
                                [tuple(x.shape) for x in leaves], dev)
@@ -313,16 +423,13 @@ def _two_step_int8_step(cfg, opt, lr, microbatches, mesh, seed):
             leaves[i] = None
             # the ONU step (each data rank's shard of the pod's sum, f32),
             # then the CPS hop: the shard crosses "pod" as int8 at the pod
-            # leaf's scale
-            summed.append(int8_two_step_leaf(x, next(noises), data_group, pod_group))
-        tot, K = all_reduce(tot_cnt, pod_group).unbind()
-        K = K.clamp_min(1e-6)
-        grads = unflatten(params, [g / K for g in summed])
+            # leaf's scale; normalised in place
+            summed.append(int8_two_step_leaf(x, next(noises), data_group, pod_group).div_(K))
+        grads = unflatten(params, summed)
         train_step.grad_norm = grad_norm(grads)
         new_params, new_state = opt.update(params, grads, opt_state, lr)
         return new_params, new_state, tot / K
 
-    train_step.grad_norm = None
     return train_step
 
 
@@ -438,6 +545,8 @@ def input_specs(cfg: ModelConfig, shp: ShapeConfig, mesh_shape: Optional[Dict[st
         mesh = AbstractMesh(mesh_shape) if n_ranks > 1 else None
         step = make_train_step(cfg, opt_name, microbatches=microbatches, transport=transport,
                                mesh=mesh, rules=rules)
+        if step.layout is not None:
+            params = step.layout.shard(params)
         fn = step
         if transport == "two_step_int8":
             def fn(params, opt_state, batch):
@@ -447,8 +556,6 @@ def input_specs(cfg: ModelConfig, shp: ShapeConfig, mesh_shape: Optional[Dict[st
     if shp.global_batch % clients:
         raise ValueError(f"batch {shp.global_batch} does not split over {clients} ranks")
     rows = shp.global_batch // clients
-    if cfg.n_experts and clients > 1:
-        raise NotImplementedError(_MOE_RANKS)
     if shp.kind == "prefill":
         batch = batch_struct(cfg, shp, rows=rows)
         batch.pop("client_weight")

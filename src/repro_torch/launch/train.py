@@ -22,8 +22,10 @@ uninterrupted one. Without ``--device cpu`` it runs on the card and raises
 if there is none. Under an initialized process group (``torchrun``
 starts one: gloo on the CPU, NCCL on cards) the mesh is (world, 1)
 ("data", "model"), as the reference's, and the strategy's transport picks
-the gradients' schedule (:func:`build_rules`); rank 0 alone prints and
-checkpoints. ``--strategy`` takes any registered strategy (``hier_sfl``
+the gradients' schedule (:func:`build_rules`): under ``sfl`` each rank
+trains its FSDP shards of the parameters and the optimizer's state, and a
+checkpoint holds the gathered leaves (it restores on any world); rank 0
+alone prints and writes checkpoints. ``--strategy`` takes any registered strategy (``hier_sfl``
 with ``--n-pons`` bills the metro forest's k-step transport) with
 ``--fedprox-mu``, ``--server-opt`` and ``--server-lr`` as the reference's.
 ``--compress`` scales the wire the PON transport bills, as in the
@@ -85,7 +87,9 @@ def run(arch: Union[str, ModelConfig] = "qwen2-0.5b", *, smoke: bool = False, st
     """Train ``steps`` rounds (fewer when resuming from ``ckpt``) of ``arch``,
     a config name or a ``ModelConfig`` (a named config cut to size, taken as
     it is: ``smoke`` does not apply). Under an initialized process group
-    every rank calls it alike, and rank 0 alone prints and checkpoints.
+    every rank calls it alike, and rank 0 alone prints and writes
+    checkpoints; ``backend`` then holds the rank's shards under FSDP
+    (``backend.layout.gather`` gives the full tree).
 
     ``driver`` is ``"loop"`` (the RoundLoop) or ``"runtime"`` (the
     Orchestrator under ``policy``, ``window_s`` simulated seconds a round;
@@ -141,6 +145,17 @@ def run(arch: Union[str, ModelConfig] = "qwen2-0.5b", *, smoke: bool = False, st
     def state():
         return (backend.params, backend.opt_state)
 
+    layout = backend.layout
+
+    def save(step):
+        """Every rank under FSDP (rank 0 writes the gathered leaves), else
+        rank 0 alone."""
+        if layout is not None:
+            save_checkpoint(ckpt, step, state(), group=layout.group,
+                            sharding_tree=(layout.places, layout.state_places(backend.opt_state)))
+        elif lead:
+            save_checkpoint(ckpt, step, state())
+
     def on_round(drv, rec):
         step = rec["round"]
         if lead and (step % log_every == 0 or step == steps - 1):
@@ -152,8 +167,8 @@ def run(arch: Union[str, ModelConfig] = "qwen2-0.5b", *, smoke: bool = False, st
                             f"{rec['grad_norm']:.4f} involved {rec['involved']:.0f}/"
                             f"{rec['n_selected']} upstream {rec['upstream_mbits']:.1f} Mb "
                             f"dt {rec['dt']:.3f}s{t_sim}")
-        if ckpt and lead and (step + 1) % ckpt_every == 0:
-            save_checkpoint(ckpt, step + 1, state())
+        if ckpt and (step + 1) % ckpt_every == 0:
+            save(step + 1)
 
     if driver == "runtime":
         from repro_torch import runtime
@@ -166,15 +181,17 @@ def run(arch: Union[str, ModelConfig] = "qwen2-0.5b", *, smoke: bool = False, st
     if ckpt:
         last = latest_step(ckpt)
         if last is not None:
-            (backend.params, backend.opt_state), _, step0 = restore_checkpoint(ckpt, last,
-                                                                               state())
+            places = (None if layout is None else
+                      (layout.places, layout.state_places(backend.opt_state)))
+            (backend.params, backend.opt_state), _, step0 = restore_checkpoint(
+                ckpt, last, state(), places)
             say(f"[restore] resumed from step {step0}")
 
     # a resumed run asks for the remaining rounds; either driver replays
     # the skipped rounds' draws so the trajectory is the uninterrupted one
     history = drv.run(max(0, steps - step0), start_round=step0)
-    if ckpt and lead:
-        save_checkpoint(ckpt, steps, state())
+    if ckpt:
+        save(steps)
         say(f"[ckpt] saved final at step {steps}")
     return {"history": history, "backend": backend, "cfg": cfg, "exp": exp,
             "start_step": step0}

@@ -7,9 +7,9 @@ reference's do. Where the reference returns ``(params, logical axes)``,
 ``init_params`` returns the parameters alone, as the port's model modules
 do (``transformer.abstract_params`` gives the axes); its
 ``abstract=True`` is ``device="meta"`` (shapes and dtypes; a language
-model's allocate nothing). The port's loss takes no sharding ``rules``: a
-rank holds full replicas, and the gradients' reduce schedule lives in
-``launch.specs.make_train_step``.
+model's allocate nothing). The port's loss takes no sharding ``rules``:
+the parameters' layout over a mesh (FSDP's shards or full replicas) and
+the gradients' reduce schedule live in ``launch.specs.make_train_step``.
 """
 from __future__ import annotations
 

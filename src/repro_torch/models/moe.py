@@ -39,6 +39,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.aggregation import all_reduce
+
 
 def capacity(cfg, seq_len: int) -> int:
     """Slots per expert for a group of ``seq_len`` tokens: ceil(S·k·cf/E),
@@ -68,17 +70,33 @@ def _one_hot(ids, n: int):
     return (ids[..., None] == torch.arange(n, device=ids.device)).float()
 
 
-def _route(x, p, cfg):
-    """Router: (weights (B, S, k), expert ids (B, S, k), aux load loss)."""
+def _route(x, p, cfg, group=None):
+    """Router: (weights (B, S, k), expert ids (B, S, k), aux load loss).
+
+    The switch-style load-balance loss E · Σ_e me_e · ce_e takes means over
+    every row: me the router's mean probability per expert, ce the fraction
+    whose top-1 pick it is. With ``group`` (data-parallel ranks, each
+    holding some rows) the per-expert Σ probs, the top-1 counts and the row
+    count are all-reduced over it, and this rank's loss is its own rows'
+    part: E · Σ_e (its Σ probs_e / all rows) · ce_e, ce a constant. The
+    parts add up over the ranks to the loss of all rows, and so do their
+    gradients; no collective is differentiated."""
     logits = torch.einsum("bsd,de->bse", x.float(), p["router"].float())
     probs = torch.softmax(logits, dim=-1)
     topv, topi = torch.topk(probs, cfg.top_k, dim=-1)
     topv = topv / (topv.sum(-1, keepdim=True) + 1e-9)
-    # switch-style load-balance loss: mean router probability times the
-    # fraction routed (top-1 proxy)
     E = cfg.n_experts
-    me = probs.mean((0, 1))
-    ce = _one_hot(topi[..., 0], E).mean((0, 1))
+    top1 = _one_hot(topi[..., 0], E)
+    if group is None:
+        me = probs.mean((0, 1))
+        ce = top1.mean((0, 1))
+    else:
+        rows = torch.full((1,), probs.shape[0] * probs.shape[1], dtype=torch.float32,
+                          device=probs.device)
+        stats = all_reduce(torch.cat([probs.detach().sum((0, 1)), top1.sum((0, 1)), rows]),
+                           group)
+        me = probs.sum((0, 1)) / stats[-1]
+        ce = stats[E:2 * E] / stats[-1]
     return topv, topi, E * (me * ce).sum()
 
 
@@ -114,13 +132,13 @@ def _positions(topi, E: int, C: int):
     return pos, pos < C
 
 
-def moe_block_scatter(x, p, cfg):
+def moe_block_scatter(x, p, cfg, group=None):
     """The dispatch of ``moe_block``: scatter-add into the slot grid, the
     experts, then a weighted gather. Returns (out (B, S, d), aux)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = capacity(cfg, S)
-    topv, topi, aux = _route(x, p, cfg)
+    topv, topi, aux = _route(x, p, cfg, group)
     pos, keep = _positions(topi, E, C)
     # slot of each assignment in the (E, B, C) grid; dropped ones clipped to
     # C − 1 with a zero update
@@ -141,12 +159,12 @@ def moe_block_scatter(x, p, cfg):
     return out, aux
 
 
-def moe_block_einsum(x, p, cfg):
+def moe_block_einsum(x, p, cfg, group=None):
     """One-hot einsum dispatch (the oracle; small shapes only)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = capacity(cfg, S)
-    topv, topi, aux = _route(x, p, cfg)
+    topv, topi, aux = _route(x, p, cfg, group)
     pos, keep = _positions(topi, E, C)
     keep = keep.float()
     pos = pos.clamp(max=C - 1)
@@ -161,21 +179,23 @@ def moe_block_einsum(x, p, cfg):
     return out, aux
 
 
-def moe_block(x, p, cfg):
+def moe_block(x, p, cfg, group=None):
     """The MoE MLP over sequence chunks: the largest count up to
     ``cfg.moe_seq_chunks`` that divides S (S = 4097 gives one chunk, with
-    the capacity of 4097 tokens). Returns (out, aux averaged over chunks)."""
+    the capacity of 4097 tokens). Returns (out, aux averaged over chunks).
+    ``group``: the data-parallel ranks whose rows share the router's
+    statistics (:func:`_route`); capacity stays per row."""
     impl = moe_block_einsum if cfg.moe_impl == "einsum" else moe_block_scatter
     S = x.shape[1]
     nc = max(1, min(cfg.moe_seq_chunks, S))
     while S % nc:
         nc -= 1
     if nc == 1:
-        return impl(x, p, cfg)
+        return impl(x, p, cfg, group)
     outs, aux = [], 0.0
     n = S // nc
     for i in range(nc):
-        o, a = impl(x[:, i * n:(i + 1) * n], p, cfg)
+        o, a = impl(x[:, i * n:(i + 1) * n], p, cfg, group)
         outs.append(o)
         aux = aux + a
     return torch.cat(outs, dim=1), aux / nc

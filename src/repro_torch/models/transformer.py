@@ -153,11 +153,13 @@ def _index(tree, i: int):
 # sublayer application
 # ---------------------------------------------------------------------------
 
-def _apply_sublayer(x, p, cfg: ModelConfig, kind: str, positions, cache=None, media=None):
+def _apply_sublayer(x, p, cfg: ModelConfig, kind: str, positions, cache=None, media=None,
+                    router_group=None):
     """Returns (x, new_cache, aux). With cache=None an attention sublayer
     hands back its (k, v) for prefill's cache; a ``cross`` sublayer keeps
     its cache as it is. ``aux`` is the MoE router's load-balance loss (0.0
-    without experts)."""
+    without experts): with ``router_group`` this rank's part of the loss
+    over the group's rows (``moe.moe_block``)."""
     aux = 0.0
     if kind in ("attn", "cross"):
         h = L.norm(x, p["norm1"], cfg.norm)
@@ -169,7 +171,7 @@ def _apply_sublayer(x, p, cfg: ModelConfig, kind: str, positions, cache=None, me
         x = x + a
         h = L.norm(x, p["norm2"], cfg.norm)
         if cfg.n_experts:
-            mo, aux = M.moe_block(h, p["moe"], cfg)
+            mo, aux = M.moe_block(h, p["moe"], cfg, router_group)
             if cfg.dense_residual:
                 mo = mo + L.mlp_block(h, p["mlp"], cfg)
         else:
@@ -196,14 +198,15 @@ def _apply_sublayer(x, p, cfg: ModelConfig, kind: str, positions, cache=None, me
     return x, new_cache, aux
 
 
-def _apply_unit(x, unit_p, cfg: ModelConfig, positions, unit_cache=None, media=None):
+def _apply_unit(x, unit_p, cfg: ModelConfig, positions, unit_cache=None, media=None,
+                router_group=None):
     new_cache = {}
     aux_total = 0.0
     for i, kind in enumerate(cfg.block_pattern):
         key = f"{i}_{kind}"
         c = None if unit_cache is None else unit_cache.get(key)
         x, nc, aux = _apply_sublayer(x, unit_p[key], cfg, kind, positions, cache=c,
-                                     media=media)
+                                     media=media, router_group=router_group)
         new_cache[key] = nc
         aux_total = aux_total + aux
     return x, new_cache, aux_total
@@ -273,15 +276,19 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _unit_step(cfg: ModelConfig, positions, media=None):
+def _unit_step(cfg: ModelConfig, positions, media=None, unit_gather=None, router_group=None):
     """One unit as the forward applies it. Under grad, ``remat="full"``
     recomputes its activations in the backward instead of keeping them (the
     reference's ``nothing_saveable`` policy) and ``remat="dots"`` keeps the
     outputs of its matmuls with no batch dimension (:func:`_save_dots`).
-    The unit draws no random numbers, so no RNG state is saved for the
-    recompute."""
+    ``unit_gather`` (FSDP) turns the unit's parameter shards into full
+    leaves inside that boundary, so the recompute gathers again. The unit
+    draws no random numbers, so no RNG state is saved for the recompute."""
     def step(x, unit_p):
-        return _apply_unit(x, unit_p, cfg, positions, media=media)[::2]
+        if unit_gather is not None:
+            unit_p = unit_gather(unit_p)
+        return _apply_unit(x, unit_p, cfg, positions, media=media,
+                           router_group=router_group)[::2]
     if cfg.remat not in ("full", "dots") or not torch.is_grad_enabled():
         return step
     kw = ({"context_fn": lambda: create_selective_checkpoint_contexts(_save_dots)}
@@ -301,17 +308,19 @@ def _units(tree, n: int):
     return torch.unbind(tree)
 
 
-def forward(params, batch, cfg: ModelConfig):
-    """Full forward: returns (pre-head activations, labels, aux)."""
+def forward(params, batch, cfg: ModelConfig, unit_gather=None, router_group=None):
+    """Full forward: returns (pre-head activations, labels, aux).
+    ``unit_gather`` and ``router_group`` are the FSDP train step's
+    (:func:`_unit_step`, :func:`_apply_sublayer`)."""
     x, media, labels, positions = embed_inputs(params, batch, cfg)
-    step = _unit_step(cfg, positions, media)
+    step = _unit_step(cfg, positions, media, unit_gather, router_group)
     aux_total = 0.0
     for unit_p in _units(params["unit"], cfg.n_units):
         x, aux = step(x, unit_p)
         aux_total = aux_total + aux
     for i, kind in enumerate(cfg.tail_pattern):
         x, _, aux = _apply_sublayer(x, params["tail"][f"{i}_{kind}"], cfg, kind, positions,
-                                    media=media)
+                                    media=media, router_group=router_group)
         aux_total = aux_total + aux
     return x, labels, aux_total
 

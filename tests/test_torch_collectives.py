@@ -420,7 +420,8 @@ COST_BATCH, COST_SEQ = 8, 16
 
 def _cost_ranks(rank, world, shape):
     """Per form, the collective bytes by mesh axis that this rank's train
-    step records under a counter (reduced olmo-1b, sgd, f32)."""
+    step records under a counter (reduced olmo-1b, sgd, f32; under FSDP
+    from the rank's shards)."""
     from repro_torch.launch.roofline import Counter
     mesh = mesh_mod.make_test_mesh(tuple(shape.values()), tuple(shape), "cpu")
     cfg = configs.get_smoke("olmo-1b", dtype="float32")
@@ -433,8 +434,9 @@ def _cost_ranks(rank, world, shape):
                                      rules=rules)
         kw = ({"noise": lambda shapes: [torch.rand(s) for s in shapes]}
               if transport == "two_step_int8" else {})
+        held = params if step.layout is None else step.layout.shard(params)   # FSDP: shards
         with Counter() as c:
-            step(params, {}, batch, **kw)
+            step(held, {}, batch, **kw)
         out[name] = (c.coll, c.n_coll)
     return out
 

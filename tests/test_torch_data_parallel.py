@@ -2,11 +2,14 @@
 process and the JAX reference: ``specs.make_train_step`` (``gspmd``, the
 sharding-induced schedules) on gloo worlds of 2 and 4 CPU ranks for
 qwen2-0.5b, olmo-1b and rwkv6-3b at reduced width in f32, with and without
-micro-batching, and ``launch.train.run`` on 2 ranks for the paper's pair
-of strategies.
+micro-batching, qwen3-moe-30b-a3b on 2 ranks (the router's statistics over
+the ranks), and ``launch.train.run`` on 2 ranks for the paper's pair of
+strategies.
 
 Each rank takes the global batch and keeps its rows; the gradients are
-summed by the rules' schedule. The port on one process is the reference
+summed by the rules' schedule (under the sfl rules FSDP: the ranks hold
+shards, cut from the full parameters before the step and gathered after
+it; ``tests/test_torch_fsdp.py`` holds the shards themselves). The port on one process is the reference
 point (it is held against JAX in ``tests/test_torch_train.py``), and JAX's
 ``make_train_step`` is checked here too, from the same parameters (the
 port's init carried across): sgd at lr 0.5, every parameter within 1e-5.
@@ -21,6 +24,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.bridge import lm_params_to_jax  # noqa: E402
+from repro_torch.core.aggregation import all_reduce  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import specs, train  # noqa: E402
 from repro_torch.launch.train import build_rules  # noqa: E402
@@ -61,19 +65,47 @@ def _batch():
 
 
 def _step(arch, micro, mesh=None, rules=None):
-    """One sgd step from ``_params(arch)`` on the global batch."""
+    """One sgd step from ``_params(arch)`` on the global batch (sharded
+    and gathered again under FSDP)."""
     tokens, w = _batch()
     step = specs.make_train_step(_cfg(arch), "sgd", LR, micro, mesh=mesh, rules=rules)
-    new, _, loss = step(_params(arch), {}, {"tokens": torch.from_numpy(tokens).long(),
-                                            "client_weight": torch.from_numpy(w)})
+    params = _params(arch)
+    if step.layout is not None:
+        params = step.layout.shard(params)
+    new, _, loss = step(params, {}, {"tokens": torch.from_numpy(tokens).long(),
+                                     "client_weight": torch.from_numpy(w)})
+    if step.layout is not None:
+        new = step.layout.gather(new)
     return lm_params_to_jax(new), float(loss), float(step.grad_norm)
+
+
+MOE = "qwen3-moe-30b-a3b"
+
+
+def _moe(mesh=None):
+    """qwen3-moe one sgd step (micro 2) as ``_step``, and the first
+    micro-batch's router loss: on a mesh the ranks' parts summed."""
+    tokens, w = _batch()
+    batch = {"tokens": torch.from_numpy(tokens).long(), "client_weight": torch.from_numpy(w)}
+    params = _params(MOE)
+    if mesh is None:
+        mb, group = specs._micro_batches(batch, 2)[0], None
+    else:
+        mb = specs._rank_micro_batches(batch, mesh, 2)[0]
+        group = mesh_mod.axes_group(mesh, ("data",))
+    with torch.no_grad():
+        aux = specs._weighted_pieces(params, mb, _cfg(MOE), group)[2]
+    if group is not None:
+        aux = all_reduce(aux, group)
+    return (*_step(MOE, 2, mesh, None if mesh is None else build_rules(mesh, "sfl")),
+            float(aux))
 
 
 def _ranks(rank, world, with_runs):
     """The gspmd step of every case on this rank of a (world, 1) ("data",
     "model") mesh under the sfl rules; on a (1, world) ("pod", "data") mesh
     for qwen2-0.5b; with ``with_runs``, launch.train.run of both strategies
-    and the MoE refusal."""
+    and qwen3-moe's step."""
     mesh = mesh_mod.make_test_mesh((world, 1), ("data", "model"), "cpu")
     out = {"steps": {case: _step(*case, mesh=mesh, rules=build_rules(mesh, "sfl"))
                      for case in CASES}}
@@ -82,10 +114,7 @@ def _ranks(rank, world, with_runs):
     if with_runs:
         out["runs"] = {s: list(train.run(_cfg("qwen2-0.5b"), strategy=s, **RUN)["history"])
                        for s in ("sfl_two_step", "classical")}
-        try:
-            specs.make_train_step(configs.get_smoke("qwen3-moe-30b-a3b"), mesh=mesh)
-        except NotImplementedError as e:
-            out["moe"] = str(e)
+        out["moe"] = _moe(mesh)
     return out
 
 
@@ -185,21 +214,58 @@ def test_train_run_on_two_ranks_equals_one_process(world2, strategy):
     assert any(r["involved"] < r["n_selected"] for r in want)     # the mask bit
 
 
-def test_moe_on_more_than_one_rank_names_the_item(world2):
-    assert "ROADMAP.md Queue 1 item 1e" in world2[0]["moe"]
-    assert "whole batch" in world2[0]["moe"]
+@pytest.fixture(scope="module")
+def jax_moe():
+    """JAX's qwen3-moe step (micro 2) and its first micro-batch's router
+    loss, from the port's parameters."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs as jconfigs
+    from repro.common.sharding import ShardingRules
+    from repro.launch import specs as jspecs
+    rules = ShardingRules(batch=None, fsdp=None, tensor=None, expert=None)
+    jcfg = jconfigs.get_smoke(MOE, dtype="float32")
+    tokens, w = _batch()
+    params = jax.tree.map(jnp.asarray, lm_params_to_jax(_params(MOE)))
+    batch = {"tokens": jnp.asarray(tokens), "client_weight": jnp.asarray(w)}
+    new, _, loss = jax.jit(jspecs.make_train_step(jcfg, rules, "sgd", LR, 2))(params, {}, batch)
+    half = {k: v[:BATCH // 2] for k, v in batch.items()}
+    _, metrics = jspecs.weighted_loss_fn(params, half, jcfg, rules)
+    return jax.tree.map(np.asarray, new), float(loss), float(metrics["aux"])
+
+
+def test_moe_on_more_than_one_rank_names_the_item(world2, jax_moe):
+    """qwen3-moe on 2 ranks: the router's statistics all-reduced over the
+    ranks, so its loss, the step's loss and every updated parameter equal
+    one process's and the reference's within 1e-5."""
+    want, want_loss, want_norm, want_aux = _moe()
+    jnew, jloss, jaux = jax_moe
+    assert want_aux == pytest.approx(jaux, rel=TOL)
+    for rank, out in enumerate(world2):
+        new, loss, norm, aux = out["moe"]
+        assert aux == pytest.approx(want_aux, rel=TOL)
+        assert loss == pytest.approx(want_loss, rel=TOL)
+        assert loss == pytest.approx(jloss, rel=TOL)
+        assert norm == pytest.approx(want_norm, rel=TOL)
+        _close(new, want, f"moe rank {rank}")
+        _close(new, jnew, f"moe rank {rank} vs JAX")
 
 
 def test_batch_rows_per_rank(monkeypatch):
     """A rank's rows: per micro-batch its share of the global micro-batch
-    (gspmd), or its block of the batch (two_step_int8); a batch that does
-    not split raises."""
+    (gspmd), or its share of its pod's micro-batch (two_step_int8: the pods
+    split the batch into blocks first); a batch that does not split
+    raises."""
     batch = {"x": torch.arange(16)}
     mesh = types.SimpleNamespace(mesh_dim_names=("pod", "data"))
-    monkeypatch.setattr(specs, "client_index", lambda m, axes: (3, 4))   # rank 3 of 4
-    rows = [mb["x"].tolist() for mb in specs._rank_micro_batches(batch, mesh, 2, True)]
+    # rank 3 of a (2, 2) ("pod", "data") mesh
+    index = {(): (0, 1), ("pod",): (1, 2), ("data",): (1, 2), ("pod", "data"): (3, 4)}
+    monkeypatch.setattr(specs, "client_index", lambda m, axes: index[tuple(axes)])
+    rows = [mb["x"].tolist() for mb in specs._rank_micro_batches(batch, mesh, 2)]
     assert rows == [[6, 7], [14, 15]]
-    rows = [mb["x"].tolist() for mb in specs._rank_micro_batches(batch, mesh, 2, False)]
-    assert rows == [[12, 13], [14, 15]]
+    rows = [mb["x"].tolist() for mb in specs._rank_micro_batches(batch, mesh, 2, ("pod",))]
+    assert rows == [[10, 11], [14, 15]]
     with pytest.raises(ValueError, match="does not split"):
-        specs._rank_micro_batches(batch, mesh, 8, True)
+        specs._rank_micro_batches(batch, mesh, 8)

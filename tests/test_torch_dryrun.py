@@ -585,12 +585,10 @@ def test_data_parallel_record_reckons_the_pod_hop(tmp_path):
     assert set(coll) == {"pod", "data"} and coll["pod"] < coll["data"]
 
 
-@pytest.mark.parametrize("arch,mesh", [("qwen2-0.5b", "single"), ("qwen2-0.5b", "both"),
-                                       ("qwen3-moe-30b-a3b", "data=2")])
+@pytest.mark.parametrize("arch,mesh", [("qwen2-0.5b", "single"), ("qwen2-0.5b", "both")])
 def test_meshes_the_port_does_not_run_raise_naming_1e(arch, mesh, tmp_path, capsys):
-    """Tensor parallelism over "model" (the reference's production meshes)
-    and MoE on more than one rank: each cell fails naming item 1e and
-    writes no record."""
+    """Tensor parallelism over "model" (the reference's production meshes):
+    each cell fails naming item 1e and writes no record."""
     with pytest.raises(SystemExit):
         dryrun.main(["--arch", arch, "--shape", "prefill_32k", "--mesh", mesh,
                      "--no-segments", "--out", str(tmp_path)])
@@ -602,6 +600,65 @@ def test_meshes_the_port_does_not_run_raise_naming_1e(arch, mesh, tmp_path, caps
     with pytest.raises(NotImplementedError, match="item 1e"):
         dryrun._check_mesh(shape, rules)
         specs.input_specs(configs.get(arch), shape_by_name("prefill_32k"), shape, rules)
+
+
+def test_moe_cell_is_counted_on_data2(tmp_path):
+    """qwen3-moe-30b-a3b's train cell on data=2 (cut to 2 layers) is
+    counted: the router's statistics all-reduce over "data" beside the
+    FSDP gathers, and the record keeps the whole model's parameter count."""
+    dryrun.main(["--arch", "qwen3-moe-30b-a3b", "--shape", "train_4k", "--mesh", "data=2",
+                 "--set", "n_layers=2", "--no-segments", "--out", str(tmp_path)])
+    with open(tmp_path / "qwen3_moe_30b_a3b__train_4k__data2__sfl.json") as f:
+        rec = json.load(f)
+    cfg = dataclasses.replace(configs.get("qwen3-moe-30b-a3b"), n_layers=2)
+    assert rec["params"] == sum(t.numel() for t in roofline.tensors(
+        specs.param_shardings(cfg, {"data": 2})[0]))
+    assert set(rec["whole_program"]["coll_bytes_by_axis"]) == {"data"}
+    assert rec["memory"]["argument_gb"] > 0
+
+
+def test_fsdp_rank_reckons_its_shards_and_the_gathers(monkeypatch):
+    """On data=4 under FSDP each rank's arguments hold 1/4 of every sharded
+    leaf, parameters and AdamW's moments alike, the replicated leaves whole;
+    its "data" collectives all-gather every sharded leaf whole at least
+    once a step and reduce-scatter every gradient, the unit's once a unit."""
+    cfg = _smoke("qwen2-0.5b")
+    shp = ShapeConfig("t", 16, 8, "train")
+    _, card_args = specs.input_specs(cfg, shp)
+    fn, args = specs.input_specs(cfg, shp, {"data": 4})
+    full = dict(_flat_items(card_args[0]))
+    layout = specs.make_train_step(cfg, mesh=AbstractMesh({"data": 4})).layout
+    places = dict(_flat_items(layout.places))
+    held = dict(_flat_items(args[0]))
+    sharded = 0
+    for k, t in full.items():
+        want = t.numel() // (4 if places[k] is not None else 1)
+        assert held[k].numel() == want, k
+        sharded += t.numel() * t.element_size() if places[k] is not None else 0
+        for moment in ("m", "v"):
+            assert dict(_flat_items(args[1][moment]))[k].numel() == want, (moment, k)
+    assert sharded > 0
+    seen = []
+    real = kcost.report_collective
+    monkeypatch.setattr(kcost, "report_collective",
+                        lambda kind, axes, n, size: (seen.append((kind, axes, n)),
+                                                     real(kind, axes, n, size)))
+    with roofline.Counter() as c:
+        fn(*args)
+    gathered = sum(n for kind, axes, n in seen if kind == "all-gather" and axes == ("data",))
+    scattered = sum(n for kind, axes, n in seen if kind == "reduce-scatter")
+    assert gathered >= sharded and scattered >= sharded
+    unit = sum(t.numel() * t.element_size() for k, t in full.items()
+               if k.startswith("unit/") and places[k] is not None)
+    assert scattered >= unit and c.coll["data"] > 0
+
+
+def _flat_items(tree, pre=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_items(v, f"{pre}{k}/")
+        else:
+            yield pre + k, v
 
 
 def test_dryrun_allocates_nothing():

@@ -27,6 +27,7 @@ from repro import configs as jconfigs  # noqa: E402
 from repro.common.sharding import ShardingRules  # noqa: E402
 from repro_torch import configs, models  # noqa: E402
 from repro_torch.bridge import lm_params_from_jax, params_from_jax  # noqa: E402
+from reference_draws import reference_init  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 RULES = ShardingRules(batch=None, fsdp=None, tensor=None, expert=None)
@@ -169,7 +170,8 @@ def test_models_api_transformer_matches_reference(arch):
     bridged, within 1e-5; the port's init has the reference's leaves and
     shapes, on the CPU and on ``meta``."""
     cfg, jcfg = configs.get_smoke(arch, dtype="float32"), jconfigs.get_smoke(arch, dtype="float32")
-    jparams, _ = jmodels.init_params(jcfg, jax.random.PRNGKey(0))
+    jparams, _ = reference_init(jmodels.transformer, jcfg, jax.random.PRNGKey(0),
+                                 init=jmodels.init_params)
     bridged = lm_params_from_jax(_np_tree(jparams))
 
     def shapes(tree):

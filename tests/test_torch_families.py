@@ -36,6 +36,7 @@ from repro_torch.launch import serve, specs, train  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from reference_draws import reference_init  # noqa: E402
 
 ARCHS = ("qwen3-moe-30b-a3b", "arctic-480b", "musicgen-large", "llama-3.2-vision-90b")
 MOE = ARCHS[:2]
@@ -97,19 +98,11 @@ def _tree_close(got, want, tol, where=""):
 
 
 def _jax_model(jx, arch, **kw):
-    """(port cfg, jax cfg, jax params, port params) at reduced width in f32.
-    The reference's unit re-draw is keyed by ``hash(cfg.name)``, which
-    Python randomises per process; the name's CRC-32 stands in for it, so
-    every process draws the same parameters."""
-    import builtins
-    import zlib
+    """(port cfg, jax cfg, jax params, port params) at reduced width in f32,
+    the reference's unit re-draw pinned (``reference_draws``)."""
     over = dict(dtype="float32", **kw)
     jcfg = jx.configs.get_smoke(arch, **over)
-    jx.tf.hash = lambda x: zlib.crc32(x.encode()) if isinstance(x, str) else builtins.hash(x)
-    try:
-        jparams, _ = jx.tf.init_params(jcfg, jx.jax.random.PRNGKey(0))
-    finally:
-        del jx.tf.hash
+    jparams, _ = reference_init(jx.tf, jcfg, jx.jax.random.PRNGKey(0))
     return (configs.get_smoke(arch, **over), jcfg, jparams,
             lm_params_from_jax(_np_tree(jparams)))
 
@@ -233,9 +226,9 @@ def test_moe_block_sequence_chunks_match_reference(jx, S, chunks, monkeypatch):
     seen = []
     real = M.moe_block_scatter
 
-    def spy(x, p, cfg):
+    def spy(x, p, cfg, group=None):
         seen.append(x.shape[1])
-        return real(x, p, cfg)
+        return real(x, p, cfg, group)
     monkeypatch.setattr(M, "moe_block_scatter", spy)
     got, aux = M.moe_block(torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in p.items()},
                            cfg)
@@ -344,8 +337,8 @@ def test_bridge_carries_every_new_leaf(jx, arch):
     bf16 and f32: the expert stacks, the router, the dense residual MLP,
     frame_proj and patch_proj."""
     for dtype in ("bfloat16", "float32"):
-        ref = _np_tree(jx.tf.init_params(jx.configs.get_smoke(arch, dtype=dtype),
-                                         jx.jax.random.PRNGKey(0))[0])
+        ref = _np_tree(reference_init(jx.tf, jx.configs.get_smoke(arch, dtype=dtype),
+                                      jx.jax.random.PRNGKey(0))[0])
         port = lm_params_from_jax(ref)
         back = lm_params_to_jax(port)
         names = {name for name, _, _ in _leaves(port)}

@@ -30,6 +30,7 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import rglru as R  # noqa: E402
 from repro_torch.models import rwkv6 as W  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from reference_draws import reference_init  # noqa: E402
 
 ARCHS = ("recurrentgemma-9b", "rwkv6-3b", "qwen2-0.5b")
 TOL = {"float32": 1e-4, "bfloat16": 0.08}
@@ -90,10 +91,11 @@ def _tokens(cfg, n, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, n)).astype(np.int32)
 
 
-def _jax_model(jx, arch, over):
-    """The reference's reduced config and its parameters (numpy tree)."""
+def _jax_model(jx, arch, over, draw=None):
+    """The reference's reduced config and its parameters (numpy tree), its
+    unit re-draw pinned (``reference_draws``)."""
     jcfg = jx.configs.get_smoke(arch, **over)
-    jparams, _ = jx.tf.init_params(jcfg, jx.jax.random.PRNGKey(0))
+    jparams, _ = reference_init(jx.tf, jcfg, jx.jax.random.PRNGKey(0), draw)
     return jcfg, jparams, jx.jax.tree.map(np.asarray, jparams)
 
 
@@ -360,15 +362,28 @@ def test_unported_kinds_raise():
                                 device="cpu")
 
 
-@pytest.mark.parametrize("arch,kw", [("qwen2-0.5b", {}), ("rwkv6-3b", dict(rwkv_chunk=8)),
-                                     ("qwen2-0.5b", dict(n_heads=6, n_kv_heads=4))])
-def test_remat_dots_matches_reference(jx, arch, kw):
+# An ill-conditioned draw of the reference's rwkv6 init: the value of the
+# salted hash("rwkv6-3b-smoke") % 2**31 under PYTHONHASHSEED=23, where the
+# f32 gradients of port and reference part by up to 1.6e-3 (see
+# ``_hold_against_float64``).
+ILL_DRAW = 1672512497
+
+
+@pytest.mark.parametrize("arch,kw,draw", [
+    pytest.param("qwen2-0.5b", {}, None, id="qwen2-0.5b-kw0"),
+    pytest.param("rwkv6-3b", dict(rwkv_chunk=8), None, id="rwkv6-3b-kw1"),
+    pytest.param("qwen2-0.5b", dict(n_heads=6, n_kv_heads=4), None, id="qwen2-0.5b-kw2"),
+    pytest.param("rwkv6-3b", dict(rwkv_chunk=8), ILL_DRAW, id=f"rwkv6-3b-kw1-draw{ILL_DRAW}"),
+])
+def test_remat_dots_matches_reference(jx, monkeypatch, arch, kw, draw):
     """``remat="dots"`` (the matmuls with no batch dimension saved, the rest
     recomputed): loss and every gradient of ``loss_fn`` against
     ``jax.value_and_grad`` of the reference's with the same policy, f32
-    1e-4; uneven GQA (6 heads over 4 KV heads) through the same check."""
+    1e-4; uneven GQA (6 heads over 4 KV heads) through the same check. At
+    the ill-conditioned rwkv6 draw both f32 gradients are also held against
+    float64 (``_hold_against_float64``)."""
     cfg, over = _cfg(arch, "float32", remat="dots", **kw)
-    jcfg, jparams, ref = _jax_model(jx, arch, over)
+    jcfg, jparams, ref = _jax_model(jx, arch, over, draw)
     params = lm_params_from_jax(ref)
     toks = _tokens(cfg, 12, seed=4)
     (jloss, _), jgrads = jx.jax.value_and_grad(
@@ -381,7 +396,98 @@ def test_remat_dots_matches_reference(jx, arch, kw):
     grads = iter(torch.autograd.grad(loss, leaves))
     got = lm_params_to_jax(_rebuild(params, grads))
     assert float(loss.detach()) == pytest.approx(float(jloss), rel=1e-4, abs=1e-4)
-    _tree_close(got, jx.jax.tree.map(np.asarray, jgrads), 1e-4, f"{arch} {kw} grads")
+    want = jx.jax.tree.map(np.asarray, jgrads)
+    if draw is None:
+        _tree_close(got, want, 1e-4, f"{arch} {kw} grads")
+    else:
+        _hold_against_float64(monkeypatch, ref, toks, cfg, got, want)
+
+
+def _scan64(r, k, v, logw, u, *, chunk, s0=None):
+    """The wkv recurrence token by token in float64 (no chunks)."""
+    B, H, S, hd = r.shape
+    St = torch.zeros((B, H, hd, hd), dtype=torch.float64) if s0 is None else s0.double()
+    outs = []
+    for t in range(S):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, :, t], St + u[None, :, :, None] * kv))
+        St = torch.exp(logw[:, :, t])[..., None] * St + kv
+    return torch.stack(outs, 2), St
+
+
+def _grads64(monkeypatch, ref, toks, cfg, scale):
+    """Every gradient of the port's ``loss_fn`` in float64 at the parameters
+    ``ref`` (numpy tree) times ``scale`` (leaf name -> factor array or
+    None), as a flat {name: array}: the model's f32 casts kept in float64
+    and the scan :func:`_scan64`."""
+    with monkeypatch.context() as mp:
+        mp.setitem(transformer._DTYPES, "float32", torch.float64)
+        mp.setattr(torch.Tensor, "float", lambda t, *a, **k: t if t.dtype == torch.float64
+                   else t.to(torch.float32, *a, **k))
+        mp.setattr(W, "rwkv6_scan", _scan64)
+        flat = dict(_named(ref))
+        leaves = {n: torch.tensor(np.asarray(v, np.float64) * (1 if scale.get(n) is None
+                                                                else scale[n]))
+                  for n, v in flat.items()}
+        for t in leaves.values():
+            t.requires_grad_(True)
+        loss, _ = transformer.loss_fn(_unflat(leaves), {"tokens": torch.from_numpy(toks)},
+                                      dataclasses.replace(cfg, remat="none"))
+        assert loss.dtype == torch.float64
+        return dict(zip(leaves, (g.numpy() for g in torch.autograd.grad(loss, list(
+            leaves.values())))))
+
+
+def _hold_against_float64(monkeypatch, ref, toks, cfg, got, want, n_moves=4, k=4.0):
+    """At an ill-conditioned draw the gradient is not fixed to 1e-4 by float32
+    data: one head's group-norm input sits near its eps, and moving every
+    parameter by one float32 rounding (relative 2^-24) moves the float64
+    gradient by up to ~1e-3. Both f32 gradients then land within a few such
+    moves of the truth, the port's and the reference's alike, and either may
+    be the further (ROADMAP Queue 3). So: T is the float64 gradient, s each
+    element's largest move over ``n_moves`` such perturbations. Where s is
+    under 1e-6 (1 + |T|) the port is held against the reference at 1e-4 as
+    at every other draw; elsewhere port and reference are each held within
+    1e-4 (1 + |T|) + k s of T. The draw must show the ill conditioning."""
+    truth = _grads64(monkeypatch, ref, toks, cfg, {})
+    rng = np.random.default_rng(0)
+    move = {n: np.zeros_like(t) for n, t in truth.items()}
+    for _ in range(n_moves):
+        scale = {n: 1 + rng.uniform(-2.0 ** -24, 2.0 ** -24, np.shape(v))
+                 for n, v in _named(ref)}
+        for n, g in _grads64(monkeypatch, ref, toks, cfg, scale).items():
+            move[n] = np.maximum(move[n], np.abs(g - truth[n]))
+    port, refg = dict(_named(got)), dict(_named(want))
+    ill = 0
+    for n, t in truth.items():
+        lim = 1e-4 * (1 + np.abs(t))
+        well = move[n] <= 1e-2 * lim
+        ill += int((~well).sum())
+        p, j = port[n].astype(np.float64), refg[n].astype(np.float64)
+        np.testing.assert_allclose(p[well], j[well], rtol=1e-4, atol=1e-4, err_msg=n)
+        for side, x in (("port", p), ("reference", j)):
+            err = np.abs(x - t)[~well]
+            assert np.all(err <= (lim + k * move[n])[~well]), (side, n, err.max())
+    assert ill > 0, "the draw is not ill-conditioned"
+
+
+def _named(tree, pre=""):
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named(v, f"{pre}/{key}")
+        else:
+            yield f"{pre}/{key}", v
+
+
+def _unflat(flat):
+    out = {}
+    for name, v in flat.items():
+        *path, leaf = name.strip("/").split("/")
+        d = out
+        for key in path:
+            d = d.setdefault(key, {})
+        d[leaf] = v
+    return out
 
 
 def _rebuild(tree, it):

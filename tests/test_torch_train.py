@@ -33,6 +33,7 @@ from repro_torch.launch import specs, train  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.optim import cosine_lr, make_optimizer  # noqa: E402
 from repro_torch.pon import PonConfig  # noqa: E402
+from reference_draws import reference_init  # noqa: E402
 
 DENSE = ("qwen2-0.5b", "olmo-1b")
 # the recurrent families train through the RG-LRU and RWKV6 scans' gradients
@@ -197,19 +198,11 @@ def test_cosine_lr_equals_the_reference(jx):
 # ------------------------------------------------------------ loss
 
 def _jax_model(jx, arch, dtype="float32", **kw):
-    """Reduced ``arch`` in both packages from JAX's init; returns (port cfg,
-    jax cfg, jax params, port params). The init's unit re-draw is keyed by
-    ``hash(cfg.name)``, which Python randomises per process; here the
-    name's CRC-32 stands in for ``hash``, so every process draws the same
-    parameters."""
-    import builtins
-    import zlib
+    """Reduced ``arch`` in both packages from JAX's init, its unit re-draw
+    pinned (``reference_draws``); returns (port cfg, jax cfg, jax params,
+    port params)."""
     jcfg = jx.configs.get_smoke(arch, dtype=dtype, **kw)
-    jx.tf.hash = lambda x: zlib.crc32(x.encode()) if isinstance(x, str) else builtins.hash(x)
-    try:
-        jparams, _ = jx.tf.init_params(jcfg, jx.jax.random.PRNGKey(0))
-    finally:
-        del jx.tf.hash
+    jparams, _ = reference_init(jx.tf, jcfg, jx.jax.random.PRNGKey(0))
     return (configs.get_smoke(arch, dtype=dtype, **kw), jcfg, jparams,
             lm_params_from_jax(_np_tree(jparams)))
 

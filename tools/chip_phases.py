@@ -6,6 +6,7 @@ before it in the full script.
     python3 tools/chip_phases.py phase_obs      # phase 18 alone
     python3 tools/chip_phases.py phase_cost     # phase 19 alone: the cost model
     python3 tools/chip_phases.py phase_examples # phase 20 alone: the examples
+    python3 tools/chip_phases.py phase_fsdp     # phase 21 alone: FSDP, MoE over ranks
 
 ``phase_card`` and ``phase_build`` always run first (the card's name and
 power limit, every kernel built). Each phase prints as in the full script,
