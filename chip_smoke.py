@@ -4103,8 +4103,9 @@ def phase_fsdp() -> dict:
                 params = transformer.init_params(
                     cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
                 step = specs.make_train_step(cfg, opt, TRAIN["lr"], seed=0, **kw)
-                check((step.layout is not None) == (label == "fsdp"),
-                      f"fsdp: {label} holds {'shards' if step.layout else 'full replicas'}")
+                fsdp = step.layout is not None and step.layout.group is not None
+                check(fsdp == (label == "fsdp"),
+                      f"fsdp: {label} holds {'shards' if fsdp else 'full replicas'}")
                 if step.layout is not None:
                     params = step.layout.shard(params)
                 state = make_optimizer(opt).init(params)
@@ -4198,6 +4199,315 @@ def _fsdp_compare(runs) -> None:
     check(rel0 <= 1e-6, "fsdp: the int8 step-0 loss differs from gspmd's")
 
 
+# ---------------------------------------------------------------------------
+# phase 22: tensor and expert parallelism over "model"
+# ---------------------------------------------------------------------------
+
+# (config, its cut, optimizer): phase 21's qwen3-moe-30b-a3b cut, and
+# qwen2-0.5b at full width and depth
+TP_RUNS = (("qwen3-moe-30b-a3b", {"n_layers": 4}, "sgdm"), ("qwen2-0.5b", {}, "adamw"))
+TP_STEPS = 4       # the warm step is the median of steps 2-4: one is noisy
+
+
+class _RegionTap:
+    """While open, the bytes the tensor-parallel region's collectives
+    reported (the all-reduces' operands, the all-gathers' outputs, the
+    reduce-scatters' inputs): those called from ``core.tensor_parallel``.
+    On a world of one every axis's group is the same communicator, so a
+    tap on the group would count the "data" collectives too."""
+
+    NAMES = ("all_reduce", "gather_dim", "scatter_dim")
+
+    def __enter__(self):
+        from repro_torch.core import aggregation, tensor_parallel
+        self.bytes, self.depth = 0, 0
+        self.saved = [(aggregation, "_report", aggregation._report)] + [
+            (tensor_parallel, n, getattr(tensor_parallel, n)) for n in self.NAMES]
+        orig_report = aggregation._report
+
+        def report(kind, nbytes, group):
+            if self.depth:
+                self.bytes += nbytes
+            return orig_report(kind, nbytes, group)
+        aggregation._report = report
+        for _, name, orig in self.saved[1:]:
+            def inside(*args, _orig=orig, **kwargs):
+                self.depth += 1
+                try:
+                    return _orig(*args, **kwargs)
+                finally:
+                    self.depth -= 1
+            setattr(tensor_parallel, name, inside)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self.saved:
+            setattr(mod, name, orig)
+
+
+def _tp_run(cfg, opt, batches, step, counters):
+    """``TP_STEPS`` steps from the seed-0 parameters (the layout's shards
+    where the step holds a layout): (losses, the updated parameters
+    gathered, warm step s (the median after the first), peak GiB, the tensor-parallel region's
+    collective bytes a step, launches, the kernels held at the path's
+    shapes)."""
+    from repro_torch.models import transformer
+    from repro_torch.optim import make_optimizer
+    params = transformer.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    lay = step.layout
+    if lay is not None:
+        params = lay.shard(params)
+    state = make_optimizer(opt).init(params)
+    for fn in counters.values():
+        _zero_launches(fn)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, dts = [], []
+    with HeldCalls() as held, _RegionTap() as tap:
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, batch)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t0)
+    counts = {"flash_attention": counters["flash_attention"].launches,
+              "flash_attention_bwd": counters["flash_attention"].launches_bwd}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    if lay is not None:
+        params = lay.gather(params)
+    return (losses, params, statistics.median(dts[1:]), peak, tap.bytes / len(batches),
+            counts, held.hold("tp"))
+
+
+def _tp_compare(label, got, want) -> str:
+    """A way's parameters against mesh=None's (``want``: its leaves on the
+    host, by name, so no way's peak holds them): "bit for bit", else the
+    differing elements, held within one bf16 rounding of each leaf's max."""
+    same, worst_rel, n_diff, n = True, 0.0, 0, 0
+    for k, g in _named_leaves(got):
+        v = want[k].cuda()
+        same = same and torch.equal(g, v)
+        diff = (g.float() - v.float()).abs()
+        worst_rel = max(worst_rel, float(diff.max()) / max(float(v.float().abs().max()), 1e-30))
+        n_diff += int((diff > 0).sum())
+        n += v.numel()
+    check(worst_rel <= 2.0 ** -7, f"tp {label}: parameters differ from mesh=None's past a "
+                                   "bf16 step")
+    return "bit for bit" if same else (f"{n_diff:,} of {n:,} elements differ, at most "
+                                       f"{worst_rel:.2e} of the leaf max")
+
+
+def _tp_kernels() -> dict:
+    """Flash attention (forward with the log-sum-exp, backward), the RWKV6
+    scan and the RG-LRU scan (each forward and backward) against their plain
+    versions at the shapes a rank of the 16-way "model" axis gives them in
+    the train step (B 8, S 2048): qwen2-0.5b's one local head of its 14 (KV
+    expanded by the global map: 7 query heads share a KV head, so no rank's
+    block is a whole group) and rank 0's 8 heads at a 2-way split (heads
+    0-7: KV heads 0 ×7, 1); 3 of rwkv6-3b's 48 padded heads; 256 of
+    recurrentgemma-9b's 4096 RG-LRU channels. Returns each kernel's rows,
+    keyed by shape. Launches here are the comparison's, not the main
+    path's."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (flash_attention_bwd_plain, flash_attention_plain,
+                                     rglru_scan_bwd_plain, rglru_scan_plain,
+                                     rwkv6_scan_bwd_plain, rwkv6_scan_plain)
+    from repro_torch.models import layers
+    fa, rg, rw = (importlib.import_module(f"repro_torch.kernels.{m}")
+                  for m in ("flash_attention", "rglru_scan", "rwkv6_scan"))
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rows = {}
+    B, S, hd, H, KV = 8, 2048, 64, 14, 2
+    for what, lo, Hl in (("qwen2-0.5b, 16-way: rank 0's 1 head", 0, 1),
+                         ("qwen2-0.5b, 2-way: rank 0's 8 heads", 0, 8)):
+        n = min(H - lo, Hl)
+        q, do = (torch.randn((B, S, n, hd), generator=gen, device="cuda").to(torch.bfloat16)
+                 .transpose(1, 2) for _ in range(2))
+        k, v = (layers._expand_kv(torch.randn((B, S, KV, hd), generator=gen, device="cuda")
+                                  .to(torch.bfloat16), n, H, KV, lo).transpose(1, 2)
+                for _ in range(2))
+        scale = 1.0 / math.sqrt(hd)
+        o, lse = fa._forward(q, k, v, True, 0, scale, 0.0, with_lse=True)
+        po, plse = flash_attention_plain(q, k, v, return_lse=True)
+        err_o, ok_o = _within(o, po, 2.0 ** -7, 1e-5)
+        err_l, ok_l = _within(lse, plse, 1e-5, 1e-5)
+        check(ok_o and ok_l, f"tp flash forward [{what}]: o {err_o}, lse {err_l}")
+        got = fa._backward(q, k, v, o, lse, do, True, 0, scale, 0.0)
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do)
+        err_b, ratio_b = _grads_close(f"tp flash backward [{what}]", got, want,
+                                      ("dq", "dk", "dv"), 2.0 ** -7, 1e-4)
+        del got, want, po, plse
+        ms = time_ms(lambda: fa._forward(q, k, v, True, 0, scale, 0.0, with_lse=True))
+        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, return_lse=True), reps=5,
+                           warmup=1)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        rows.setdefault("flash_attention", {})[what] = _report(
+            "flash_attention", f"{what} B={B} H={n} KV={n} (expanded) S={S} hd={hd} bf16",
+            err_o, ms, plain_ms, lib,
+            *fa.flash_attention_cost(B, n, n, S, hd, q.dtype, with_lse=True).bound(),
+            note=" (o within 2^-7·|plain| + 1e-5; library: scaled_dot_product_attention, "
+                 "is_causal)")
+        bms = time_ms(lambda: fa._backward(q, k, v, o, lse, do, True, 0, scale, 0.0))
+        bplain = time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do), reps=3,
+                         warmup=1)
+        qx, kx, vx = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qx, kx, vx, is_causal=True)
+        blib = time_ms(lambda: torch.autograd.grad(out, (qx, kx, vx), do, retain_graph=True))
+        del out, qx, kx, vx
+        rows.setdefault("flash_attention_bwd", {})[what] = _report(
+            "flash_attention_bwd", f"{what} B={B} H={n} KV={n} S={S} hd={hd} bf16", err_b,
+            bms, bplain, blib, *fa.flash_attention_bwd_cost(B, n, n, S, hd, q.dtype).bound(),
+            note=f" ({ratio_b:.2e} of the gradient's max; <= 2^-7·|plain| + 1e-4·max; "
+                 "library: the backward of scaled_dot_product_attention, is_causal)")
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+
+    what, Hl, W = "rwkv6-3b, 16-way: 3 of 48 heads", 3, 64
+    r, k, v = (torch.randn((B, S, Hl, hd), generator=gen, device="cuda").to(torch.bfloat16)
+               .transpose(1, 2) for _ in range(3))
+    logw = -torch.exp(0.5 * torch.randn((B, S, Hl, hd), generator=gen, device="cuda")
+                      ).transpose(1, 2)
+    u = 0.5 * torch.randn((Hl, hd), generator=gen, device="cuda")
+    do = torch.randn((B, S, Hl, hd), generator=gen, device="cuda").transpose(1, 2)
+    o, s_out, scratch = rw._forward(r, k, v, logw, u, W, None, "chunked")
+    po, ps = rwkv6_scan_plain(r, k, v, logw, u, chunk=W)
+    err_f, ratio_f = _grads_close(f"tp rwkv6 forward [{what}]", (o, s_out), (po, ps),
+                                  ("o", "S"), 2e-3, 1e-3)
+    got = rw._backward(r, k, v, logw, u, s_out, scratch, do, None, W)
+    want = rwkv6_scan_bwd_plain(r, k, v, logw, u, do, chunk=W)
+    err_b = max(_grads_close(f"tp rwkv6 backward [{what}]", got[:3], want[:3],
+                             ("dr", "dk", "dv"), 2.0 ** -7, 1e-3)[0],
+                _grads_close(f"tp rwkv6 backward [{what}]", got[3:5], want[3:5],
+                             ("dlogw", "du"), 2e-3, 1e-3)[0])
+    del got, want, po, ps
+    rows["rwkv6_scan"] = {what: _report(
+        "rwkv6_scan", f"{what} B={B} H={Hl} S={S} hd={hd} W={W} bf16", err_f,
+        time_ms(lambda: rw._forward(r, k, v, logw, u, W, None, "chunked")),
+        time_ms(lambda: rwkv6_scan_plain(r, k, v, logw, u, chunk=W), reps=3, warmup=1), None,
+        *rw.rwkv6_scan_cost(B, Hl, S, hd, W, torch.bfloat16, chunk_states=True).bound(),
+        note=f" ({ratio_f:.2e} of max; <= 2e-3·|plain| + 1e-3·max)")}
+    rows["rwkv6_scan_bwd"] = {what: _report(
+        "rwkv6_scan_bwd", f"{what} B={B} H={Hl} S={S} hd={hd} W={W} bf16", err_b,
+        time_ms(lambda: rw._backward(r, k, v, logw, u, s_out, scratch, do, None, W)),
+        time_ms(lambda: rwkv6_scan_bwd_plain(r, k, v, logw, u, do, chunk=W), reps=3,
+                warmup=1), None,
+        *rw.rwkv6_scan_bwd_cost(B, Hl, S, hd, W, torch.bfloat16, False).bound(),
+        note=" (dr, dk, dv within 2^-7·|plain| + 1e-3·max, dlogw, du 2e-3·|plain| + "
+             "1e-3·max)")}
+    del r, k, v, logw, u, do, o, s_out, scratch
+
+    what, C = "recurrentgemma-9b, 16-way: 256 of 4096 channels", 256
+    a = torch.rand((B, S, C), generator=gen, device="cuda")
+    b = torch.randn((B, S, C), generator=gen, device="cuda")
+    dout = torch.randn((B, S, C), generator=gen, device="cuda")
+    out, last = rg._forward(a, b, None, share=False)
+    check(all(torch.equal(x, y) for x, y in zip((out, last), rglru_scan_plain(a, b))),
+          f"tp rglru forward [{what}] differs from its plain version")
+    got = rg._backward(a, out, None, dout, None)
+    check(all(torch.equal(x, y) for x, y in
+              zip(got, rglru_scan_bwd_plain(a, out, None, dout, None)) if x is not None),
+          f"tp rglru backward [{what}] differs from its plain version")
+    rows["rglru_scan"] = {what: _report(
+        "rglru_scan", f"{what} B={B} S={S} C={C} f32", 0.0,
+        time_ms(lambda: rg._forward(a, b, None, share=False)),
+        time_ms(lambda: rglru_scan_plain(a, b), reps=3, warmup=1), None,
+        *rg.rglru_scan_cost(B, S, C, with_h0=False).bound(), note=" (bit for bit)")}
+    rows["rglru_scan_bwd"] = {what: _report(
+        "rglru_scan_bwd", f"{what} B={B} S={S} C={C} f32", 0.0,
+        time_ms(lambda: rg._backward(a, out, None, dout, None)),
+        time_ms(lambda: rglru_scan_bwd_plain(a, out, None, dout, None), reps=3, warmup=1),
+        None, *rg.rglru_scan_bwd_cost(B, S, C, with_h0=False, with_dh_last=False).bound(),
+        note=" (bit for bit)")}
+    del a, b, dout, out, last, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_tp():
+    """Phase 22: tensor and expert parallelism over "model" on NCCL with a
+    world of one, mesh ("data" 1, "model" 1), ``TP_STEPS`` steps of each
+    ``TP_RUNS`` model three ways: the TP code path with every
+    "model" collective on a group of one, against mesh=None; then each
+    kernel the path launches at a 16-way model rank's shapes. Returns (the
+    main path's launches, the kernels' rows)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data import lm as lm_data
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import specs
+    from repro_torch.launch.train import build_rules
+
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    weights = torch.from_numpy(
+        np.random.default_rng(0).integers(50, 400, B).astype(np.float32)).cuda()
+    counters = _lm_counters()
+    launches = dict.fromkeys(("flash_attention", "flash_attention_bwd"), 0)
+    card = _card_name()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as d:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(d, "rendezvous"),
+                                rank=0, world_size=1)
+        try:
+            mesh = mesh_mod.make_test_mesh((1, 1), ("data", "model"), "cuda")
+            ways = {"mesh=None": {}, "tp": {"mesh": mesh, "rules": build_rules(mesh, "classical")},
+                    "tp+fsdp": {"mesh": mesh, "rules": build_rules(mesh, "sfl")}}
+            for name, cut, opt in TP_RUNS:
+                cfg = dataclasses.replace(configs.get(name), **cut)
+                batches = [{"tokens": torch.from_numpy(b["tokens"]).cuda(),
+                            "client_weight": weights}
+                           for b in lm_data.lm_batches(0, TP_STEPS, B, S, cfg.vocab_size)]
+                base = None
+                for label, kw in ways.items():
+                    step = specs.make_train_step(cfg, opt, TRAIN["lr"], seed=0, **kw)
+                    lay = step.layout
+                    tp_on = lay is not None and lay.tp is not None
+                    fsdp_on = lay is not None and lay.group is not None
+                    check(tp_on == (label != "mesh=None"),
+                          f"tp {label}: the tensor-parallel path {'' if tp_on else 'not '}taken")
+                    check(fsdp_on == (label == "tp+fsdp"),
+                          f"tp {label}: FSDP {'on' if fsdp_on else 'off'}")
+                    losses, params, warm, peak, per_step, counts, held = _tp_run(
+                        cfg, opt, batches, step, counters)
+                    tag = f"tp {name} {cut} {opt} {label}"
+                    check(all(math.isfinite(x) for x in losses), f"{tag}: a loss is not finite")
+                    if base is None:
+                        base = (losses, {k: v.cpu() for k, v in _named_leaves(params)})
+                        same = "the reference run"
+                    else:
+                        for k in launches:
+                            check(counts[k] > 0, f"{tag}: {k} never launched")
+                            launches[k] += counts[k]
+                        check(per_step > 0, f"{tag}: no collective over 'model'")
+                        check(losses == base[0] or max(
+                            abs(a - b) / abs(b) for a, b in zip(losses, base[0])) <= 1e-5,
+                            f"{tag}: losses {losses} vs mesh=None's {base[0]}")
+                        same = (f"losses {'bit for bit' if losses == base[0] else 'within 1e-5'}"
+                                f"; parameters {_tp_compare(label, params, base[1])}")
+                    print(f"{tag}: losses {losses}; warm step {warm:.3f} s "
+                          f"({B * S / warm:.0f} tokens/s); peak {peak:.2f} GiB; 'model' "
+                          f"collectives {per_step / 2**30:.3f} GiB a step [{card}; one card: "
+                          f"nothing crosses a link]; launches {counts}; held {held}; vs "
+                          f"mesh=None: {same}")
+                    del params, step
+                del base
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    rows = _tp_kernels()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -4262,6 +4572,11 @@ def main() -> int:
         launches[name] += n
     for name, n in phase(phase_fsdp).items():
         launches[name] += n
+    tp_launches, tp_rows = phase(phase_tp)
+    for name, n in tp_launches.items():
+        launches[name] += n
+    for name, by_shape in tp_rows.items():
+        rows[name]["tp_shapes"] = by_shape
     print(f"total {time.perf_counter() - t0:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     table = (("agg_reduce", csrc + "agg_reduce.cu", "src/repro/kernels/agg_reduce.py:60"),

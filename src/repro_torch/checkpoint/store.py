@@ -15,11 +15,14 @@ dict keys in sorted order, tuple and list items by index
 opt_state)``). bfloat16, which numpy lacks, is stored as its uint16 bits
 under the logical dtype ``"bfloat16"``, as the reference stores it.
 
-A tree of FSDP shards (``launch.specs.FsdpLayout``) goes with its
-``sharding_tree`` of ``common.sharding.Place``s: ``save_checkpoint``
-gathers every shard over ``group`` and rank 0 writes the full leaves, and
-``restore_checkpoint`` gives each rank its slice. A checkpoint so written
-restores on one process, and a one-process checkpoint onto shards.
+A tree of shards (``launch.specs.ParamLayout``: FSDP over "data",
+blocks over "model", or a leaf cut on both) goes with its
+``sharding_tree`` of ``common.sharding.Place``s (a tuple of them for a
+leaf cut on two dimensions): ``save_checkpoint`` gathers every shard over
+its axes' group (``group``: one group, or ``{axes: group}``) and rank 0
+writes the full leaves, and ``restore_checkpoint`` gives each rank its
+block. A checkpoint so written restores on one process, and a one-process
+checkpoint onto shards.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.common.sharding import shard_or_replicate
+from repro_torch.common.sharding import places_of, shard_or_replicate
 
 
 def _flatten_with_paths(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
@@ -90,17 +93,24 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None
                     ) -> Optional[str]:
     """Atomically persist a tree of tensors. Returns the final directory.
 
-    With ``sharding_tree`` (a ``Place`` or None per leaf) the leaves are
-    shards: every rank of the world calls, each sharded leaf is gathered
-    over ``group``, rank 0 alone writes (the others return None), and no
+    With ``sharding_tree`` (a ``Place``, a tuple of them, or None per leaf)
+    the leaves are shards: every rank of the world calls, each sharded leaf
+    is gathered over ``group`` (one group, or ``{Place.axes: group}``),
+    rank 0 alone writes (the others return None), and no
     rank returns before the step is on disk."""
     if sharding_tree is not None:
         from repro_torch.core.aggregation import gather_dim
+
+        def whole(x, place):
+            for pl in places_of(place):
+                if pl.count > 1:
+                    x = gather_dim(x, pl.dim, group[pl.axes] if isinstance(group, dict)
+                                   else group)
+            return x
         places = iter(_places(tree, sharding_tree))
         with torch.no_grad():
-            tree = _unflatten(tree, iter([x if pl is None else gather_dim(x, pl.dim, group)
-                                          for (_, x), pl in zip(_flatten_with_paths(tree),
-                                                                places)]))
+            tree = _unflatten(tree, iter([whole(x, pl) for (_, x), pl in
+                                          zip(_flatten_with_paths(tree), places)]))
         if dist.is_initialized() and dist.get_rank() != 0:
             dist.barrier()
             return None
@@ -162,8 +172,9 @@ def restore_checkpoint(ckpt_dir: str, step: int, tree_like, sharding_tree=None):
     Each leaf takes the checkpoint's dtype and the device of the leaf of
     ``tree_like`` it replaces (the CPU for a non-tensor); a missing leaf
     raises KeyError, a shape that differs ValueError. With
-    ``sharding_tree`` (a ``Place`` or None per leaf) each rank keeps its
-    slice of a stored leaf, the reference's elastic restore."""
+    ``sharding_tree`` (a ``Place``, a tuple of them, or None per leaf) each
+    rank keeps its block of a stored leaf, the reference's elastic
+    restore."""
     final = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)

@@ -9,13 +9,16 @@ and the classical benchmark (``replicated()``: a flat all-reduce) are
 data rather than different model code.
 
 The rules choose how the gradients are reduced (:func:`reduce_schedule`)
-and, under FSDP, which dimension of each parameter a rank holds a shard of
-(:func:`sharding_tree`: per leaf a :class:`Place`, or None where the leaf
-stays replicated); :func:`shard_or_replicate` cuts a rank's slice of a
-full tensor. Tensor and expert parallelism wait on ROADMAP.md Queue 1
-item 1e. :func:`logical_to_physical` returns a plain tuple, the port's
+and which dimensions of each parameter a rank holds a block of
+(:func:`sharding_tree`: per leaf a :class:`Place` along the dimension
+mapped onto the FSDP axes, or onto "model" for tensor and expert
+parallelism, or None where the leaf stays replicated; a leaf cut on both,
+such as the attention query weight (d → "data", heads → "model"), has a
+tuple of the two); :func:`shard_or_replicate` cuts a rank's block of a
+full tensor. :func:`logical_to_physical` returns a plain tuple, the port's
 stand-in for ``PartitionSpec``, and ``constrain`` is the identity, as the
-reference's is outside a mesh.
+reference's is outside a mesh: the port's tensor-parallel region is
+explicit (``core.tensor_parallel``).
 """
 from __future__ import annotations
 
@@ -117,8 +120,9 @@ def spec_tree(rules: ShardingRules, logical_tree) -> Any:
 
 def constrain(x, rules: ShardingRules, logical: Sequence[Optional[str]]):
     """The identity: the reference's sharding constraint is a no-op
-    outside a mesh, and the port's activations are never sharded (FSDP
-    gathers the parameters instead)."""
+    outside a mesh, and the port's activations are never sharded by a
+    constraint (FSDP gathers the parameters; the tensor-parallel region's
+    collectives are explicit, ``core.tensor_parallel``)."""
     return x
 
 
@@ -137,10 +141,26 @@ def filter_valid_spec(mesh_shape: Mapping[str, int], spec: Spec,
 
 class Place(NamedTuple):
     """Where a rank's shard of a leaf lies: block ``index`` of ``count``
-    equal blocks along dimension ``dim``."""
+    equal blocks along dimension ``dim``, split over the mesh ``axes``."""
     dim: int
     index: int
     count: int
+    axes: Tuple[str, ...] = ()
+
+
+def places_of(place) -> Tuple[Place, ...]:
+    """A leaf's places as a tuple: () for None, one for a :class:`Place`,
+    the tuple itself for a leaf cut on several dimensions."""
+    if place is None:
+        return ()
+    return (place,) if isinstance(place, Place) else tuple(place)
+
+
+def join_places(*places):
+    """One leaf's places on several axis sets joined: None, a single
+    :class:`Place`, or a tuple of them (each on its own dimension)."""
+    out = tuple(p for pl in places for p in places_of(pl))
+    return None if not out else out[0] if len(out) == 1 else out
 
 
 def _is_spec(x) -> bool:
@@ -149,44 +169,63 @@ def _is_spec(x) -> bool:
 
 
 def sharding_tree(specs, axes: Axis, mesh_shape: Mapping[str, int], index: int):
-    """The reference's ``sharding_tree`` for FSDP: per leaf of a spec tree
-    (``filter_valid_spec``'s, so every sharded dimension divides), the
-    :class:`Place` of this rank's shard along the dimension mapped onto
-    ``axes`` (the rules' ``fsdp``), block ``index`` of the axes' size; None
-    where no dimension is (the leaf stays replicated, as GSPMD leaves it)."""
-    wanted = set(_axes(axes))
+    """The reference's ``sharding_tree`` over one set of mesh axes: per
+    leaf of a spec tree (``filter_valid_spec``'s, so every sharded
+    dimension divides), the :class:`Place` of this rank's block along the
+    dimension mapped onto ``axes`` (the rules' ``fsdp``, or "model"),
+    block ``index`` of the axes' size; None where no dimension is (the
+    leaf stays replicated over them, as GSPMD leaves it). A leaf cut on
+    two axis sets takes one tree per set, joined by :func:`join_places`."""
+    wanted = tuple(a for a in _axes(axes) if a in mesh_shape)
     count = 1
     for a in wanted:
-        count *= mesh_shape.get(a, 1)
+        count *= mesh_shape[a]
     if _is_spec(specs):
         for dim, ax in enumerate(specs):
-            if wanted & set(_axes(ax)):
-                return Place(dim, index, count)
+            if set(wanted) & set(_axes(ax)):
+                return Place(dim, index, count, wanted)
         return None
     return {k: sharding_tree(v, axes, mesh_shape, index) for k, v in specs.items()}
 
 
-def shard_or_replicate(x, place: Optional[Place]):
-    """This rank's slice of the full tensor ``x`` (a contiguous copy), or
-    ``x`` itself where ``place`` is None."""
-    if place is None:
-        return x
-    n = x.shape[place.dim] // place.count
-    return x.narrow(place.dim, place.index * n, n).contiguous()
+def shard_or_replicate(x, place):
+    """This rank's block of the full tensor ``x`` (a contiguous copy) at
+    ``place`` (a :class:`Place`, a tuple of them, or None: ``x`` itself).
+    A dimension its count does not divide raises."""
+    for pl in places_of(place):
+        if x.shape[pl.dim] % pl.count:
+            raise ValueError(f"dimension {pl.dim} of a {tuple(x.shape)} leaf does not split "
+                             f"into {pl.count} blocks over {pl.axes}")
+        n = x.shape[pl.dim] // pl.count
+        x = x.narrow(pl.dim, pl.index * n, n)
+    return x.contiguous() if place is not None else x
+
+
+MODEL_AXIS = "model"
+
+
+def model_parallel(rules: ShardingRules, mesh_shape: Mapping[str, int]) -> Tuple[bool, bool]:
+    """(tensor, expert): whether the rules put the heads / MLP / vocab, and
+    the MoE experts, on the mesh's "model" axis: the explicit region of
+    ``core.tensor_parallel``, taken whenever the mesh has that axis, of any
+    size (a group of one on one card)."""
+    return tuple(MODEL_AXIS in mesh_shape and _axes(ax) == (MODEL_AXIS,)
+                 for ax in (rules.tensor, rules.expert))
 
 
 def reduce_schedule(rules: ShardingRules, mesh_shape: Mapping[str, int]) -> str:
     """How the rules reduce the gradients of a data-parallel step:
     "two_step" when FSDP is on (reduce-scatter over "data", all-reduce over
     "pod"; the parameters gathered over "data"), "classical" when it is off
-    (a flat all-reduce over the client axes). Tensor or expert parallelism
-    over a mesh axis larger than 1 raises: the port shards over "data"
-    alone."""
+    (a flat all-reduce over the client axes). Either combines with tensor
+    and expert parallelism over "model" (:func:`model_parallel`), whose
+    gradients need no reduction of their own: each model rank's are whole
+    for the blocks it holds. Tensor or expert parallelism over another
+    mesh axis larger than 1 raises."""
     for role, ax in (("tensor", rules.tensor), ("expert", rules.expert)):
-        wide = [a for a in _axes(ax) if mesh_shape.get(a, 1) > 1]
-        if wide:
+        axes = _axes(ax)
+        if axes != (MODEL_AXIS,) and any(mesh_shape.get(a, 1) > 1 for a in axes):
             raise NotImplementedError(
-                f"{role} parallelism over mesh axis {wide[0]!r} (size "
-                f"{mesh_shape[wide[0]]}) is not ported: the port runs data parallel, its "
-                "parameters sharded over 'data' at most; ROADMAP.md Queue 1 item 1e")
+                f"{role} parallelism over mesh axes {axes} of {dict(mesh_shape)} is not "
+                "ported: the port runs tensor and expert parallelism over 'model' alone")
     return "two_step" if _axes(rules.fsdp) else "classical"

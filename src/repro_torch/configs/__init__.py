@@ -7,8 +7,8 @@ recurrentgemma-9b (flash attention + RG-LRU), rwkv6-3b (RWKV6) — the
 dense models of the LM gradient regime: qwen2-0.5b and olmo-1b (trained
 at full width on one card), olmo-100m (the training example's model),
 and qwen1.5-110b and deepseek-coder-33b, which need no new model code but
-do not fit one card (they wait on parameter sharding over more than one
-card, ROADMAP.md Queue 1 item 1e); and the families of the MoE block, the
+do not fit one card (they train sharded over several: FSDP over "data",
+tensor parallelism over "model"); and the families of the MoE block, the
 frame frontend and cross-attention: qwen3-moe-30b-a3b, arctic-480b,
 musicgen-large and llama-3.2-vision-90b. Each entry is a copy of
 ``repro.configs.<name>.CONFIG``; the names and aliases are the

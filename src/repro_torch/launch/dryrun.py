@@ -14,18 +14,24 @@ Records go to ``results/dryrun_torch/<cell>.json`` with the reference's
 keys (README.md lists the keys whose meaning differs).
 
 Meshes: ``--mesh card`` (the default) is one H100. ``--mesh pod=2,data=16``
-(any ``axis=size`` list over "pod" and "data") is data parallel: every
-rank takes the global batch and keeps its rows, and the step runs over an
-``AbstractMesh`` whose collectives report their bytes. Under ``--mode
-sfl`` a train cell is FSDP: each rank holds its shards of the parameters
-and the optimizer's state (``argument_gb`` counts the shards; ``params``
-stays the whole model's count), and the per-unit all-gathers and
-reduce-scatters are "data" bytes; ``--mode classical`` and
-``--transport two_step_int8`` hold full replicas. MoE cells count the
-router's statistics all-reduced over the ranks. ``--mesh
-single|multi|both`` (16×16 and 2×16×16 with tensor parallelism over
-"model") raise: the port runs no tensor or expert parallelism (ROADMAP.md
-Queue 1 item 1e).
+(any ``axis=size`` list over "pod", "data" and "model") runs the step
+over an ``AbstractMesh`` as its rank 0, whose collectives report their
+bytes: every rank takes the global batch and keeps the rows of its
+("pod", "data") coordinate. Under ``--mode sfl`` a train cell is FSDP:
+each rank holds its shards of the parameters and the optimizer's state
+(``argument_gb`` counts the shards; ``params`` stays the whole model's
+count), and the per-unit all-gathers and reduce-scatters are "data"
+bytes; ``--mode classical`` and ``--transport two_step_int8`` hold whole
+leaves over "data". MoE cells count the router's statistics all-reduced
+over the ranks. A "model" axis (``--mesh single|multi|both``: the
+reference's 16×16 and 2×16×16 production meshes) runs tensor and expert
+parallelism: the rank holds its block of the heads, channels, experts
+and vocabulary, and the region's all-reduces and all-gathers are
+"model" bytes (``coll_bytes_by_axis["model"]``, in the collective term
+at NVLink's rate). Prefill and decode cells over a "model" axis larger
+than 1, and ``two_step_int8`` over one, fail: ROADMAP.md Queue 1 item 1e
+(serving over "model"; FSDP and tensor parallelism under the int8
+transport).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k
@@ -135,13 +141,16 @@ def parse_mesh(spec: str) -> Tuple[str, Dict[str, int]]:
     return "_".join(f"{a}{n}" for a, n in shape.items()), shape
 
 
-def _check_mesh(shape: Dict[str, int], rules) -> None:
-    """Raise for tensor or expert parallelism, which the port does not run
-    (item 1e)."""
+def _check_mesh(shape: Dict[str, int], rules, kind: str = "train") -> None:
+    """Raise before counting for what the port does not run: tensor or
+    expert parallelism over an axis other than "model"; a serving cell over
+    a "model" axis larger than 1 (ROADMAP.md Queue 1 item 1e)."""
     from repro_torch.common.sharding import reduce_schedule
+    from repro_torch.launch.specs import check_serving
     if math.prod(shape.values()) <= 1:
         return
-    reduce_schedule(rules, shape)          # tensor or expert parallelism raises
+    reduce_schedule(rules, shape)
+    check_serving(kind, shape)
 
 
 def _gb(n: float) -> float:
@@ -172,7 +181,7 @@ def run_cell(arch: str, shape_name: str, mesh_spec: str, mode: str, opt_name: st
     rules = rules_for_mesh(shape, mode, fsdp_o, exp_o)
     if transport == "two_step_int8":
         rules = rules.with_(table={"vocab_rows": None})
-    _check_mesh(shape, rules)
+    _check_mesh(shape, rules, shp.kind)
     micro = microbatches or MICRO_DEFAULT.get(configs.canonical(arch), 1)
     if shp.kind != "train":
         micro = 1
@@ -260,8 +269,9 @@ def main(argv=None):
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--mesh", default="card",
-                    help="card (one H100), axis=size,... over pod and data (data parallel), "
-                         "or the reference's single|multi|both (tensor parallel: raise)")
+                    help="card (one H100), axis=size,... over pod, data and model, or the "
+                         "reference's single|multi|both (16x16, 2x16x16: tensor parallel "
+                         "over model)")
     ap.add_argument("--mode", default="sfl", choices=["sfl", "classical"])
     ap.add_argument("--opt", default=None, help="sgd|sgdm|adamw (per-arch default)")
     ap.add_argument("--all", action="store_true")

@@ -3,9 +3,14 @@
 One rank is one card (or one CPU process under gloo). A mesh names the
 world's axes: ``("pod", "data")`` for the paper's two tiers (the ONU step
 inside a pod over "data", the scarce cross-pod hop over "pod"),
-``("data", "model")`` for the train driver. The production meshes are
-functions, never built at import. Without an initialized process group
-the port takes ``mesh=None``: one process, nothing to reduce.
+``("data", "model")`` for the train driver, ``("pod", "data", "model")``
+for the reference's multi-pod mesh. A rank's group over some axes holds
+the ranks that share its coordinate on every other axis
+(:func:`axes_group`): its "model" group the tensor-parallel peers of its
+("pod", "data") coordinate, its ("pod", "data") group the data-parallel
+peers of its "model" coordinate. The production meshes are functions,
+never built at import. Without an initialized process group the port
+takes ``mesh=None``: one process, nothing to reduce.
 
 An :class:`AbstractMesh` is a mesh shape ``{axis: size}`` without a
 process group: a dry run (``launch.dryrun``) drives the train step's
@@ -111,7 +116,9 @@ def size(mesh) -> int:
 def client_index(mesh, axes: Sequence[str]) -> Tuple[int, int]:
     """(this rank's index, count) over ``axes``, row-major in the order
     given: the shard of a dimension split over those axes that this rank
-    holds (0, 1 for ``mesh=None``)."""
+    holds (0, 1 for ``mesh=None``). The other axes do not enter: every
+    "model" rank of one ("pod", "data") coordinate has the same client
+    index, and ``("model",)`` gives its block of the heads."""
     if mesh is None:
         return 0, 1
     shape = mesh_shape(mesh)
@@ -125,7 +132,8 @@ def client_index(mesh, axes: Sequence[str]) -> Tuple[int, int]:
 
 def axes_group(mesh, axes: Sequence[str]) -> Optional[dist.ProcessGroup]:
     """The process group of this rank's peers over ``axes`` (those of them
-    in the mesh), or None when ``mesh`` is None or holds none of them.
+    in the mesh: the ranks that share its coordinate on every other axis),
+    or None when ``mesh`` is None or holds none of them.
 
     One axis is the mesh's own group; several are a group built once per
     mesh (every rank builds every such group, in the same order, the first

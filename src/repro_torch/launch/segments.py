@@ -33,7 +33,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.common.sharding import ShardingRules
+from repro_torch.common.sharding import ShardingRules, pad_to_multiple
 from repro_torch.launch import specs as S
 from repro_torch.launch.roofline import Counter, SegmentCost
 from repro_torch.models.config import ModelConfig, ShapeConfig
@@ -102,6 +102,19 @@ def _plain_bytes(fn, args, train: bool) -> float:
     return c.bytes
 
 
+def _rank0_heads(cfg: ModelConfig, tp: int):
+    """(query heads, KV heads) the flash kernel sees on rank 0 of a "model"
+    axis of ``tp``: its real heads of the padded block, their KV heads in
+    whole groups, else one a query head (expanded by the global map)."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    Hp = pad_to_multiple(H, tp) if cfg.tp_pad_heads else H
+    if Hp % tp:
+        return H, KV if H % KV == 0 else H
+    n = min(H, Hp // tp)
+    g = H // KV if H % KV == 0 else 0
+    return n, (n // g if g and n % g == 0 else n)
+
+
 def mixer_fusion_penalty(cfg: ModelConfig, shp: ShapeConfig, mesh_shape=None,
                          rows: int = 0) -> Dict[str, float]:
     """Per mixer kind, the bytes its plain version moves beyond the
@@ -123,7 +136,10 @@ def mixer_fusion_penalty(cfg: ModelConfig, shp: ShapeConfig, mesh_shape=None,
 
     if "attn" in kinds and cfg.n_heads:
         H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        if H % KV:
+        if tp > 1:
+            # rank 0's block of the padded heads (layers.causal_attention)
+            H, KV = _rank0_heads(cfg, tp)
+        elif H % KV:
             KV = H
         args = (mk(B, H, Sq, hd), mk(B, KV, Sq, hd), mk(B, KV, Sq, hd))
         out["attn"] = penalty(
@@ -133,7 +149,8 @@ def mixer_fusion_penalty(cfg: ModelConfig, shp: ShapeConfig, mesh_shape=None,
                                           with_lse=train),
             fa.flash_attention_bwd_cost(B, H, KV, Sq, hd, torch.bfloat16, cfg.window))
     if "rwkv" in kinds:
-        _, Hp = rwkv_heads(cfg, tp)
+        # over "model": rank 0's block of the heads the model pads to 16
+        Hp = rwkv_heads(cfg, tp)[1] if tp <= 1 else rwkv_heads(cfg)[1] // tp
         hd, W = cfg.rwkv_head_dim, min(cfg.rwkv_chunk, Sq)
         args = (mk(B, Hp, Sq, hd), mk(B, Hp, Sq, hd), mk(B, Hp, Sq, hd),
                 mk(B, Hp, Sq, hd, dt=torch.float32), mk(Hp, hd, dt=torch.float32))
@@ -143,6 +160,7 @@ def mixer_fusion_penalty(cfg: ModelConfig, shp: ShapeConfig, mesh_shape=None,
             rw.rwkv6_scan_bwd_cost(B, Hp, Sq, hd, W, torch.bfloat16, with_ds_final=True))
     if "rglru" in kinds:
         C = cfg.rnn_width
+        C //= tp if C % tp == 0 else 1
         args = (mk(B, Sq, C, dt=torch.float32), mk(B, Sq, C, dt=torch.float32))
         out["rglru"] = penalty(
             lambda a, b: rg.rglru_scan_plain(a, b), args,

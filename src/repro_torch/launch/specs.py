@@ -6,12 +6,15 @@
 Every rank takes the round's global batch and keeps the rows of its
 ("pod", "data") coordinate. Under the reference's default rules
 (``fsdp="data"``) the step is FSDP: each rank holds its shards of the
-parameters and the optimizer's state (:class:`FsdpLayout`), gathers them
+parameters and the optimizer's state (:class:`ParamLayout`), gathers them
 where the forward uses them, and the gathers' backward reduce-scatters
 each gradient onto its shard; the replicated rules hold full replicas and
-sum the gradients by the flat all-reduce. Either way a step gives the
-numbers of the reference's GSPMD step over the whole batch, MoE's router
-statistics included. ``transport="two_step_int8"`` is the paper's
+sum the gradients by the flat all-reduce. On a mesh with a "model" axis
+(``tensor="model"``, ``expert="model"``) each rank also holds its block
+of the heads, channels, experts and vocabulary, and the forward runs in
+``core.tensor_parallel``'s region. Either way a step gives the numbers of
+the reference's GSPMD step over the whole batch, MoE's router statistics
+included. ``transport="two_step_int8"`` is the paper's
 protocol made explicit, on full replicas: the data step inside each pod,
 then the cross-pod hop as int8.
 
@@ -29,7 +32,8 @@ Shapes are global but for FSDP's shards: a data-parallel rank takes the
 global batch and keeps its rows, as the train step does on a real mesh.
 The reference attaches a ``NamedSharding`` to each struct; the port's
 sharding is a spec tuple per leaf (``param_shardings``), from which the
-FSDP layout takes each leaf's sharded dimension.
+layout takes each leaf's dimensions cut over "data" and "model". Serving
+cells over a "model" axis larger than 1 raise (ROADMAP.md Queue 1 item 1e).
 """
 from __future__ import annotations
 
@@ -40,13 +44,15 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.common.sharding import (ShardingRules, _axes, filter_valid_spec,
-                                         logical_to_physical, reduce_schedule,
-                                         shard_or_replicate, sharding_tree)
+from repro_torch.common.sharding import (MODEL_AXIS, ShardingRules, _axes, filter_valid_spec,
+                                         join_places, logical_to_physical, model_parallel,
+                                         places_of, reduce_schedule, shard_or_replicate,
+                                         sharding_tree)
 from repro_torch.common.tree import flatten, unflatten
 from repro_torch.core.aggregation import (GatherShard, all_reduce, gather_dim,
                                           int8_two_step_leaf)
 from repro_torch.core.compression import Noise, uniform_noise
+from repro_torch.core.tensor_parallel import TensorParallel
 from repro_torch.launch.mesh import AbstractMesh, axes_group, client_index, mesh_shape
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig, ShapeConfig
@@ -57,18 +63,21 @@ def _weighted_pieces(params, batch, cfg: ModelConfig, router_group=None, layout=
     """(Σ weighted nll, Σ weight, aux): the loss mask with each row scaled
     by its ``client_weight`` (k_ij · mask, the FL weight folded into the
     batch), and the MoE router's load-balance loss (with ``router_group``
-    this rank's part of the group's: ``moe._route``). With an FSDP
-    ``layout`` the parameters are shards, gathered where they are used."""
-    gather = None
+    this rank's part of the group's: ``moe._route``). With a ``layout`` the
+    parameters are shards: FSDP's gathered where they are used, the blocks
+    over "model" run in its tensor-parallel region."""
+    gather = tp = None
     if layout is not None:
-        params, gather = layout.gather_outer(params), layout.gather_unit
-    x, labels, aux = transformer.forward(params, batch, cfg, gather, router_group)
+        tp = layout.tp
+        if layout.group is not None:
+            params, gather = layout.gather_outer(params), layout.gather_unit
+    x, labels, aux = transformer.forward(params, batch, cfg, gather, router_group, tp)
     B, S, _ = x.shape
     mask = transformer.loss_mask(cfg, B, S, x.device)
     w = batch.get("client_weight")
     if w is not None:
         mask = mask * w[:, None]
-    return (*transformer.chunked_xent(params, x, labels, mask, cfg), aux)
+    return (*transformer.chunked_xent(params, x, labels, mask, cfg, tp), aux)
 
 
 def weighted_loss_fn(params, batch, cfg: ModelConfig):
@@ -83,13 +92,14 @@ def weighted_loss_fn(params, batch, cfg: ModelConfig):
     return loss, {"xent": loss, "aux": aux}
 
 
-def unnormalized_loss_fn(params, batch, cfg: ModelConfig, router_group=None):
+def unnormalized_loss_fn(params, batch, cfg: ModelConfig, router_group=None, layout=None):
     """(Σ weighted nll, Σ weight): the SFL objective before normalisation,
     for transports that normalise after the cross-pod reduce; the MoE term
     enters the sum scaled by max(Σ weight, 1). With ``router_group`` (the
     data ranks of a pod) the router's statistics and that Σ weight are the
-    group's, and the rank's sum its part of the group's."""
-    tot, cnt, aux = _weighted_pieces(params, batch, cfg, router_group)
+    group's, and the rank's sum its part of the group's; ``layout`` as in
+    :func:`_weighted_pieces`."""
+    tot, cnt, aux = _weighted_pieces(params, batch, cfg, router_group, layout)
     if cfg.n_experts:
         K = cnt if router_group is None else all_reduce(cnt.detach(), router_group)
         tot = tot + transformer.aux_loss(cfg, aux) * torch.clamp(K, min=1.0)
@@ -185,47 +195,78 @@ def _step_noise(seed: int, opt_state, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(mixed))
 
 
-class FsdpLayout:
-    """FSDP over the rules' ``fsdp`` axes of a mesh (the reference's
-    ``fsdp="data"``): per parameter leaf the ``Place`` of this rank's shard
-    along the dimension ``param_shardings`` maps onto those axes, or None
-    where none divides and the leaf stays replicated
-    (``common.sharding.sharding_tree``). The optimizer's state mirrors the
-    parameters, so its moments shard alike."""
+class ParamLayout:
+    """How a rank of a mesh holds the parameters and the optimizer's state:
+    cut over the rules' ``fsdp`` axes (the reference's ``fsdp="data"``:
+    FSDP) and over "model" (tensor and expert parallelism), each leaf on
+    the dimensions ``param_shardings`` maps onto them (a dimension the axes
+    do not divide stays whole, as ``filter_valid_spec`` leaves it).
 
-    def __init__(self, cfg: ModelConfig, mesh, rules: ShardingRules):
+    ``places``: per leaf the ``Place`` of this rank's FSDP shard, or None
+    (gathered over ``group`` where the forward uses it); ``tp_places``: per
+    leaf the ``Place`` of its block over "model", or None; ``shards``:
+    both joined (what ``shard``, ``gather`` and a checkpoint take, their
+    groups in ``axis_groups``). ``tp`` is the region the forward runs the
+    model blocks in (``core.tensor_parallel``), None without a "model"
+    axis. The optimizer's state mirrors the parameters."""
+
+    def __init__(self, cfg: ModelConfig, mesh, rules: ShardingRules, fsdp: bool):
         shape = mesh_shape(mesh)
-        axes = tuple(a for a in _axes(rules.fsdp) if a in shape)
-        _, specs = param_shardings(cfg, shape, rules)
-        self.group = axes_group(mesh, axes)
-        self.places = sharding_tree(specs, axes, shape, client_index(mesh, axes)[0])
+        params, specs = param_shardings(cfg, shape, rules)
+        self.full_shapes = tree_map(lambda t: tuple(t.shape), params)
+        self.tp = TensorParallel.of(mesh, rules)
+        axes = tuple(a for a in _axes(rules.fsdp) if a in shape) if fsdp else ()
+        self.group = axes_group(mesh, axes) if axes else None
+        none = tree_map(lambda _: None, specs)
+        self.places = (sharding_tree(specs, axes, shape, client_index(mesh, axes)[0])
+                       if axes else none)
+        self.tp_places = (none if self.tp is None else
+                          sharding_tree(specs, (MODEL_AXIS,), shape, self.tp.index))
+        self.shards = tree_map(join_places, self.places, self.tp_places)
+        self.axis_groups = {axes: self.group}
+        if self.tp is not None:
+            self.axis_groups[(MODEL_AXIS,)] = self.tp.group
         # a unit's leaves as the forward takes them: the stacked axis unbound
         self.unit_places = tree_map(lambda pl: pl and pl._replace(dim=pl.dim - 1),
                                     self.places.get("unit", {}))
 
     def state_places(self, opt_state):
-        """The places of an optimizer state: a moment tree each, its step
-        counter replicated."""
-        return {k: self.places if isinstance(v, dict) else None
+        """The places of an optimizer state: a moment tree each (the
+        parameters' ``shards``), its step counter replicated."""
+        return {k: self.shards if isinstance(v, dict) else None
                 for k, v in opt_state.items()}
 
     def shard(self, tree, places=None):
-        """This rank's shards of a full tree (the parameters by default)."""
-        return tree_map(shard_or_replicate, tree, places or self.places)
+        """This rank's shards of a full tree (the parameters by default:
+        built for the mesh, ``init_params(..., tp=<"model" size>)``, where
+        "model" is larger than 1)."""
+        if places is None and self.tp is not None and self.tp.size > 1:
+            got = tree_map(lambda t: tuple(t.shape), tree)
+            if got != self.full_shapes:
+                raise ValueError(
+                    "the parameters' shapes are not those of the mesh's: build them with "
+                    f"init_params(..., tp={self.tp.size}), the size of its 'model' axis")
+        return tree_map(shard_or_replicate, tree, places or self.shards)
 
     def gather(self, tree, places=None):
         """The full tree of a sharded one (collective: every rank calls)."""
+        def leaf(x, place):
+            for pl in places_of(place):
+                if pl.count > 1:
+                    x = gather_dim(x, pl.dim, self.axis_groups[pl.axes])
+            return x
         with torch.no_grad():
-            return tree_map(lambda x, pl: x if pl is None else gather_dim(x, pl.dim, self.group),
-                            tree, places or self.places)
+            return tree_map(leaf, tree, places or self.shards)
 
     def _gathered(self, tree, places):
         return tree_map(lambda x, pl: x if pl is None
                         else GatherShard.apply(x, pl.dim, self.group), tree, places)
 
     def gather_outer(self, params):
-        """Every leaf but the unit's gathered, differentiably: the
-        embedding, the tail and the head, once a forward."""
+        """Every leaf but the unit's FSDP shards gathered, differentiably:
+        the embedding, the tail and the head, once a forward."""
+        if self.group is None:
+            return params
         return {k: v if k == "unit" else self._gathered(v, self.places[k])
                 for k, v in params.items()}
 
@@ -237,33 +278,47 @@ class FsdpLayout:
     def groups(self, pod_group, client_group):
         """Per leaf, the group its gradient is all-reduced over: a shard's,
         summed over "data" by the gathers' backward, over "pod" (the CPS
-        step); a replicated leaf's over every client rank."""
+        step); a replicated leaf's over every client rank. Either group
+        holds the ranks of this rank's "model" coordinate: a block over
+        "model" has its whole gradient on its rank already."""
         return tree_map(lambda pl: client_group if pl is None else pod_group, self.places)
 
     def grad_norm(self, grads) -> torch.Tensor:
-        """The global L2 norm: the shards' squares all-reduced over the FSDP
-        group, each replicated leaf counted once."""
-        sq = {True: [], False: []}
-        tree_map(lambda g, pl: sq[pl is None].append(torch.linalg.vector_norm(g.float()) ** 2),
-                 grads, self.places)
-        total = all_reduce(torch.stack(sq[False]).sum(), self.group) if sq[False] else 0.0
-        return torch.sqrt(total + (torch.stack(sq[True]).sum() if sq[True] else 0.0))
+        """The global L2 norm: each leaf's square summed over the ranks
+        that hold its blocks (all-reduced over the FSDP group where it is
+        sharded there, over "model" where it is cut there), each shard
+        counted once."""
+        sums = {}
+        tree_map(lambda g, f, t: sums.setdefault((f is not None, t is not None), []).append(
+            torch.linalg.vector_norm(g.float()) ** 2), grads, self.places, self.tp_places)
+        total = 0.0
+        for (fsdp, tensor), sq in sums.items():
+            s = torch.stack(sq).sum()
+            if fsdp:
+                s = all_reduce(s, self.group)
+            if tensor:
+                s = all_reduce(s, self.tp.group)
+            total = total + s
+        return torch.sqrt(total)
 
 
-def fsdp_layout(cfg: ModelConfig, mesh, rules: Optional[ShardingRules] = None,
-                transport: str = "gspmd") -> Optional[FsdpLayout]:
-    """The :class:`FsdpLayout` the train step of these arguments holds its
-    parameters in, or None for full replicas: ``mesh=None``, the
-    replicated rules, the ``two_step_int8`` transport, or rules whose
-    ``fsdp`` names no axis of the mesh."""
+def param_layout(cfg: ModelConfig, mesh, rules: Optional[ShardingRules] = None,
+                 transport: str = "gspmd") -> Optional[ParamLayout]:
+    """The :class:`ParamLayout` the train step of these arguments holds its
+    parameters in, or None for full replicas. FSDP is on under the rules'
+    ``fsdp`` on a mesh axis with the ``gspmd`` transport (the replicated
+    rules and ``two_step_int8`` hold whole leaves over "data"); tensor and
+    expert parallelism whenever the mesh has a "model" axis the rules put
+    them on, of any size. ``mesh=None``: None."""
     rules = rules or ShardingRules()
     if mesh is None:
         return None
-    if reduce_schedule(rules, mesh_shape(mesh)) != "two_step" or transport != "gspmd":
+    shape = mesh_shape(mesh)
+    fsdp = (reduce_schedule(rules, shape) == "two_step" and transport == "gspmd"
+            and any(a in shape for a in _axes(rules.fsdp)))
+    if not fsdp and not any(model_parallel(rules, shape)):
         return None
-    if not any(a in mesh.mesh_dim_names for a in _axes(rules.fsdp)):
-        return None
-    return FsdpLayout(cfg, mesh, rules)
+    return ParamLayout(cfg, mesh, rules, fsdp)
 
 
 def make_train_step(cfg: ModelConfig, opt_name: str = "adamw", lr: float = 1e-4,
@@ -277,10 +332,12 @@ def make_train_step(cfg: ModelConfig, opt_name: str = "adamw", lr: float = 1e-4,
     the loss is the slices' mean and the optimizer runs once. The step
     keeps the last gradient's global norm in ``train_step.grad_norm`` (a
     0-d f32 tensor on the card) and its parameters' layout in
-    ``train_step.layout`` (:func:`fsdp_layout`).
+    ``train_step.layout`` (:func:`param_layout`; ``layout.shard`` cuts a
+    rank's leaves from full trees, ``layout.gather`` joins them).
 
     ``mesh=None`` runs the one-card step. On a mesh each rank takes the
-    global batch and keeps its rows, and:
+    global batch and keeps the rows of its ("pod", "data") coordinate
+    (every "model" rank the same rows), and:
 
     * ``transport="gspmd"`` under rules whose ``fsdp`` names a mesh axis
       (default ``ShardingRules()``: "data"): FSDP. Each rank holds its
@@ -307,21 +364,41 @@ def make_train_step(cfg: ModelConfig, opt_name: str = "adamw", lr: float = 1e-4,
       default, from (``seed``, ``opt_state["t"]``), alike on every rank;
       then K = Σ_pod weight, gradients / max(K, 1e-6), loss = Σ_pod nll / K.
 
+    Tensor and expert parallelism: on a mesh with a "model" axis, of any
+    size, under rules that put ``tensor`` and ``expert`` on it (the
+    default), each rank holds its block of every leaf ``param_shardings``
+    cuts over "model" (the padded query heads, the MLP, RG-LRU and RWKV6
+    channels, the MoE experts, the vocabulary, the embedding's columns;
+    parameters built for the mesh: ``init_params(..., tp=<its size>)``) and
+    runs the forward in ``core.tensor_parallel``'s region; the loss is
+    alike on every model rank and each differentiates it once. Its blocks'
+    gradients are whole on their rank, so the reductions above run among
+    the ranks of one "model" coordinate; the gradient norm sums each
+    block's square once. It combines with FSDP (a leaf then cut on two
+    dimensions) and with the classical rules; under ``two_step_int8`` a
+    "model" axis larger than 1 raises (ROADMAP.md Queue 1 item 1e: the
+    int8 hop's scale and noise are the whole leaf's).
+
     MoE: the router's load-balance statistics are those of the global
     micro-batch, all-reduced over the client ranks (over "data" alone, the
     pod's rows, under ``two_step_int8``); each rank's loss carries its part
-    (``moe._route``). Capacity is per row. Tensor or expert parallelism over
-    a "model" axis larger than 1 raises (``reduce_schedule``, ROADMAP.md
-    Queue 1 item 1e).
+    (``moe._route``). Capacity is per row. Under expert parallelism each
+    model rank runs its experts' slots and the combine is one all-reduce
+    over "model" (``moe.moe_block_scatter``).
     """
     if transport not in ("gspmd", "two_step_int8"):
         raise ValueError(f"unknown transport {transport!r}")
     if transport == "two_step_int8" and (mesh is None or "pod" not in mesh.mesh_dim_names):
         raise ValueError("transport='two_step_int8' needs a mesh with a 'pod' axis")
     opt = make_optimizer(opt_name)
-    layout = fsdp_layout(cfg, mesh, rules, transport)     # tensor parallelism raises
+    layout = param_layout(cfg, mesh, rules, transport)
     if transport == "two_step_int8":
-        step = _two_step_int8_step(cfg, opt, lr, microbatches, mesh, seed)
+        if layout is not None and layout.tp is not None and layout.tp.size > 1:
+            raise NotImplementedError(
+                "transport='two_step_int8' over a 'model' axis larger than 1 is not ported: "
+                "its int8 hop scales and draws noise for whole leaves (ROADMAP.md Queue 1 "
+                "item 1e: FSDP and tensor parallelism under two_step_int8)")
+        step = _two_step_int8_step(cfg, opt, lr, microbatches, mesh, seed, layout)
     elif mesh is None:
         step = _one_rank_step(cfg, opt, lr, microbatches)
     else:
@@ -396,7 +473,7 @@ def _data_parallel_step(cfg, opt, lr, microbatches, mesh, layout):
     return train_step
 
 
-def _two_step_int8_step(cfg, opt, lr, microbatches, mesh, seed):
+def _two_step_int8_step(cfg, opt, lr, microbatches, mesh, seed, layout):
     data_group = axes_group(mesh, ("data",))
     pod_group = axes_group(mesh, ("pod",))
 
@@ -405,7 +482,7 @@ def _two_step_int8_step(cfg, opt, lr, microbatches, mesh, seed):
         grads, tot, cnt = None, 0.0, 0.0
         for mb in _rank_micro_batches(batch, mesh, microbatches, outer=("pod",)):
             def objective():
-                t, c = unnormalized_loss_fn(params, mb, cfg, data_group)
+                t, c = unnormalized_loss_fn(params, mb, cfg, data_group, layout)
                 return t, (t.detach(), c.detach())
             g, (t, c) = _grads(params, objective)
             grads = g if microbatches == 1 else _accumulate(grads, g)
@@ -526,6 +603,16 @@ def make_serve_step(cfg: ModelConfig):
     return serve_step
 
 
+def check_serving(kind: str, mesh_shape: Dict[str, int]) -> None:
+    """Raise for a prefill or decode cell over a "model" axis larger than
+    1, which the port does not run (ROADMAP.md Queue 1 item 1e)."""
+    if kind != "train" and mesh_shape.get(MODEL_AXIS, 1) > 1:
+        raise NotImplementedError(
+            f"a {kind} cell over a 'model' axis of {mesh_shape[MODEL_AXIS]} is not ported: "
+            "ROADMAP.md Queue 1 item 1e, serving over 'model' (a KV cache sharded by KV "
+            "heads or by sequence, a split-softmax decode)")
+
+
 def _meta_noise(shapes):
     return [_meta(s, torch.float32) for s in shapes]
 
@@ -552,6 +639,7 @@ def input_specs(cfg: ModelConfig, shp: ShapeConfig, mesh_shape: Optional[Dict[st
             def fn(params, opt_state, batch):
                 return step(params, opt_state, batch, noise=_meta_noise)
         return fn, (params, opt_state_struct(opt_name, params), batch_struct(cfg, shp))
+    check_serving(shp.kind, mesh_shape)
     clients = math.prod(mesh_shape.get(a, 1) for a in _CLIENT_AXES)
     if shp.global_batch % clients:
         raise ValueError(f"batch {shp.global_batch} does not split over {clients} ranks")

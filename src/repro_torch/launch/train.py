@@ -151,8 +151,8 @@ def run(arch: Union[str, ModelConfig] = "qwen2-0.5b", *, smoke: bool = False, st
         """Every rank under FSDP (rank 0 writes the gathered leaves), else
         rank 0 alone."""
         if layout is not None:
-            save_checkpoint(ckpt, step, state(), group=layout.group,
-                            sharding_tree=(layout.places, layout.state_places(backend.opt_state)))
+            save_checkpoint(ckpt, step, state(), group=layout.axis_groups,
+                            sharding_tree=(layout.shards, layout.state_places(backend.opt_state)))
         elif lead:
             save_checkpoint(ckpt, step, state())
 
@@ -182,7 +182,7 @@ def run(arch: Union[str, ModelConfig] = "qwen2-0.5b", *, smoke: bool = False, st
         last = latest_step(ckpt)
         if last is not None:
             places = (None if layout is None else
-                      (layout.places, layout.state_places(backend.opt_state)))
+                      (layout.shards, layout.state_places(backend.opt_state)))
             (backend.params, backend.opt_state), _, step0 = restore_checkpoint(
                 ckpt, last, state(), places)
             say(f"[restore] resumed from step {step0}")

@@ -9,6 +9,15 @@ its name and arguments, without the sharding ``rules``: the reference's
 runs through the flash-attention kernel; ``_decode_attention`` and
 ``cross_attention`` are plain torch, as the reference computes them in
 jnp outside any kernel.
+
+With ``tp`` (a ``core.tensor_parallel.TensorParallel``: the train step on
+a mesh with a "model" axis) attention runs on this rank's block of the
+padded query heads (``wq``, ``bq``, ``wo`` its blocks; ``wo`` row-parallel)
+and the MLP on its block of the ``d_ff`` channels (``wg``, ``wu``,
+``w1``/``b1`` column-parallel, ``wd``/``w2`` row-parallel). K and V are
+split with the heads for MHA whose heads divide the axis, else computed
+whole before the region and read by each local head through the global
+query-to-KV map.
 """
 from __future__ import annotations
 
@@ -112,28 +121,54 @@ def attn_params(pb, cfg, tp: int = 16):
     return Hp
 
 
-def _qkv(x, p, cfg, Hp):
+def _qkv(x, p, cfg, tp=None, media=None):
+    """q from ``x``; k and v from ``media`` (cross-attention: no K/V bias)
+    or ``x``. Under ``tp`` the products are this rank's heads: q enters the
+    region from ``x``, and K and V too where they split with the heads,
+    else they are computed whole before the region and enter it as they
+    are."""
+    kv_in = x if media is None else media
+    kv_split = tp is None or tp.splits_kv(cfg)
+    if tp is not None:
+        x = tp.copy(x)
+        if kv_split:
+            kv_in = x if media is None else tp.copy(media)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = torch.einsum("bsd,dhk->bshk", kv_in, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", kv_in, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        if media is None:
+            k = k + p["bk"]
+            v = v + p["bv"]
+    if not kv_split:
+        k, v = tp.copy(k), tp.copy(v)
     return q, k, v
 
 
-def _head_mask(Hp: int, H: int, dtype, device=None):
-    if Hp == H:
-        return None
-    return (torch.arange(Hp, device=device) < H).to(dtype)[None, None, :, None]
+def _head_mask(Hl: int, H: int, dtype, device=None, lo: int = 0):
+    """The mask of the padded query heads lo .. lo + Hl - 1: 1 for a real
+    head (< H), 0 for padding."""
+    return (torch.arange(lo, lo + Hl, device=device) < H).to(dtype)[None, None, :, None]
 
 
-def _expand_kv(k, Hp: int, H: int, KV: int):
+def _expand_kv(k, Hp: int, H: int, KV: int, lo: int = 0, kv_lo: int = 0):
     """Map KV heads onto (padded) query heads: head h reads
-    min(h // (H // KV), KV - 1)."""
-    group = np.minimum(np.arange(Hp) // max(1, H // KV), KV - 1)
+    min(h // (H // KV), KV - 1). ``lo``: the first query head of the block
+    (``Hp`` heads from it), ``kv_lo``: the first KV head ``k`` holds."""
+    group = np.minimum(np.arange(lo, lo + Hp) // max(1, H // KV), KV - 1) - kv_lo
     return k[:, :, torch.from_numpy(group).to(k.device)]
+
+
+def _tp_heads(p, cfg, tp):
+    """(tp or None where the heads do not split, the first global query
+    head of this rank's block, its first KV head, the global padded head
+    count)."""
+    Hl = p["wq"].shape[1]
+    if tp is None or not tp.splits_heads(cfg):
+        return None, 0, 0, Hl
+    lo = tp.index * Hl
+    return tp, lo, lo if tp.splits_kv(cfg) else 0, Hl * tp.size
 
 
 def _attend_block(q_blk, k_ctx, v_ctx, mask, scale, softcap=0.0):
@@ -147,51 +182,70 @@ def _attend_block(q_blk, k_ctx, v_ctx, mask, scale, softcap=0.0):
     return torch.einsum("bhqs,bshk->bqhk", probs.to(v_ctx.dtype), v_ctx)
 
 
-def causal_attention(q, k, v, cfg, *, window: int = 0):
+def causal_attention(q, k, v, cfg, *, window: int = 0, lo: int = 0, kv_lo: int = 0,
+                     tp=None):
     """Causal (optionally sliding-window) attention through the flash kernel.
 
     q (B, S, Hp, hd); k, v (B, S, KV, hd) -> (B, S, Hp, hd). The kernel runs
-    on the H real query heads, head h reading KV head h // (H // KV) — the
+    on the real query heads, head h reading KV head h // (H // KV) — the
     reference's ``_expand_kv`` map on the real heads — and the padded heads'
-    output is zero, which is what the reference's head mask leaves. Where KV
-    does not divide H, K and V are first expanded to H heads by that map,
+    output is zero, which is what the reference's head mask leaves. Where the
+    real heads do not fall into whole groups (KV does not divide H), K and V
+    are first expanded to one head per real query head by that map,
     min(h // max(1, H // KV), KV - 1).
+
+    Under tensor parallelism ``q`` holds the query heads lo .. lo + Hp - 1
+    of the padded whole and ``k``, ``v`` the KV heads from ``kv_lo``: a
+    rank's real heads may split a group (qwen2-0.5b's 14 heads over 2 ranks:
+    heads 0-6 read KV head 0, head 7 KV head 1), and then K and V are
+    expanded by the global map. A block of padding alone launches no kernel
+    (``tp.anchor`` keeps its inputs in the graph).
     """
     B, S, Hp, hd = q.shape
     H, KV = cfg.n_heads, cfg.n_kv_heads
-    if H % KV:
+    n = max(0, min(H - lo, Hp))
+    if n == 0:
+        return tp.anchor(torch.zeros_like(q), q, k, v)
+    g = H // KV if H % KV == 0 else 0
+    if g and lo % g == 0 and n % g == 0:
+        # whole groups: the kernel reads KV head h // g of the block
+        k, v = (t[:, :, lo // g - kv_lo:(lo + n) // g - kv_lo] for t in (k, v))
+    else:
         # uneven groups: expand K and V by the reference's map, so the
         # kernel sees one KV head per query head
-        k, v = _expand_kv(k, H, H, KV), _expand_kv(v, H, H, KV)
-    o = flash_attention(q[:, :, :H].transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        k, v = _expand_kv(k, n, H, KV, lo, kv_lo), _expand_kv(v, n, H, KV, lo, kv_lo)
+    o = flash_attention(q[:, :, :n].transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                         causal=True, window=window, scale=1.0 / math.sqrt(hd),
                         softcap=cfg.logit_softcap).transpose(1, 2)
-    if Hp != H:
-        o = F.pad(o, (0, 0, 0, Hp - H))
+    if Hp != n:
+        o = F.pad(o, (0, 0, 0, Hp - n))
     return o
 
 
-def self_attention(x, p, cfg, positions, *, window: int = 0, cache=None):
+def self_attention(x, p, cfg, positions, *, window: int = 0, cache=None, tp=None):
     """Full self-attention sublayer (projections + rope + attend + out-proj).
 
     cache: None for prefill / forward; dict(k, v, pos) for decode.
     Returns (out, (k, v) for prefill's cache, or the updated cache).
+    ``tp``: this rank's block of the heads (training only: no cache).
     """
-    Hp = p["wq"].shape[1]
+    tp, lo, kv_lo, Hp = _tp_heads(p, cfg, tp)
     H = cfg.n_heads
-    q, k, v = _qkv(x, p, cfg, Hp)
+    if tp is not None and cache is not None:
+        raise NotImplementedError("decoding over a 'model' axis is not ported "
+                                  "(ROADMAP.md Queue 1 item 1e: serving over 'model')")
+    q, k, v = _qkv(x, p, cfg, tp)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if cache is None:
-        o = causal_attention(q, k, v, cfg, window=window)
+        o = causal_attention(q, k, v, cfg, window=window, lo=lo, kv_lo=kv_lo, tp=tp)
         new_kv = (k, v)
     else:
         o, new_kv = _decode_attention(q, k, v, cache, cfg, window)
-    hm = _head_mask(Hp, H, o.dtype, o.device)
-    if hm is not None:
-        o = o * hm
+    if Hp != H:
+        o = o * _head_mask(o.shape[2], H, o.dtype, o.device, lo)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
-    return out, new_kv
+    return (out if tp is None else tp.reduce(out)), new_kv
 
 
 def _decode_attention(q, k_new, v_new, cache, cfg, window: int):
@@ -227,31 +281,29 @@ def _decode_attention(q, k_new, v_new, cache, cfg, window: int):
     return o, {"k": kc, "v": vc, "pos": pos + 1}
 
 
-def cross_attention(x, p, cfg, media_kv):
+def cross_attention(x, p, cfg, media_kv, tp=None):
     """Cross-attend text queries to (stub) media embeddings.
 
     media_kv: (B, T_media, d_model), the frontend's output. Every query
     sees the whole media sequence (no mask, no RoPE). The query rows go in
     blocks of ``cfg.q_chunk``, which bounds the f32 scores at (B, Hp,
     q_chunk, T) (the reference's are (B, Hp, S, T)); each row's softmax is
-    the same either way.
+    the same either way. ``tp``: this rank's block of the heads, as
+    :func:`self_attention`'s.
     """
-    Hp = p["wq"].shape[1]
+    tp, lo, kv_lo, Hp = _tp_heads(p, cfg, tp)
+    Hl = p["wq"].shape[1]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    if cfg.qkv_bias:
-        q = q + p["bq"]
-    k = torch.einsum("btd,dhk->bthk", media_kv, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", media_kv, p["wv"])
-    kf = _expand_kv(k, Hp, H, KV)
-    vf = _expand_kv(v, Hp, H, KV)
+    q, k, v = _qkv(x, p, cfg, tp, media_kv)
+    kf = _expand_kv(k, Hl, H, KV, lo, kv_lo)
+    vf = _expand_kv(v, Hl, H, KV, lo, kv_lo)
     n = max(1, cfg.q_chunk)
     o = torch.cat([_attend_block(q[:, i:i + n], kf, vf, None, 1.0 / np.sqrt(hd),
                                  cfg.logit_softcap) for i in range(0, q.shape[1], n)], dim=1)
-    hm = _head_mask(Hp, H, o.dtype, o.device)
-    if hm is not None:
-        o = o * hm
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    if Hp != H:
+        o = o * _head_mask(Hl, H, o.dtype, o.device, lo)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return out if tp is None else tp.reduce(out)
 
 
 # ---------------------------------------------------------------------------
@@ -273,12 +325,20 @@ def mlp_params(pb, cfg, name: str = "mlp"):
         sub.param("b2", (d,), ("embed",), init="zeros")
 
 
-def mlp_block(x, p, cfg):
+def mlp_block(x, p, cfg, tp=None):
+    """The dense MLP; with ``tp`` on this rank's block of the ``d_ff``
+    channels where they split (column-parallel in, row-parallel out, the
+    output bias added once after the reduce)."""
+    if tp is not None and not tp.splits(cfg.d_ff):
+        tp = None
+    x_in = x if tp is None else tp.copy(x)
     if cfg.mlp == "swiglu":
-        g = torch.einsum("bsd,df->bsf", x, p["wg"])
-        u = torch.einsum("bsd,df->bsf", x, p["wu"])
+        g = torch.einsum("bsd,df->bsf", x_in, p["wg"])
+        u = torch.einsum("bsd,df->bsf", x_in, p["wu"])
         h = F.silu(g.float()).to(x.dtype) * u
-        return torch.einsum("bsf,fd->bsd", h, p["wd"])
-    h = torch.einsum("bsd,df->bsf", x, p["w1"]) + p["b1"]
+        out = torch.einsum("bsf,fd->bsd", h, p["wd"])
+        return out if tp is None else tp.reduce(out)
+    h = torch.einsum("bsd,df->bsf", x_in, p["w1"]) + p["b1"]
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)   # jax.nn.gelu's default
-    return torch.einsum("bsf,fd->bsd", h, p["w2"]) + p["b2"]
+    out = torch.einsum("bsf,fd->bsd", h, p["w2"])
+    return (out if tp is None else tp.reduce(out)) + p["b2"]

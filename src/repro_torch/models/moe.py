@@ -28,6 +28,17 @@ model's type, as the reference does.
 path without a mesh and ``"gather_dshard"`` changes only sharding
 constraints, so on one card every mode computes ``"gather"``.
 
+Expert parallelism (``tp``, the train step on a mesh with a "model" axis
+whose size divides E): each model rank holds E / m experts' ``wg``,
+``wu``, ``wd`` (or ``w1``, ``w2``) and a slot grid (E / m, B·C, d) of its
+own. Routing, capacity and the load-balance statistics are computed whole
+on every rank (each routes the same rows); dispatch scatters only the
+assignments routed to the rank's experts, and the combine is the
+reference's ``_combine_manual``: a gather of the rank's slots, the rest
+masked out, then one all-reduce over "model". The tokens and the combine
+weights enter the region through ``tp.copy``, so the router's gradient is
+summed over the ranks' experts once and its load-balance part is not.
+
 Top-k ties: ``torch.topk`` does not promise the lower index on a tie as
 ``jax.lax.top_k`` does. The router's f32 probabilities of continuous
 inputs do not tie in practice; the tests draw their inputs so.
@@ -132,7 +143,21 @@ def _positions(topi, E: int, C: int):
     return pos, pos < C
 
 
-def moe_block_scatter(x, p, cfg, group=None):
+def _local_experts(x, topv, topi, keep, cfg, tp):
+    """Under expert parallelism: (x and the combine weights entering the
+    region, this rank's expert of each assignment (clipped into its
+    block), the assignments it keeps: routed to its experts and inside
+    capacity, its expert count, its first expert). Without: the whole."""
+    E = cfg.n_experts
+    if tp is None or not tp.splits_experts(E):
+        return x, topv, topi, keep, E, None
+    El = E // tp.size
+    local = topi - tp.index * El
+    mine = (local >= 0) & (local < El)
+    return tp.copy(x), tp.copy(topv), local.clamp(0, El - 1), keep & mine, El, tp
+
+
+def moe_block_scatter(x, p, cfg, group=None, tp=None):
     """The dispatch of ``moe_block``: scatter-add into the slot grid, the
     experts, then a weighted gather. Returns (out (B, S, d), aux)."""
     B, S, d = x.shape
@@ -140,15 +165,16 @@ def moe_block_scatter(x, p, cfg, group=None):
     C = capacity(cfg, S)
     topv, topi, aux = _route(x, p, cfg, group)
     pos, keep = _positions(topi, E, C)
-    # slot of each assignment in the (E, B, C) grid; dropped ones clipped to
-    # C − 1 with a zero update
+    x, topv, topi, keep, El, tp = _local_experts(x, topv, topi, keep, cfg, tp)
+    # slot of each assignment in the (El, B, C) grid; dropped ones (and,
+    # under expert parallelism, other ranks' ones) clipped with a zero update
     slot = (topi * B + torch.arange(B, device=x.device)[:, None, None]) * C \
         + pos.clamp(max=C - 1)
 
     slot = slot.reshape(-1)                                           # (b, s, k) order
-    xd = x.new_zeros((E * B * C, d))
+    xd = x.new_zeros((El * B * C, d))
     xd.index_add_(0, slot, (x[:, :, None] * keep[..., None].to(x.dtype)).reshape(-1, d))
-    yd = _expert_ffn(xd.view(E, B * C, d), p, cfg).reshape(E * B * C, d)
+    yd = _expert_ffn(xd.view(El, B * C, d), p, cfg).reshape(El * B * C, d)
     del xd
 
     wts = (topv * keep.float()).to(x.dtype)                           # (B, S, k)
@@ -156,46 +182,49 @@ def moe_block_scatter(x, p, cfg, group=None):
     out = torch.zeros_like(x)
     for kk in range(k):
         out = out + g[:, :, kk] * wts[..., kk:kk + 1]
-    return out, aux
+    return (out if tp is None else tp.reduce(out)), aux
 
 
-def moe_block_einsum(x, p, cfg, group=None):
+def moe_block_einsum(x, p, cfg, group=None, tp=None):
     """One-hot einsum dispatch (the oracle; small shapes only)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = capacity(cfg, S)
     topv, topi, aux = _route(x, p, cfg, group)
     pos, keep = _positions(topi, E, C)
+    x, topv, topi, keep, El, tp = _local_experts(x, topv, topi, keep, cfg, tp)
     keep = keep.float()
     pos = pos.clamp(max=C - 1)
-    # dispatch tensor (B, S, k, E, C)
-    de = _one_hot(topi, E) * keep[..., None]
+    # dispatch tensor (B, S, k, El, C)
+    de = _one_hot(topi, El) * keep[..., None]
     dc = _one_hot(pos, C)
     disp = torch.einsum("bske,bskc->bsec", de, dc)
     xd = torch.einsum("bsec,bsd->ebcd", disp, x.float()).to(x.dtype)
-    yd = _expert_ffn(xd.reshape(E, B * C, d), p, cfg).view(E, B, C, d)
+    yd = _expert_ffn(xd.reshape(El, B * C, d), p, cfg).view(El, B, C, d)
     comb = torch.einsum("bske,bskc,bsk->bsec", de, dc, topv)
     out = torch.einsum("bsec,ebcd->bsd", comb, yd.float()).to(x.dtype)
-    return out, aux
+    return (out if tp is None else tp.reduce(out)), aux
 
 
-def moe_block(x, p, cfg, group=None):
+def moe_block(x, p, cfg, group=None, tp=None):
     """The MoE MLP over sequence chunks: the largest count up to
     ``cfg.moe_seq_chunks`` that divides S (S = 4097 gives one chunk, with
     the capacity of 4097 tokens). Returns (out, aux averaged over chunks).
     ``group``: the data-parallel ranks whose rows share the router's
-    statistics (:func:`_route`); capacity stays per row."""
+    statistics (:func:`_route`); capacity stays per row. ``tp``: expert
+    parallelism over "model"."""
     impl = moe_block_einsum if cfg.moe_impl == "einsum" else moe_block_scatter
+    kw = {} if tp is None else {"tp": tp}
     S = x.shape[1]
     nc = max(1, min(cfg.moe_seq_chunks, S))
     while S % nc:
         nc -= 1
     if nc == 1:
-        return impl(x, p, cfg, group)
+        return impl(x, p, cfg, group, **kw)
     outs, aux = [], 0.0
     n = S // nc
     for i in range(nc):
-        o, a = impl(x[:, i * n:(i + 1) * n], p, cfg, group)
+        o, a = impl(x[:, i * n:(i + 1) * n], p, cfg, group, **kw)
         outs.append(o)
         aux = aux + a
     return torch.cat(outs, dim=1), aux / nc

@@ -4,7 +4,11 @@ port of ``repro/models/rglru.py``.
 The recurrence h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t) runs
 through the RG-LRU scan kernel in prefill (from zeros) and in the
 one-token decode update (the scan at S = 1 from the carried state); the
-reference uses ``associative_scan`` and a fused jnp update there.
+reference uses ``associative_scan`` and a fused jnp update there. With
+``tp`` (the train step on a mesh with a "model" axis) the block runs on
+this rank's block of the ``rnn_width`` channels where they split: ``w_in``,
+``w_gate``, ``w_rg``, ``w_ig``, ``conv_w``, ``conv_b`` and ``lam`` its
+column blocks, ``w_out`` row-parallel, the scan on the local channels.
 """
 from __future__ import annotations
 
@@ -48,16 +52,19 @@ def _causal_conv(u, w, b, state=None):
     return y, ext[:, ext.shape[1] - (cw - 1):, :]
 
 
-def rglru_block(x, p, cfg, state=None):
+def rglru_block(x, p, cfg, state=None, tp=None):
     """x: (B, S, d) -> (B, S, d); state: None (prefill / forward) or
     {'conv': (B, cw-1, r), 'h': (B, r) f32} (decode). Returns (out, new_state)."""
-    u = torch.einsum("bsd,dr->bsr", x, p["w_in"])
-    g = F.gelu(torch.einsum("bsd,dr->bsr", x, p["w_gate"]).float(),
+    if tp is not None and not tp.splits(cfg.rnn_width):
+        tp = None
+    x_in = x if tp is None else tp.copy(x)
+    u = torch.einsum("bsd,dr->bsr", x_in, p["w_in"])
+    g = F.gelu(torch.einsum("bsd,dr->bsr", x_in, p["w_gate"]).float(),
                approximate="tanh").to(x.dtype)            # jax.nn.gelu's default
     u, new_conv = _causal_conv(u, p["conv_w"], p["conv_b"],
                                None if state is None else state["conv"])
-    rg = torch.sigmoid(torch.einsum("bsd,dr->bsr", x, p["w_rg"]).float())
-    ig = torch.sigmoid(torch.einsum("bsd,dr->bsr", x, p["w_ig"]).float())
+    rg = torch.sigmoid(torch.einsum("bsd,dr->bsr", x_in, p["w_rg"]).float())
+    ig = torch.sigmoid(torch.einsum("bsd,dr->bsr", x_in, p["w_ig"]).float())
     log_a = -_C_RGLRU * rg * F.softplus(p["lam"].float())
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
@@ -66,7 +73,7 @@ def rglru_block(x, p, cfg, state=None):
                           None if state is None else state["h"].contiguous())
     h = h.to(x.dtype) * g
     out = torch.einsum("bsr,rd->bsd", h, p["w_out"])
-    return out, {"conv": new_conv, "h": new_h}
+    return (out if tp is None else tp.reduce(out)), {"conv": new_conv, "h": new_h}
 
 
 def rglru_init_state(cfg, batch: int, dtype, device=None):

@@ -11,6 +11,16 @@ The reference's whole chunk loop (``rwkv_time_mix``'s scan of
 prefill, from the carried state in decode (S = 1). Where S is not a
 multiple of the chunk the kernel takes a ragged last chunk; the reference
 takes one chunk of S tokens there — the same function up to rounding.
+
+With ``tp`` (the train step on a mesh with a "model" axis) the time mix
+runs on this rank's block of the padded heads: ``wr``, ``wk``, ``wv``,
+``wg``, ``decay_base``, ``decay_b``, ``ln_out`` and ``bonus_u`` its blocks,
+``wo`` row-parallel. The data-dependent mixes (and the decay LoRA's first
+product) are computed whole before the region. The heads pad to 16 at
+every mesh, as the reference's ``rwkv_heads(cfg)``, so at reduced width a
+rank may hold padding alone: it launches no scan. The channel mix splits
+``d_ff``: ``wk`` column-parallel, ``wv`` row-parallel, ``wr`` replicated
+(its gate computed before the region).
 """
 from __future__ import annotations
 
@@ -85,48 +95,67 @@ def _project_heads(x, w, Hp, hd):
     return y.reshape(x.shape[0], x.shape[1], Hp, hd)
 
 
-def rwkv_time_mix(x, p, cfg, state=None):
+def rwkv_time_mix(x, p, cfg, state=None, tp=None):
     """Time-mix sublayer. state: None (prefill / forward) or
-    {'S': (B, Hp, hd, hd) f32, 'shift': (B, d)} (decode)."""
+    {'S': (B, Hp, hd, hd) f32, 'shift': (B, d)} (decode). ``tp``: this
+    rank's block of the heads (training only)."""
     B, S, d = x.shape
     hd = cfg.rwkv_head_dim
     H, Hp = rwkv_heads(cfg)
+    if tp is not None and not tp.splits(Hp):
+        tp = None
+    Hl = p["bonus_u"].shape[0]                             # this rank's heads
+    lo = 0 if tp is None else tp.index * Hl
 
     xp = _token_shift(x, None if state is None else state["shift"])
     xr, xk, xv, xw, xg = (_ddlerp(x, xp, p, s) for s in _STREAMS)
-    r = _project_heads(xr, p["wr"], Hp, hd)
-    k = _project_heads(xk, p["wk"], Hp, hd)
-    v = _project_heads(xv, p["wv"], Hp, hd)
+    lw = torch.tanh(torch.einsum("bsd,dl->bsl", xw, p["decay_a"]))
+    if tp is not None:
+        xr, xk, xv, xg, lw = (tp.copy(t) for t in (xr, xk, xv, xg, lw))
+    r = _project_heads(xr, p["wr"], Hl, hd)
+    k = _project_heads(xk, p["wk"], Hl, hd)
+    v = _project_heads(xv, p["wv"], Hl, hd)
     g = F.silu(torch.einsum("bsd,de->bse", xg, p["wg"]).float())
 
-    ww = p["decay_base"].float() + torch.einsum(
-        "bsl,le->bse", torch.tanh(torch.einsum("bsd,dl->bsl", xw, p["decay_a"])).float(),
-        p["decay_b"].float())
+    ww = p["decay_base"].float() + torch.einsum("bsl,le->bse", lw.float(),
+                                                p["decay_b"].float())
     # log w = -exp(ww)  (clamped for chunk numerics; w ∈ (~e^-20, 1))
-    logw = -torch.exp(torch.clamp(ww, -8.0, 3.0)).reshape(B, S, Hp, hd)
+    logw = -torch.exp(torch.clamp(ww, -8.0, 3.0)).reshape(B, S, Hl, hd)
     u = p["bonus_u"].float()
 
-    o, St = rwkv6_scan(r.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                       logw.transpose(1, 2), u, chunk=cfg.rwkv_chunk,
-                       s0=None if state is None else state["S"])
-    o = o.transpose(1, 2)                                  # (B, S, Hp, hd) f32
-    if Hp != H:
-        o = o * (torch.arange(Hp, device=x.device) < H).float()[None, None, :, None]
+    if lo >= H:
+        # padding alone: no scan; the zeros the head mask leaves
+        o = tp.anchor(torch.zeros((B, S, Hl, hd), dtype=torch.float32, device=x.device),
+                      r, k, v, logw, u)
+        St = torch.zeros((B, Hl, hd, hd), dtype=torch.float32, device=x.device)
+    else:
+        o, St = rwkv6_scan(r.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                           logw.transpose(1, 2), u, chunk=cfg.rwkv_chunk,
+                           s0=None if state is None else state["S"])
+        o = o.transpose(1, 2)                              # (B, S, Hl, hd) f32
+        if lo + Hl > H:
+            o = o * (torch.arange(lo, lo + Hl, device=x.device) < H).float()[
+                None, None, :, None]
     o = o.to(x.dtype)
-    o = group_rmsnorm(o, p["ln_out"].reshape(Hp, hd), Hp).reshape(B, S, Hp * hd)
+    o = group_rmsnorm(o, p["ln_out"].reshape(Hl, hd), Hl).reshape(B, S, Hl * hd)
     o = (o.float() * g).to(x.dtype)
     out = torch.einsum("bse,ed->bsd", o, p["wo"])
-    return out, {"S": St, "shift": x[:, -1, :]}
+    return (out if tp is None else tp.reduce(out)), {"S": St, "shift": x[:, -1, :]}
 
 
-def rwkv_channel_mix(x, p, cfg, state=None):
+def rwkv_channel_mix(x, p, cfg, state=None, tp=None):
+    """Channel-mix sublayer; ``tp``: this rank's block of ``d_ff``."""
+    if tp is not None and not tp.splits(cfg.d_ff):
+        tp = None
     xp = _token_shift(x, None if state is None else state["shift"])
     xk = x + (xp - x) * p["mu_k"]
     xr = x + (xp - x) * p["mu_r"]
-    k = torch.einsum("bsd,df->bsf", xk, p["wk"])
+    k = torch.einsum("bsd,df->bsf", xk if tp is None else tp.copy(xk), p["wk"])
     k = torch.square(F.relu(k.float())).to(x.dtype)
     rgate = torch.sigmoid(torch.einsum("bsd,de->bse", xr, p["wr"]).float())
     out = torch.einsum("bsf,fd->bsd", k, p["wv"])
+    if tp is not None:
+        out = tp.reduce(out)
     out = (out.float() * rgate).to(x.dtype)
     return out, {"shift": x[:, -1, :]}
 

@@ -19,10 +19,15 @@ A model is a repeating unit of sublayers (``cfg.block_pattern``) applied
 reference's nested-dict layout, unit leaves stacked ``(n_units, …)``; a
 Python loop over the units replaces ``lax.scan``. The reference's
 sharding rules have no single-card counterpart and are left out of every
-signature. Under grad, ``remat="full"`` recomputes each unit in the
-backward (``torch.utils.checkpoint``), as the reference's
-``jax.checkpoint`` does, and ``remat="dots"`` keeps only the outputs of
-the matmuls with no batch dimension (selective checkpointing), as its
+signature; the train step on a mesh with a "model" axis passes ``tp`` (a
+``core.tensor_parallel.TensorParallel``) to ``forward`` and
+``chunked_xent`` instead: each block runs on this rank's heads, channels
+or experts, the embedding reads the table with its columns gathered over
+"model", and the head and the loss are vocab-parallel. Under grad,
+``remat="full"`` recomputes each unit in the backward
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does,
+and ``remat="dots"`` keeps only the outputs of the matmuls with no batch
+dimension (selective checkpointing), as its
 ``checkpoint_dots_with_no_batch_dims`` policy does.
 
 The cache is mutable: ``decode_step`` writes the new token's K/V into the
@@ -154,43 +159,45 @@ def _index(tree, i: int):
 # ---------------------------------------------------------------------------
 
 def _apply_sublayer(x, p, cfg: ModelConfig, kind: str, positions, cache=None, media=None,
-                    router_group=None):
+                    router_group=None, tp=None):
     """Returns (x, new_cache, aux). With cache=None an attention sublayer
     hands back its (k, v) for prefill's cache; a ``cross`` sublayer keeps
     its cache as it is. ``aux`` is the MoE router's load-balance loss (0.0
     without experts): with ``router_group`` this rank's part of the loss
-    over the group's rows (``moe.moe_block``)."""
+    over the group's rows (``moe.moe_block``). ``tp``: tensor and expert
+    parallelism over "model" (training)."""
     aux = 0.0
     if kind in ("attn", "cross"):
         h = L.norm(x, p["norm1"], cfg.norm)
         if kind == "attn":
             a, new_cache = L.self_attention(h, p["attn"], cfg, positions, window=cfg.window,
-                                            cache=cache)
+                                            cache=cache, tp=tp)
         else:
-            a, new_cache = L.cross_attention(h, p["attn"], cfg, media), cache
+            a, new_cache = L.cross_attention(h, p["attn"], cfg, media, tp), cache
         x = x + a
         h = L.norm(x, p["norm2"], cfg.norm)
         if cfg.n_experts:
-            mo, aux = M.moe_block(h, p["moe"], cfg, router_group)
+            mo, aux = M.moe_block(h, p["moe"], cfg, router_group, tp)
             if cfg.dense_residual:
-                mo = mo + L.mlp_block(h, p["mlp"], cfg)
+                mo = mo + L.mlp_block(h, p["mlp"], cfg, tp)
         else:
-            mo = L.mlp_block(h, p["mlp"], cfg)
+            mo = L.mlp_block(h, p["mlp"], cfg, tp)
         x = x + mo
     elif kind == "rglru":
         h = L.norm(x, p["norm1"], cfg.norm)
-        a, new_cache = R.rglru_block(h, p["rglru"], cfg, state=cache)
+        a, new_cache = R.rglru_block(h, p["rglru"], cfg, state=cache, tp=tp)
         x = x + a
         h = L.norm(x, p["norm2"], cfg.norm)
-        x = x + L.mlp_block(h, p["mlp"], cfg)
+        x = x + L.mlp_block(h, p["mlp"], cfg, tp)
     elif kind == "rwkv":
         h = L.norm(x, p["norm1"], cfg.norm)
         a, tstate = W.rwkv_time_mix(h, p["time"], cfg,
-                                    state=None if cache is None else cache["time"])
+                                    state=None if cache is None else cache["time"], tp=tp)
         x = x + a
         h = L.norm(x, p["norm2"], cfg.norm)
         c, cstate = W.rwkv_channel_mix(h, p["channel"], cfg,
-                                       state=None if cache is None else cache["channel"])
+                                       state=None if cache is None else cache["channel"],
+                                       tp=tp)
         x = x + c
         new_cache = {"time": tstate, "channel": cstate}
     else:
@@ -199,14 +206,14 @@ def _apply_sublayer(x, p, cfg: ModelConfig, kind: str, positions, cache=None, me
 
 
 def _apply_unit(x, unit_p, cfg: ModelConfig, positions, unit_cache=None, media=None,
-                router_group=None):
+                router_group=None, tp=None):
     new_cache = {}
     aux_total = 0.0
     for i, kind in enumerate(cfg.block_pattern):
         key = f"{i}_{kind}"
         c = None if unit_cache is None else unit_cache.get(key)
         x, nc, aux = _apply_sublayer(x, unit_p[key], cfg, kind, positions, cache=c,
-                                     media=media, router_group=router_group)
+                                     media=media, router_group=router_group, tp=tp)
         new_cache[key] = nc
         aux_total = aux_total + aux
     return x, new_cache, aux_total
@@ -216,34 +223,45 @@ def _apply_unit(x, unit_p, cfg: ModelConfig, positions, unit_cache=None, media=N
 # embedding / head
 # ---------------------------------------------------------------------------
 
-def _embed_tokens(params, tokens, cfg: ModelConfig):
-    x = params["embed"][tokens].to(_dtype(cfg))
+def _embed_tokens(params, tokens, cfg: ModelConfig, tp=None):
+    """The table's rows of ``tokens``. With ``tp`` holding the table's
+    columns (its "tensor_cols" on "model") each rank looks up its columns
+    and the rows are gathered over "model" (the reference's reshard of the
+    table to ("vocab_rows", None), at the rows' size instead of the
+    table's); every rank's gradient there is whole, so the backward takes
+    the rank's slice."""
+    if tp is not None and tp.splits(cfg.d_model):
+        x = tp.gather(params["embed"][tokens], -1).to(_dtype(cfg))
+    else:
+        x = params["embed"][tokens].to(_dtype(cfg))
     # the reference multiplies by a weakly typed Python float: the factor is
     # rounded to the activation type first
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
 
 
-def _project(params, name: str, emb, cfg: ModelConfig):
+def _project(params, name: str, emb, cfg: ModelConfig, tp=None):
     """Precomputed frame or patch embeddings through ``frame_proj`` /
-    ``patch_proj``, in the model's type."""
-    return torch.einsum("bsd,de->bse", emb.to(_dtype(cfg)), params[name])
+    ``patch_proj``, in the model's type; with ``tp`` through this rank's
+    output columns, gathered over "model"."""
+    y = torch.einsum("bsd,de->bse", emb.to(_dtype(cfg)), params[name])
+    return tp.gather(y, -1) if tp is not None and tp.splits(cfg.d_model) else y
 
 
-def embed_inputs(params, batch: Dict[str, Any], cfg: ModelConfig):
+def embed_inputs(params, batch: Dict[str, Any], cfg: ModelConfig, tp=None):
     """Returns (x (B, S, d), media (B, T, d) or None, labels (B, S),
     positions (B, S)). Frames bring their labels; tokens are their own,
     shifted by one."""
     media = None
     if cfg.frontend == "frames":
         # musicgen: precomputed EnCodec frame embeddings (stub frontend)
-        x = _project(params, "frame_proj", batch["frames"], cfg)
+        x = _project(params, "frame_proj", batch["frames"], cfg, tp)
         labels = batch["labels"]
     else:
         tokens = batch["tokens"]
-        x = _embed_tokens(params, tokens, cfg)
+        x = _embed_tokens(params, tokens, cfg, tp)
         labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
         if cfg.frontend == "patches":
-            media = _project(params, "patch_proj", batch["patches"], cfg)
+            media = _project(params, "patch_proj", batch["patches"], cfg, tp)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     return x, media, labels, positions
@@ -254,6 +272,19 @@ def unembed(params, x, cfg: ModelConfig):
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, params["embed"])
     return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+
+
+def _tp_head(params, cfg: ModelConfig, tp):
+    """(the head's weight as this rank reads it, whether the logits split
+    over the vocabulary). Vocab-parallel: the untied ``lm_head``'s block of
+    V columns, or the tied table read as its block of V rows
+    (``tp.rows_of_columns``: the reference's reshard to ("vocab", None)).
+    Else the whole head, the tied table's columns gathered if they split."""
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    vocab = tp.vocab_parallel(cfg)
+    if cfg.tie_embeddings and tp.splits(cfg.d_model):
+        table = tp.rows_of_columns(table) if vocab else tp.gather(table, 1)
+    return table, vocab
 
 
 # ---------------------------------------------------------------------------
@@ -276,19 +307,21 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _unit_step(cfg: ModelConfig, positions, media=None, unit_gather=None, router_group=None):
+def _unit_step(cfg: ModelConfig, positions, media=None, unit_gather=None, router_group=None,
+               tp=None):
     """One unit as the forward applies it. Under grad, ``remat="full"``
     recomputes its activations in the backward instead of keeping them (the
     reference's ``nothing_saveable`` policy) and ``remat="dots"`` keeps the
     outputs of its matmuls with no batch dimension (:func:`_save_dots`).
     ``unit_gather`` (FSDP) turns the unit's parameter shards into full
-    leaves inside that boundary, so the recompute gathers again. The unit
-    draws no random numbers, so no RNG state is saved for the recompute."""
+    leaves inside that boundary, so the recompute gathers again; ``tp``
+    runs the unit's blocks on this rank's part of "model". The unit draws
+    no random numbers, so no RNG state is saved for the recompute."""
     def step(x, unit_p):
         if unit_gather is not None:
             unit_p = unit_gather(unit_p)
         return _apply_unit(x, unit_p, cfg, positions, media=media,
-                           router_group=router_group)[::2]
+                           router_group=router_group, tp=tp)[::2]
     if cfg.remat not in ("full", "dots") or not torch.is_grad_enabled():
         return step
     kw = ({"context_fn": lambda: create_selective_checkpoint_contexts(_save_dots)}
@@ -308,19 +341,19 @@ def _units(tree, n: int):
     return torch.unbind(tree)
 
 
-def forward(params, batch, cfg: ModelConfig, unit_gather=None, router_group=None):
+def forward(params, batch, cfg: ModelConfig, unit_gather=None, router_group=None, tp=None):
     """Full forward: returns (pre-head activations, labels, aux).
-    ``unit_gather`` and ``router_group`` are the FSDP train step's
-    (:func:`_unit_step`, :func:`_apply_sublayer`)."""
-    x, media, labels, positions = embed_inputs(params, batch, cfg)
-    step = _unit_step(cfg, positions, media, unit_gather, router_group)
+    ``unit_gather``, ``router_group`` and ``tp`` are the train step's on a
+    mesh (:func:`_unit_step`, :func:`_apply_sublayer`)."""
+    x, media, labels, positions = embed_inputs(params, batch, cfg, tp)
+    step = _unit_step(cfg, positions, media, unit_gather, router_group, tp)
     aux_total = 0.0
     for unit_p in _units(params["unit"], cfg.n_units):
         x, aux = step(x, unit_p)
         aux_total = aux_total + aux
     for i, kind in enumerate(cfg.tail_pattern):
         x, _, aux = _apply_sublayer(x, params["tail"][f"{i}_{kind}"], cfg, kind, positions,
-                                    media=media, router_group=router_group)
+                                    media=media, router_group=router_group, tp=tp)
         aux_total = aux_total + aux
     return x, labels, aux_total
 
@@ -346,15 +379,27 @@ def loss_chunks(cfg: ModelConfig, S: int) -> int:
     return nc
 
 
-def chunked_xent(params, x, labels, mask, cfg: ModelConfig):
+def chunked_xent(params, x, labels, mask, cfg: ModelConfig, tp=None):
     """(Σ nll·mask, Σ mask) over the sequence in ``loss_chunks`` pieces, so
-    the (B, S, vocab) logits never exist whole."""
+    the (B, S, vocab) logits never exist whole. With ``tp`` the head and
+    the loss are vocab-parallel where the vocabulary splits
+    (:func:`_tp_head`, ``TensorParallel.vocab_xent``): each rank's logits
+    are its block of V, and the loss is alike on every model rank."""
     S = x.shape[1]
     nc = loss_chunks(cfg, S)
     tot = cnt = 0.0
+    if tp is not None:
+        head, vocab = _tp_head(params, cfg, tp)
+        form = "bsd,vd->bsv" if cfg.tie_embeddings else "bsd,dv->bsv"
+        xent = tp.vocab_xent if vocab else _xent
     for i in range(nc):
         sl = slice(i * (S // nc), (i + 1) * (S // nc))
-        t, c = _xent(unembed(params, x[:, sl], cfg), labels[:, sl], mask[:, sl])
+        if tp is None:
+            t, c = _xent(unembed(params, x[:, sl], cfg), labels[:, sl], mask[:, sl])
+        else:
+            h = L.norm(x[:, sl], params["final_norm"], cfg.norm)
+            t, c = xent(torch.einsum(form, tp.copy(h) if vocab else h, head), labels[:, sl],
+                        mask[:, sl])
         tot, cnt = tot + t, cnt + c
     return tot, cnt
 

@@ -44,6 +44,7 @@ from repro_torch.core import compression  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import specs  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -557,15 +558,28 @@ def test_filter_valid_spec_and_padding_match_reference():
 
 def test_rules_choose_the_schedule():
     """FSDP on: the two-step schedule; replicated: the flat all-reduce;
-    tensor or expert parallelism over a mesh axis larger than 1 raises,
-    naming the ROADMAP item."""
+    either beside tensor and expert parallelism over "model", whenever the
+    mesh has that axis, of any size. Tensor or expert parallelism over
+    another axis raises, and so does what item 1e still lacks: the int8
+    transport over a "model" axis larger than 1, and serving over one."""
     rules = sharding.ShardingRules()
     assert sharding.reduce_schedule(rules, {"pod": 2, "data": 4, "model": 1}) == "two_step"
     assert sharding.reduce_schedule(rules.replicated(), {"data": 4, "model": 1}) == "classical"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 1e"):
-        sharding.reduce_schedule(rules, {"data": 2, "model": 2})
+    for shape in ({"data": 2, "model": 2}, {"pod": 2, "data": 16, "model": 16}):
+        assert sharding.reduce_schedule(rules, shape) == "two_step"
+        assert sharding.reduce_schedule(rules.replicated(), shape) == "classical"
+    assert sharding.model_parallel(rules, {"data": 2, "model": 1}) == (True, True)
+    assert sharding.model_parallel(rules, {"pod": 2, "data": 4}) == (False, False)
+    assert sharding.model_parallel(rules.with_(expert=None), {"model": 4}) == (True, False)
     with pytest.raises(NotImplementedError, match="expert parallelism"):
         sharding.reduce_schedule(rules.with_(tensor=None, expert="data"), {"data": 2})
+    cfg = configs.get_smoke("qwen2-0.5b")
+    tp2 = mesh_mod.AbstractMesh({"pod": 2, "data": 2, "model": 2})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 1e"):
+        specs.make_train_step(cfg, mesh=tp2, transport="two_step_int8")
+    with pytest.raises(NotImplementedError, match="item 1e, serving over 'model'"):
+        specs.input_specs(cfg, ShapeConfig("p", 16, 4, "prefill"), {"data": 2, "model": 2})
+    assert specs.make_train_step(cfg, mesh=tp2).layout.tp.size == 2
 
 
 # ------------------------------------------------------------ the per-leaf API

@@ -14,7 +14,10 @@ against an analytic sum; the segment identity against the direct count;
 the CPU count against the ``meta`` count; a view moves nothing; every
 kernel's cost function at its PERF.md §6 row's shape gives that row's
 Bound ms; nothing takes ``meta`` outside a counter. The command: a record
-with the reference's keys, and the meshes the port does not run raise.
+with the reference's keys; on the production meshes train cells are
+counted with the tensor-parallel region's "model" bytes and serving cells
+raise; each rank's shard shapes there match the reference's; the
+reference's (2, 2, 2) system checks on the port's abstract mesh.
 """
 import dataclasses
 import json
@@ -112,6 +115,11 @@ for a in archs:
             out["specs"][a][f"{name}/{mode}"] = {
                 k: spec(v.spec) for k, v in paths(shard)}
     mesh, rules = meshes["single"], dryrun.rules_for_mesh(meshes["single"])
+    p16, _ = transformer.init_params(cfg, abstract=True, tp=16)
+    _, shard = S.param_shardings(cfg, mesh, rules)
+    flat_p = dict(paths(p16))
+    out.setdefault("shard_shapes", {})[a] = {k: list(s.shard_shape(tuple(flat_p[k].shape)))
+                                             for k, s in paths(shard)}
     out["batch"][a] = {}
     for kind, decode in (("train", False), ("prefill", False), ("decode", True)):
         shp = ShapeConfig("x", 64, 32, kind)
@@ -225,6 +233,26 @@ def test_logical_tree_and_specs_match_reference(ref, arch):
                                              dryrun.rules_for_mesh(axes, mode))
             got = {k: _spec(v) for k, v in _paths(shard)}
             assert got == ref["specs"][arch][f"{mesh}/{mode}"], (arch, mesh, mode)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_rank_shard_shapes_match_reference_on_16x16(ref, arch):
+    """The config oracle of tensor parallelism: the leaves rank 0 of the
+    16 × 16 ("data", "model") mesh holds under the sfl rules (the train
+    step's layout, FSDP over "data" and blocks over "model") have the
+    shapes of the reference's ``NamedSharding.shard_shape`` there, every
+    leaf of every architecture: a padded head count, or a dimension that
+    ``filter_valid_spec`` leaves whole, cannot drift."""
+    cfg = configs.get(arch)
+    shape = {"data": 16, "model": 16}
+    rules = dryrun.rules_for_mesh(shape)
+    params, _ = specs.param_shardings(cfg, shape, rules)
+    layout = specs.make_train_step(cfg, mesh=AbstractMesh(shape), rules=rules).layout
+    held = layout.shard(params)
+    got = {k: list(v.shape) for k, v in _paths(held)}
+    assert got == ref["shard_shapes"][arch]
+    assert all(v.device.type == "meta" for _, v in _paths(held))
+    assert layout.tp.size == 16 and layout.tp.index == 0
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
@@ -587,19 +615,69 @@ def test_data_parallel_record_reckons_the_pod_hop(tmp_path):
 
 @pytest.mark.parametrize("arch,mesh", [("qwen2-0.5b", "single"), ("qwen2-0.5b", "both")])
 def test_meshes_the_port_does_not_run_raise_naming_1e(arch, mesh, tmp_path, capsys):
-    """Tensor parallelism over "model" (the reference's production meshes):
-    each cell fails naming item 1e and writes no record."""
+    """The reference's production meshes (tensor and expert parallelism
+    over "model"): a train cell, cut to 2 layers, writes a record with
+    "model" bytes on each mesh; a prefill cell, which the port does not run
+    there, fails naming the serving part of item 1e and writes no record."""
+    n = 2 if mesh == "both" else 1
+    dryrun.main(["--arch", arch, "--shape", "train_4k", "--mesh", mesh, "--set", "n_layers=2",
+                 "--no-segments", "--out", str(tmp_path / "train")])
+    recs = [json.loads(f.read_text()) for f in sorted((tmp_path / "train").iterdir())]
+    assert len(recs) == n
+    for rec in recs:
+        coll = rec["whole_program"]["coll_bytes_by_axis"]
+        assert coll["model"] > 0 and coll["data"] > 0, rec["mesh"]
+        assert ("pod" in coll) == (rec["mesh"] == "multi")
+    capsys.readouterr()
     with pytest.raises(SystemExit):
         dryrun.main(["--arch", arch, "--shape", "prefill_32k", "--mesh", mesh,
-                     "--no-segments", "--out", str(tmp_path)])
+                     "--no-segments", "--out", str(tmp_path / "prefill")])
     out = capsys.readouterr().out
-    assert "FAILURES" in out and out.count("item 1e") == (2 if mesh == "both" else 1)
-    assert not list(tmp_path.iterdir())
+    assert "FAILURES" in out and out.count("item 1e, serving over") == n
+    assert not (tmp_path / "prefill").exists()
     shape = dryrun.parse_mesh("single" if mesh == "both" else mesh)[1]
     rules = dryrun.rules_for_mesh(shape)
     with pytest.raises(NotImplementedError, match="item 1e"):
-        dryrun._check_mesh(shape, rules)
+        dryrun._check_mesh(shape, rules, "prefill")
+    with pytest.raises(NotImplementedError, match="item 1e"):
         specs.input_specs(configs.get(arch), shape_by_name("prefill_32k"), shape, rules)
+
+
+POD2_DATA2_MODEL2 = {"pod": 2, "data": 2, "model": 2}
+
+
+def test_dryrun_reduced_recurrentgemma_on_pod2_data2_model2():
+    """The reference's ``test_dryrun_small_mesh_subprocess`` on the port's
+    abstract (2, 2, 2) mesh: a reduced recurrentgemma-9b train cell (64 ×
+    8, adamw) counts positive compute and collective terms, the cross-pod
+    hop among its collectives, and the tensor-parallel region's "model"
+    bytes."""
+    cfg = configs.get_smoke("recurrentgemma_9b")
+    shp = ShapeConfig("t", 64, 8, "train")
+    rules = dryrun.rules_for_mesh(POD2_DATA2_MODEL2)
+    fn, args = specs.input_specs(cfg, shp, POD2_DATA2_MODEL2, rules, "adamw")
+    with roofline.Counter() as c:
+        fn(*args)
+    segs = segments.cell_cost(cfg, shp, POD2_DATA2_MODEL2, rules, "adamw")
+    terms = roofline.roofline_terms(segs["total"], POD2_DATA2_MODEL2)
+    assert terms["compute_s"] > 0 and terms["collective_s"] > 0
+    assert segs["total"].coll.get("pod", 0) > 0
+    assert segs["total"].coll.get("model", 0) > 0 and c.coll.get("model", 0) > 0
+
+
+def test_sfl_moves_fewer_pod_bytes_than_classical_under_tensor_parallelism():
+    """The reference's ``test_sfl_vs_classical_cross_pod_traffic`` on the
+    port's abstract (2, 2, 2) mesh with ``tensor="model"``: the SFL
+    schedule moves fewer cross-pod bytes than the classical flat
+    all-reduce for a reduced olmo-1b (64 × 8, sgd), and both run the same
+    "model" region."""
+    cfg = configs.get_smoke("olmo_1b")
+    shp = ShapeConfig("t", 64, 8, "train")
+    coll = {mode: segments.cell_cost(cfg, shp, POD2_DATA2_MODEL2,
+                                     dryrun.rules_for_mesh(POD2_DATA2_MODEL2, mode),
+                                     "sgd")["total"].coll for mode in ("sfl", "classical")}
+    assert coll["sfl"]["pod"] < coll["classical"]["pod"]
+    assert coll["sfl"]["model"] == coll["classical"]["model"] > 0
 
 
 def test_moe_cell_is_counted_on_data2(tmp_path):

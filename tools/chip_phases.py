@@ -7,6 +7,7 @@ before it in the full script.
     python3 tools/chip_phases.py phase_cost     # phase 19 alone: the cost model
     python3 tools/chip_phases.py phase_examples # phase 20 alone: the examples
     python3 tools/chip_phases.py phase_fsdp     # phase 21 alone: FSDP, MoE over ranks
+    python3 tools/chip_phases.py phase_tp       # phase 22 alone: TP and EP over "model"
 
 ``phase_card`` and ``phase_build`` always run first (the card's name and
 power limit, every kernel built). Each phase prints as in the full script,
