@@ -280,21 +280,49 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              cut to 4 layers (phase 13's setting: bf16, remat full, batch
              8 × 2048, sgdm, lr 3e-4), 2 steps each with mesh=None, under
              the FSDP rules (every gather and reduce-scatter a copy on one
-             rank) and with ``transport="two_step_int8"``: FSDP's losses and
-             parameters against mesh=None's (bit for bit or by how much),
-             the int8 step-0 loss within 1e-6 of FSDP's, the router's
-             all-reduced statistics against the local ones; each way's warm
-             step s, peak memory, and the bytes the gathers moved a step;
-             flash attention (forward and backward), quantize_rows and
-             dequantize_rows launched and held against their plain versions
-             at the path's shapes (``HeldCalls``).
+             rank) and with ``transport="two_step_int8"`` three ways: on
+             full replicas over "data", under FSDP, and under TP + FSDP:
+             FSDP's losses and parameters against mesh=None's (bit for bit
+             or by how much), the int8 step-0 loss within 1e-6 of FSDP's,
+             each sharded int8 way's losses and parameters against the
+             replica int8 way's, the router's all-reduced statistics against
+             the local ones; each way's warm step s, peak memory, and the
+             bytes the gathers moved a step; flash attention (forward and
+             backward), quantize_rows and dequantize_rows launched and held
+             against their plain versions at the path's shapes
+             (``HeldCalls``: the int8 hop's blocks).
+22. tp     — tensor and expert parallelism over "model" on NCCL with a
+             world of one (mesh ("data" 1, "model" 1)): qwen3-moe-30b-a3b
+             cut to 4 layers and qwen2-0.5b, 4 steps each with mesh=None,
+             TP and TP + FSDP, against mesh=None (bit for bit or by how
+             much), the region's bytes a step; then flash attention and the
+             two scans, forward and backward, at a 16-way rank's train
+             shapes.
+23. serve tp — serving over "model" on NCCL with a world of one (mesh
+             ("data" 1, "model" 1), the reference's rules: FSDP over
+             "data", tensor and expert parallelism over "model"):
+             recurrentgemma-9b and rwkv6-3b at full width and depth,
+             qwen3-moe-30b-a3b cut to 4 layers (capacity factor n_experts /
+             top_k), each prefilling 4 × 4096 into a cache of 8192 and
+             decoding 8 steps, greedy with mesh=None and fed those tokens
+             through ``specs.make_prefill_step`` / ``make_serve_step`` on
+             the mesh: logits against mesh=None's (bit for bit or by how
+             much, within 0.08), launches against the routing table, every
+             kernel call held against its plain version (``HeldCalls``);
+             every mesh=None decode attention call against the same cache
+             split into 16 sequence shards in one process
+             (``layers.partial_decode_attention`` and the combine; within
+             0.08): the sequence layout, which a world of one never takes;
+             then flash attention and the two scans at a 16-way serving
+             rank's shapes, prefill and decode.
 
-Every bound (phases 3-17) comes from the kernels' cost functions
+Every bound (phases 3-23) comes from the kernels' cost functions
 (``kernels.*_cost``) at ``launch.hw``'s peaks. Phases 4, 7, 10, 10b, 13,
-15, 16, 17, 18, 20 and 21 are the main paths (the FEMNIST
+15, 16, 17, 18, 20, 21, 22 and 23 are the main paths (the FEMNIST
 round uncompressed and compressed, LM serving, LM training, the LM gradient
 exchange, the event-simulator transport and hier_sfl, the event-driven
-runtime, the traced runs, the examples, FSDP and MoE over data ranks). The last lines are the
+runtime, the traced runs, the examples, FSDP and MoE over data ranks,
+training and serving over "model"). The last lines are the
 ``kernels`` JSON object and then ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 
@@ -304,6 +332,7 @@ run if they miss a launch of the port's kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -3828,6 +3857,16 @@ def _held_rglru_bwd(orig, a):
             all(torch.equal(g, w) for g, w in zip(got, want)))
 
 
+def _held_rwkv6(orig, a):
+    from repro_torch.kernels import rwkv6_scan_plain
+    o, s_out, _ = orig(**a)
+    po, ps = rwkv6_scan_plain(a["r"], a["k"], a["v"], a["logw"], a["u"], chunk=a["chunk"],
+                              s0=a["s0"])
+    err_o, ok_o = _within(o, po, 2e-3, 2e-3)
+    err_s, ok_s = _within(s_out, ps, 2e-3, 2e-3)
+    return max(err_o, err_s), ok_o and ok_s
+
+
 def _held_agg(orig, a):
     from repro_torch.kernels import segment_agg_reduce_plain
     x, wm, seg, n_seg = a["x"], a["wm"], a["seg"], a["n_seg"]
@@ -3861,8 +3900,10 @@ class HeldCalls:
     inputs copied; ``hold()`` then runs the kernel again on those inputs
     and holds it against its plain version, at the tolerances of the
     phases that hold it at their own shapes (flash attention as phases 9
-    and 12, the scans and quantize bit for bit, agg_reduce within
-    ATOL + RTOL_OF_ABS_SUM·Σ|w·x|). Recorded where each wrapper launches:
+    and 12, the RG-LRU scans and quantize bit for bit, agg_reduce within
+    ATOL + RTOL_OF_ABS_SUM·Σ|w·x|, the RWKV6 scan's output and state
+    within 2e-3 + 2e-3·|plain| as phase 9). Recorded where each wrapper
+    launches:
     its module's launch function, the one its counter steps beside."""
 
     # (module, function, kernel of the kernels line, its check)
@@ -3870,6 +3911,7 @@ class HeldCalls:
              ("flash_attention", "_backward", "flash_attention_bwd", _held_flash_bwd),
              ("rglru_scan", "_forward", "rglru_scan", _held_rglru),
              ("rglru_scan", "_backward", "rglru_scan_bwd", _held_rglru_bwd),
+             ("rwkv6_scan", "_forward", "rwkv6_scan", _held_rwkv6),
              ("agg_reduce", "_launch", "agg_reduce", _held_agg),
              ("agg_reduce", "launch_quantize", "quantize_rows", _held_quantize),
              ("quantize", "launch_quantize", "quantize_rows", _held_quantize),
@@ -4096,15 +4138,21 @@ def phase_fsdp() -> dict:
                                 rank=0, world_size=1)
         try:
             mesh = mesh_mod.make_test_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
-            ways = {"mesh=None": {}, "fsdp": {"mesh": mesh, "rules": build_rules(mesh, "sfl")},
-                    "two_step_int8": {"mesh": mesh, "transport": "two_step_int8"}}
+            sfl = build_rules(mesh, "sfl")
+            int8 = {"mesh": mesh, "transport": "two_step_int8"}
+            # the int8 transport on full replicas over "data" (and the TP
+            # region over "model"), under FSDP, and under TP + FSDP
+            ways = {"mesh=None": {}, "fsdp": {"mesh": mesh, "rules": sfl},
+                    "two_step_int8": dict(int8, rules=build_rules(mesh, "classical")),
+                    "two_step_int8 fsdp": dict(int8, rules=sfl.with_(tensor=None, expert=None)),
+                    "two_step_int8 tp+fsdp": dict(int8, rules=sfl)}
             runs = {}
             for label, kw in ways.items():
                 params = transformer.init_params(
                     cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
                 step = specs.make_train_step(cfg, opt, TRAIN["lr"], seed=0, **kw)
                 fsdp = step.layout is not None and step.layout.group is not None
-                check(fsdp == (label == "fsdp"),
+                check(fsdp == label.endswith("fsdp"),
                       f"fsdp: {label} holds {'shards' if fsdp else 'full replicas'}")
                 if step.layout is not None:
                     params = step.layout.shard(params)
@@ -4119,7 +4167,7 @@ def phase_fsdp() -> dict:
                     for i, batch in enumerate(batches):
                         # sgdm keeps no step counter: the int8 hop's noise a step
                         noise = ({"noise": torch.Generator(device="cuda").manual_seed(i)}
-                                 if label == "two_step_int8" else {})
+                                 if label.startswith("two_step_int8") else {})
                         torch.cuda.synchronize()
                         t0 = time.perf_counter()
                         params, state, loss = step(params, state, batch, **noise)
@@ -4140,11 +4188,12 @@ def phase_fsdp() -> dict:
                 check(all(math.isfinite(x) for x in losses), f"fsdp {label}: a loss is not "
                                                              "finite")
                 must = ["flash_attention", "flash_attention_bwd"] + (
-                    ["quantize_rows", "dequantize_rows"] if label == "two_step_int8" else [])
+                    ["quantize_rows", "dequantize_rows"] if label.startswith("two_step_int8")
+                    else [])
                 for k in must:
                     check(counts[k] > 0, f"fsdp {label}: {k} never launched")
-                if label == "fsdp":
-                    check(gathered > 0, "fsdp: no all-gather on the FSDP path")
+                if fsdp:
+                    check(gathered > 0, f"fsdp: no all-gather on the {label} path")
                 by_kernel = held.hold(f"fsdp {label}")
                 for k, n in counts.items():
                     check(n == 0 or k in by_kernel, f"fsdp {label}: {k} launched, never held")
@@ -4152,11 +4201,23 @@ def phase_fsdp() -> dict:
                       f"{by_kernel}, {held.skipped} signatures past the copy budget")
                 for k, n in counts.items():
                     launches[k] += n
-                if label == "fsdp":
+                if step.layout is not None:
                     params = step.layout.gather(params)
+                if label == "fsdp":
                     _fsdp_router_check(cfg, params, mesh_mod.axes_group(mesh, ("pod", "data")))
-                runs[label] = dict(losses=losses, params=None if label == "two_step_int8" else
-                                   {k: v.cpu() for k, v in _named_leaves(params)})
+                if label.startswith("two_step_int8 "):
+                    # each sharded way against the replica int8 way
+                    rep = runs["two_step_int8"]
+                    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, rep["losses"]))
+                    print(f"fsdp {label} vs two_step_int8 on replicas: losses "
+                          f"{'bit for bit' if losses == rep['losses'] else f'rel {rel:.2e}'}; "
+                          f"parameters {_tp_compare(label, params, rep['params'])}")
+                    check(rel <= 1e-6, f"fsdp {label}: losses differ from the replica int8 "
+                                       "way's")
+                    runs[label] = dict(losses=losses)
+                else:
+                    runs[label] = dict(losses=losses, params={k: v.cpu() for k, v in
+                                                              _named_leaves(params)})
                 del params, state, step
             _fsdp_compare(runs)
         finally:
@@ -4508,6 +4569,305 @@ def phase_tp():
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 23: serving over "model"
+# ---------------------------------------------------------------------------
+
+# (config, its cut): recurrentgemma-9b (windowed MQA ring, RG-LRU state) and
+# rwkv6-3b (RWKV6 state, 40 heads padded to 48) at full width and depth,
+# qwen3-moe-30b-a3b (expert-parallel decode) cut to 4 layers
+SERVE_TP_RUNS = (("recurrentgemma-9b", {}), ("rwkv6-3b", {}),
+                 ("qwen3-moe-30b-a3b", {"n_layers": 4}))
+SERVE_TP = dict(batch=4, prompt_len=4096, gen=8)
+SPLIT_SHARDS = 16          # the sequence layout's shards at a 16-way "model" axis
+SERVE_TOL = 0.08           # the serve path's bf16 tolerance (phase 10)
+
+
+def _split_decode(q, k, v, valid, softcap, n):
+    """The decode attention of ``q`` over a cache split into ``n`` sequence
+    shards in one process: each shard's partial softmax, then the combine
+    (a max and a sum over the stacked shards)."""
+    from repro_torch.models import layers
+    S = k.shape[1]
+    parts = [layers.partial_decode_attention(q, k[:, i * S // n:(i + 1) * S // n],
+                                             v[:, i * S // n:(i + 1) * S // n],
+                                             valid[i * S // n:(i + 1) * S // n], softcap)
+             for i in range(n)]
+    o, lse = (torch.stack(t) for t in zip(*parts))
+    return layers.combine_partial_attention(o, lse, lambda t: t.amax(0), lambda t: t.sum(0))
+
+
+class _SplitTap:
+    """While open, each decode attention call's output held against the same
+    cache split into ``SPLIT_SHARDS`` sequence shards in one process
+    (``_split_decode``): the sequence layout's arithmetic on the card,
+    where a world of one always holds its cache by heads. Records the
+    largest |split − unsplit| and the calls held."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.mod, self.orig, self.worst, self.calls, self.empty = (
+            layers, layers._decode_attention, 0.0, 0, 0)
+
+        def tapped(q, k_new, v_new, cache, cfg, window, *args, **kw):
+            pos = int(cache["pos"])
+            o, new = self.orig(q, k_new, v_new, cache, cfg, window, *args, **kw)
+            kc, vc = cache["k"], cache["v"]
+            Smax, Hl = kc.shape[1], q.shape[2]
+            valid = layers.decode_valid(torch.arange(Smax, device=q.device), pos, Smax, window)
+            H, KV = cfg.n_heads, cfg.n_kv_heads
+            got = _split_decode(q, layers._expand_kv(kc, Hl, H, KV),
+                                layers._expand_kv(vc, Hl, H, KV), valid, cfg.logit_softcap,
+                                SPLIT_SHARDS)
+            self.worst = max(self.worst, float((got - o.float()).abs().max()))
+            self.empty += int((~valid.view(SPLIT_SHARDS, -1).any(1)).sum())
+            self.calls += 1
+            return o, new
+        layers._decode_attention = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._decode_attention = self.orig
+
+
+def _serve_tp_run(cfg, params, prompt, cache_len, gen, mesh=None, rules=None, fed=None):
+    """Prefill the prompt, then ``gen`` decode steps through the serve
+    steps of ``mesh`` and ``rules``: greedy, or fed the tokens ``fed``.
+    Returns (the prefill's and every step's logits (gen + 1, B, V) f32, the
+    tokens fed, prefill s, the median decode step s, the cache's bytes)."""
+    from repro_torch.launch import specs
+    B, P = prompt.shape
+    prefill = specs.make_prefill_step(cfg, cache_len, mesh, rules)
+    serve = specs.make_serve_step(cfg, mesh, rules)
+    if prefill.layout is not None:
+        params = prefill.layout.shard(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(cache))
+    out, tokens, dts = [logits.float()], [], []
+    for t in range(gen):
+        nxt = logits.argmax(-1) if fed is None else fed[t]
+        tokens.append(nxt)
+        batch = {"tokens": nxt[:, None],
+                 "pos": torch.full((B, 1), P + t, dtype=torch.int32, device="cuda")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = serve(params, batch, cache)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+        out.append(logits.float())
+    del cache
+    return torch.stack(out), tokens, prefill_s, statistics.median(dts), cache_bytes
+
+
+def _serve_tp_kernels() -> dict:
+    """Flash attention, the RG-LRU scan and the RWKV6 scan against their
+    plain versions at the shapes a rank of a 16-way "model" axis gives them
+    in serving (batch 4, prompt 4096): recurrentgemma-9b's one head of 16
+    (MQA, hd 256, window 2048) and qwen3-moe-30b-a3b rank 0's 2 heads of 32
+    (both read KV head 0 of 4: expanded, one a query head), 256 of
+    recurrentgemma-9b's 4096 RG-LRU channels and 3 of rwkv6-3b's 48 padded
+    heads, in prefill and at a decode step (from a state; the RWKV6 decode
+    route). Launches here are the comparison's, not the main path's."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (flash_attention, flash_attention_plain, rglru_scan,
+                                     rglru_scan_plain, rwkv6_scan, rwkv6_scan_plain)
+    from repro_torch.kernels.flash_attention import flash_attention_cost
+    from repro_torch.kernels.rglru_scan import rglru_scan_cost
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cost
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows = {}
+    B, S = SERVE_TP["batch"], SERVE_TP["prompt_len"]
+    for what, H, hd, window in (("recurrentgemma-9b prefill, 16-way: 1 of 16 heads", 1, 256,
+                                 2048),
+                                ("qwen3-moe-30b-a3b prefill, 16-way: rank 0's 2 of 32 heads",
+                                 2, 128, 0)):
+        q, k, v = (torch.randn((B, S, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+                   .transpose(1, 2) for _ in range(3))
+        got, want = flash_attention(q, k, v, window=window), flash_attention_plain(
+            q, k, v, window=window)
+        err, ok = _within(got, want, 2.0 ** -7, 1e-5)
+        check(ok, f"serve tp flash [{what}] disagrees with its plain version: {err}")
+        del got, want
+        if window:
+            idx = torch.arange(S, device="cuda")
+            mask = (idx[None, :] <= idx[:, None]) & (idx[None, :] > idx[:, None] - window)
+            lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+            del mask
+        else:
+            lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        rows.setdefault("flash_attention", {})[what] = _report(
+            "flash_attention", f"{what} B={B} H={H} KV={H} S={S} hd={hd} window={window} bf16",
+            err, time_ms(lambda: flash_attention(q, k, v, window=window)),
+            time_ms(lambda: flash_attention_plain(q, k, v, window=window), reps=5, warmup=1),
+            lib, *flash_attention_cost(B, H, H, S, hd, torch.bfloat16, window).bound(),
+            note=" (<= 2^-7·|plain|; library: scaled_dot_product_attention, boolean window "
+                 "mask or is_causal)")
+        del q, k, v
+
+    C = 4096 // 16
+    for what, n in (("recurrentgemma-9b prefill, 16-way: 256 of 4096 channels", S),
+                    ("recurrentgemma-9b decode step, 16-way: 256 of 4096 channels", 1)):
+        a = torch.rand((B, n, C), generator=gen, device="cuda")
+        b = torch.randn((B, n, C), generator=gen, device="cuda")
+        h0 = None if n > 1 else torch.randn((B, C), generator=gen, device="cuda")
+        check(all(torch.equal(x, y) for x, y in zip(rglru_scan(a, b, h0),
+                                                    rglru_scan_plain(a, b, h0))),
+              f"serve tp rglru [{what}] differs from its plain version")
+        rows.setdefault("rglru_scan", {})[what] = _report(
+            "rglru_scan", f"{what} B={B} S={n} C={C} f32", 0.0,
+            time_ms(lambda: rglru_scan(a, b, h0)),
+            time_ms(lambda: rglru_scan_plain(a, b, h0), reps=5, warmup=1), None,
+            *rglru_scan_cost(B, n, C, with_h0=h0 is not None).bound(), note=" (bit for bit)")
+        del a, b, h0
+
+    Hl, hd, W = 48 // 16, 64, 64
+    for what, n in (("rwkv6-3b prefill, 16-way: 3 of 48 heads, chunked route", S),
+                    ("rwkv6-3b decode step, 16-way: 3 of 48 heads, decode route", 1)):
+        r, k, v = (torch.randn((B, n, Hl, hd), generator=gen, device="cuda").bfloat16()
+                   .transpose(1, 2) for _ in range(3))
+        logw = -torch.exp(0.5 * torch.randn((B, n, Hl, hd), generator=gen, device="cuda")
+                          ).transpose(1, 2)
+        u = 0.5 * torch.randn((Hl, hd), generator=gen, device="cuda")
+        s0 = None if n > 1 else torch.randn((B, Hl, hd, hd), generator=gen, device="cuda")
+        counter = "launches_decode" if n == 1 else "launches_chunked"
+        before = getattr(rwkv6_scan, counter)
+        o, st = rwkv6_scan(r, k, v, logw, u, chunk=W, s0=s0)
+        check(getattr(rwkv6_scan, counter) == before + 1,
+              f"serve tp rwkv6 [{what}] did not take its {counter} route")
+        po, ps = rwkv6_scan_plain(r, k, v, logw, u, chunk=W, s0=s0)
+        err_o, ok_o = _within(o, po, 2e-3, 2e-3)
+        err_s, ok_s = _within(st, ps, 2e-3, 2e-3)
+        check(ok_o and ok_s, f"serve tp rwkv6 [{what}]: o {err_o}, state {err_s}")
+        rows.setdefault("rwkv6_scan", {})[what] = _report(
+            "rwkv6_scan", f"{what} B={B} H={Hl} S={n} hd={hd} W={W} bf16", max(err_o, err_s),
+            time_ms(lambda: rwkv6_scan(r, k, v, logw, u, chunk=W, s0=s0)),
+            time_ms(lambda: rwkv6_scan_plain(r, k, v, logw, u, chunk=W, s0=s0), reps=5,
+                    warmup=1), None,
+            *rwkv6_scan_cost(B, Hl, n, hd, W, torch.bfloat16, s0 is not None).bound(),
+            note=" (<= 2e-3 + 2e-3·|plain|, o and state)")
+        del r, k, v, logw, u, s0, o, st, po, ps
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_serve_tp():
+    """Phase 23: serving over "model" on NCCL with a world of one, mesh
+    ("data" 1, "model" 1), the reference's rules (FSDP over "data", tensor
+    and expert parallelism over "model"): each ``SERVE_TP_RUNS`` model
+    prefills 4 × 4096 and decodes 8 steps, greedy the first time with
+    mesh=None and fed those tokens after: cold, mesh=None and TP + FSDP;
+    warm, mesh=None, TP on full replicas and TP + FSDP (the main path:
+    launches counted, kernels held, its peak), every "model" and "data"
+    collective on a group of one; logits against mesh=None's. Then a
+    mesh=None run whose decode attention calls are each held against the
+    same cache split into 16 sequence shards in one process
+    (``_SplitTap``), and the kernels at a 16-way serving rank's shapes.
+    Returns (the main path's launches, the kernels' rows)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.train import build_rules
+    from repro_torch.models import transformer
+
+    B, P, G = SERVE_TP["batch"], SERVE_TP["prompt_len"], SERVE_TP["gen"]
+    counters = _lm_counters()
+    launches = dict.fromkeys(counters, 0)
+    card = _card_name()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_tp_") as d:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(d, "rendezvous"),
+                                rank=0, world_size=1)
+        try:
+            mesh = mesh_mod.make_test_mesh((1, 1), ("data", "model"), "cuda")
+            # cold, then warm; the warm round adds TP on full replicas over
+            # "data", which parts the region's cost from the FSDP gathers'
+            rounds = (("cold", {"mesh=None": (None, None),
+                                "tp+fsdp": (mesh, build_rules(mesh, "sfl"))}),
+                      ("warm", {"mesh=None": (None, None),
+                                "tp": (mesh, build_rules(mesh, "classical")),
+                                "tp+fsdp": (mesh, build_rules(mesh, "sfl"))}))
+            for name, cut in SERVE_TP_RUNS:
+                cfg = dataclasses.replace(configs.get(name), **cut)
+                if cfg.n_experts:      # no drops: near ties split by bf16 rounding elsewhere
+                    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+                tag = f"serve tp {name}{' ' + str(cut) if cut else ''}"
+                gen = torch.Generator(device="cuda").manual_seed(23)
+                params = transformer.init_params(cfg, gen, "cuda")
+                prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device="cuda")
+                # twice the prompt: the shards past it start empty in the split check
+                cache_len = 2 * P
+                fed, want, times = None, None, []
+                for rnd, ways in rounds:
+                    for label, (m, r) in ways.items():
+                        main = rnd == "warm" and label == "tp+fsdp"
+                        gc.collect()
+                        torch.cuda.empty_cache()
+                        if main:       # the main path: counted, held, its peak
+                            for fn in counters.values():
+                                _zero_launches(fn)
+                            torch.cuda.reset_peak_memory_stats()
+                        with HeldCalls() if main else contextlib.nullcontext() as held:
+                            got, toks, pre_s, dec_s, cache_bytes = _serve_tp_run(
+                                cfg, params, prompt, cache_len, G, m, r, fed)
+                        fed = fed or toks
+                        times.append(f"{rnd} {label} {pre_s:.3f} s, {1e3 * dec_s:.2f} ms/step")
+                        check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (
+                            G + 1, B, cfg.vocab_size), f"{tag} {label}: logits not finite or "
+                                                       "misshapen")
+                        if want is None:
+                            want, want_bytes = got, cache_bytes
+                            continue
+                        scale = max(1.0, float(want.abs().max()))
+                        diff = float((got - want).abs().max())
+                        print(f"{tag} {rnd} {label}: logits vs mesh=None "
+                              f"{'bit for bit' if torch.equal(got, want) else f'max |diff| {diff:.3e} of {scale:.3e}'}")
+                        check(diff <= SERVE_TOL * scale, f"{tag} {label}: logits {diff} from "
+                                                         "mesh=None's")
+                        check(cache_bytes == want_bytes,
+                              f"{tag} {label}: a world of one holds the whole cache")
+                        if main:
+                            counts = {k: fn.launches for k, fn in counters.items()}
+                            routes = {k: _route_counts(counters[k])
+                                      for k in ("flash_attention", "rwkv6_scan")}
+                            peak = torch.cuda.max_memory_allocated() / 2**30
+                            by_kernel = held.hold(tag)
+                        del got
+                print(f"{tag} (batch {B}, prompt {P}, {G} steps; prefill s, decode ms/step): "
+                      f"{'; '.join(times)}; cache {want_bytes / 2**30:.3f} GiB; peak "
+                      f"{peak:.2f} GiB (tp+fsdp, warm) [{card}]; launches {counts}, by route "
+                      f"{routes}; held {by_kernel}")
+                want_counts = _routing(cfg, G)
+                check(counts == want_counts, f"{tag}: launches {counts}, want {want_counts}")
+                for k, n in counts.items():
+                    check(n == 0 or k in by_kernel, f"{tag}: {k} launched, never held")
+                    launches[k] += n
+                if "attn" in list(cfg.block_pattern) + list(cfg.tail_pattern):
+                    with _SplitTap() as split:
+                        _serve_tp_run(cfg, params, prompt, cache_len, G, fed=fed)
+                    print(f"{tag}: {split.calls} decode attention calls split into "
+                          f"{SPLIT_SHARDS} sequence shards ({split.empty} shard calls with no "
+                          f"valid slot): max |split - unsplit| {split.worst:.3e}, held to "
+                          f"{SERVE_TOL}")
+                    check(split.calls > 0 and split.worst <= SERVE_TOL,
+                          f"{tag}: the split-softmax decode is {split.worst} from the unsplit")
+                del params, prompt, want, fed
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    rows = _serve_tp_kernels()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -4577,6 +4937,11 @@ def main() -> int:
         launches[name] += n
     for name, by_shape in tp_rows.items():
         rows[name]["tp_shapes"] = by_shape
+    serve_tp_launches, serve_tp_rows = phase(phase_serve_tp)
+    for name, n in serve_tp_launches.items():
+        launches[name] += n
+    for name, by_shape in serve_tp_rows.items():
+        rows[name]["serve_tp_shapes"] = by_shape
     print(f"total {time.perf_counter() - t0:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     table = (("agg_reduce", csrc + "agg_reduce.cu", "src/repro/kernels/agg_reduce.py:60"),

@@ -22,10 +22,10 @@ parameter shards and :class:`GatherShard` gathers each where it is used;
 its backward reduce-scatters the gradient onto the shard (the ONU step).
 The cross-pod hop may travel as int8
 (stochastic rounding through the quantize kernel's wrapper): at one scale
-per shard in ``two_step_allreduce``, at the whole pod-summed leaf's in the
-``two_step_int8`` transport (:func:`int8_two_step_leaf`), as the
-reference's two forms scale; both run one leaf's schedule,
-:func:`two_step_leaf`. ``mesh=None`` is one process: every
+per shard in ``two_step_allreduce`` (:func:`two_step_leaf`), at the whole
+pod-summed leaf's in the ``two_step_int8`` transport
+(:func:`int8_two_step_leaf`, on a rank's FSDP shard and block over
+"model" as on a whole leaf), as the reference's two forms scale. ``mesh=None`` is one process: every
 collective is the identity.
 
 Under a cost counter (``launch.roofline.Counter``) each collective reports
@@ -302,46 +302,65 @@ def int8_pod_sum(x: torch.Tensor, noise: torch.Tensor, pod_group,
 
 
 def two_step_leaf(x: torch.Tensor, n_data: int, data_group, pod_group, hop: bool = True,
-                  noise: Optional[torch.Tensor] = None, leaf_scale: bool = False
-                  ) -> torch.Tensor:
+                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One leaf of the two-step schedule, in f32: flattened and zero-padded
     to a multiple of ``n_data`` (|data|), reduce-scattered over "data" (the
     ONU step: this rank's shard of the pod's sum), summed over "pod" (the
     CPS hop; ``hop=False`` skips it), all-gathered over "data", the padding
-    dropped.
-
-    With ``noise`` (the shard's, uniform in [0, 1)) the hop is int8
-    (:func:`int8_pod_sum`): at the shard's own scale, or with
-    ``leaf_scale`` at the whole pod-summed leaf's, max(max|x|, 1e-12) / 127,
-    from an all-reduce of the shards' max over "data"."""
+    dropped. With ``noise`` (the shard's, uniform in [0, 1)) the hop is
+    int8 at the shard's own scale (:func:`int8_pod_sum`)."""
     flat, pad = _flatten_pad(x.float(), n_data)
     shard = reduce_scatter(flat, data_group)
     if hop and noise is None:
         shard = all_reduce(shard, pod_group)
     elif hop:
-        scale = None
-        if leaf_scale:
-            amax = all_reduce(shard.abs().amax(), data_group, op=dist.ReduceOp.MAX)
-            scale = amax.clamp_min(1e-12) / 127.0
-        shard = int8_pod_sum(shard, noise, pod_group, scale=scale)
+        shard = int8_pod_sum(shard, noise, pod_group)
     full = all_gather(shard, data_group).reshape(-1)
     return (full[:-pad] if pad else full).reshape(x.shape)
 
 
-def int8_two_step_leaf(x: torch.Tensor, noise: torch.Tensor, data_group, pod_group
-                       ) -> torch.Tensor:
-    """Σ over every rank of its ``x`` with the cross-pod hop as int8, each
-    data rank sending its shard at the whole pod-summed leaf's scale: the
-    ``two_step_int8`` transport's exchange of one gradient leaf
-    (:func:`two_step_leaf`). ``noise`` is drawn at the leaf's shape, alike
-    on every rank; each rank quantizes with its shard's slice of it, so the
-    numbers are element for element those of quantizing the whole
-    pod-summed leaf, and 1/|data| of its int8 bytes leave each rank."""
-    n_data = 1 if data_group is None else group_size(data_group)
-    n = -(-x.numel() // n_data)
-    lo = _group_rank(data_group) * n
-    u = _flatten_pad(noise, n_data)[0][lo:lo + n]
-    return two_step_leaf(x, n_data, data_group, pod_group, noise=u, leaf_scale=True)
+def int8_two_step_leaf(x: torch.Tensor, noise: torch.Tensor, data_group, pod_group,
+                       model_group=None, data_summed: bool = False,
+                       model_cut: bool = False) -> torch.Tensor:
+    """The ``two_step_int8`` transport's exchange of one gradient leaf: Σ
+    over every client rank of its gradient, with the cross-pod hop as int8
+    at the whole pod-summed leaf's scale, max(max|x|, 1e-12) / 127.
+
+    ``x`` is this rank's block of the leaf's gradient and ``noise`` the
+    same block of the noise drawn at the leaf's whole shape, alike on every
+    rank. Over "data" the block is the rank's own gradient of a leaf it
+    holds whole, reduce-scattered here (the ONU step, f32), or with
+    ``data_summed`` its FSDP shard, already the pod's sum (the gathers'
+    backward). Over "model" (``model_group``) it is the rank's block of a
+    leaf cut there (``model_cut``), or alike on every model rank: then each
+    takes its part of the data shard. The scale is a max all-reduce over
+    "data" and "model"; each rank quantizes its part with its slice of the
+    noise, so the numbers are element for element those of quantizing the
+    whole pod-summed leaf, sends it across "pod" (1 / (|data|·|model|) of
+    the leaf's int8 bytes) and ends with its block of the sum."""
+    flat, u = x.float().reshape(-1), noise.reshape(-1)
+    pads = []
+    if not data_summed and data_group is not None:
+        flat, pad = _flatten_pad(flat, group_size(data_group))
+        flat = reduce_scatter(flat, data_group)
+        lo = _group_rank(data_group) * flat.shape[0]
+        u = _flatten_pad(u, group_size(data_group))[0][lo:lo + flat.shape[0]]
+        pads.append((data_group, pad))
+    if model_group is not None and not model_cut:
+        n = group_size(model_group)
+        flat, pad = _flatten_pad(flat, n)
+        k = flat.shape[0] // n
+        lo = _group_rank(model_group) * k
+        flat, u = flat[lo:lo + k], _flatten_pad(u, n)[0][lo:lo + k]
+        pads.append((model_group, pad))
+    amax = flat.abs().amax()
+    for g in (data_group, model_group):
+        amax = all_reduce(amax, g, op=dist.ReduceOp.MAX)
+    flat = int8_pod_sum(flat, u, pod_group, scale=amax.clamp_min(1e-12) / 127.0)
+    for group, pad in reversed(pads):
+        flat = all_gather(flat, group).reshape(-1)
+        flat = flat[:-pad] if pad else flat
+    return flat.reshape(x.shape)
 
 
 def two_step_allreduce(tree, mesh, data_axis: str = "data", pod_axis: Optional[str] = "pod",

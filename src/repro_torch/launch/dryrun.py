@@ -21,17 +21,20 @@ bytes: every rank takes the global batch and keeps the rows of its
 each rank holds its shards of the parameters and the optimizer's state
 (``argument_gb`` counts the shards; ``params`` stays the whole model's
 count), and the per-unit all-gathers and reduce-scatters are "data"
-bytes; ``--mode classical`` and ``--transport two_step_int8`` hold whole
-leaves over "data". MoE cells count the router's statistics all-reduced
-over the ranks. A "model" axis (``--mesh single|multi|both``: the
-reference's 16×16 and 2×16×16 production meshes) runs tensor and expert
-parallelism: the rank holds its block of the heads, channels, experts
-and vocabulary, and the region's all-reduces and all-gathers are
+bytes; ``--transport two_step_int8`` holds the same shards and sends each
+rank's block of a gradient across "pod" as int8; ``--mode classical``
+holds whole leaves over "data". MoE cells count the router's statistics
+all-reduced over the ranks. A "model" axis (``--mesh single|multi|both``:
+the reference's 16×16 and 2×16×16 production meshes) runs tensor and
+expert parallelism: the rank holds its block of the heads, channels,
+experts and vocabulary, and the region's all-reduces and all-gathers are
 "model" bytes (``coll_bytes_by_axis["model"]``, in the collective term
-at NVLink's rate). Prefill and decode cells over a "model" axis larger
-than 1, and ``two_step_int8`` over one, fail: ROADMAP.md Queue 1 item 1e
-(serving over "model"; FSDP and tensor parallelism under the int8
-transport).
+at NVLink's rate). Prefill and decode cells serve the rank's rows (all of
+them where the batch does not split: ``long_500k``) from its FSDP shards,
+gathered a unit at a time, with its block of the KV cache: by KV heads
+where they divide "model", else by sequence, whose decode adds the
+split-softmax combine's all-reduces and the query's all-gather over
+"model".
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k
@@ -141,16 +144,12 @@ def parse_mesh(spec: str) -> Tuple[str, Dict[str, int]]:
     return "_".join(f"{a}{n}" for a, n in shape.items()), shape
 
 
-def _check_mesh(shape: Dict[str, int], rules, kind: str = "train") -> None:
+def _check_mesh(shape: Dict[str, int], rules) -> None:
     """Raise before counting for what the port does not run: tensor or
-    expert parallelism over an axis other than "model"; a serving cell over
-    a "model" axis larger than 1 (ROADMAP.md Queue 1 item 1e)."""
+    expert parallelism over an axis other than "model"."""
     from repro_torch.common.sharding import reduce_schedule
-    from repro_torch.launch.specs import check_serving
-    if math.prod(shape.values()) <= 1:
-        return
-    reduce_schedule(rules, shape)
-    check_serving(kind, shape)
+    if math.prod(shape.values()) > 1:
+        reduce_schedule(rules, shape)
 
 
 def _gb(n: float) -> float:
@@ -181,7 +180,7 @@ def run_cell(arch: str, shape_name: str, mesh_spec: str, mode: str, opt_name: st
     rules = rules_for_mesh(shape, mode, fsdp_o, exp_o)
     if transport == "two_step_int8":
         rules = rules.with_(table={"vocab_rows": None})
-    _check_mesh(shape, rules, shp.kind)
+    _check_mesh(shape, rules)
     micro = microbatches or MICRO_DEFAULT.get(configs.canonical(arch), 1)
     if shp.kind != "train":
         micro = 1

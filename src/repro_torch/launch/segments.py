@@ -186,9 +186,9 @@ def cell_cost(cfg: ModelConfig, shp: ShapeConfig, mesh_shape=None,
     total = c_model1 + c_unit.scaled(cfg.n_units - 1)
     if c_tail is not None:
         total = total + c_tail
-    # the rows a rank's mixers see at once
-    rows = shp.global_batch // math.prod(dict(mesh_shape or {}).get(a, 1)
-                                         for a in ("pod", "data"))
+    # the rows a rank's mixers see at once (every row where they do not split)
+    clients = math.prod(dict(mesh_shape or {}).get(a, 1) for a in ("pod", "data"))
+    rows = shp.global_batch // clients if shp.global_batch % clients == 0 else shp.global_batch
     if shp.kind == "train":
         rows //= microbatches
     penalties = mixer_fusion_penalty(cfg, shp, mesh_shape, rows)

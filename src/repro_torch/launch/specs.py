@@ -15,7 +15,7 @@ of the heads, channels, experts and vocabulary, and the forward runs in
 ``core.tensor_parallel``'s region. Either way a step gives the numbers of
 the reference's GSPMD step over the whole batch, MoE's router statistics
 included. ``transport="two_step_int8"`` is the paper's
-protocol made explicit, on full replicas: the data step inside each pod,
+protocol made explicit on the same layout: the data step inside each pod,
 then the cross-pod hop as int8.
 
 And the abstract inputs of every (arch × shape) cell, the dry run's
@@ -32,8 +32,8 @@ Shapes are global but for FSDP's shards: a data-parallel rank takes the
 global batch and keeps its rows, as the train step does on a real mesh.
 The reference attaches a ``NamedSharding`` to each struct; the port's
 sharding is a spec tuple per leaf (``param_shardings``), from which the
-layout takes each leaf's dimensions cut over "data" and "model". Serving
-cells over a "model" axis larger than 1 raise (ROADMAP.md Queue 1 item 1e).
+layout takes each leaf's dimensions cut over "data" and "model", for the
+serve steps as for the train step; the decode cache is rank 0's blocks.
 """
 from __future__ import annotations
 
@@ -302,19 +302,19 @@ class ParamLayout:
         return torch.sqrt(total)
 
 
-def param_layout(cfg: ModelConfig, mesh, rules: Optional[ShardingRules] = None,
-                 transport: str = "gspmd") -> Optional[ParamLayout]:
-    """The :class:`ParamLayout` the train step of these arguments holds its
-    parameters in, or None for full replicas. FSDP is on under the rules'
-    ``fsdp`` on a mesh axis with the ``gspmd`` transport (the replicated
-    rules and ``two_step_int8`` hold whole leaves over "data"); tensor and
-    expert parallelism whenever the mesh has a "model" axis the rules put
-    them on, of any size. ``mesh=None``: None."""
+def param_layout(cfg: ModelConfig, mesh, rules: Optional[ShardingRules] = None
+                 ) -> Optional[ParamLayout]:
+    """The :class:`ParamLayout` a train or serve step of these arguments
+    holds its parameters in, or None for full replicas. FSDP is on under
+    the rules' ``fsdp`` on a mesh axis, with either transport (the
+    replicated rules hold whole leaves over "data"); tensor and expert
+    parallelism whenever the mesh has a "model" axis the rules put them on,
+    of any size. ``mesh=None``: None."""
     rules = rules or ShardingRules()
     if mesh is None:
         return None
     shape = mesh_shape(mesh)
-    fsdp = (reduce_schedule(rules, shape) == "two_step" and transport == "gspmd"
+    fsdp = (reduce_schedule(rules, shape) == "two_step"
             and any(a in shape for a in _axes(rules.fsdp)))
     if not fsdp and not any(model_parallel(rules, shape)):
         return None
@@ -355,14 +355,19 @@ def make_train_step(cfg: ModelConfig, opt_name: str = "adamw", lr: float = 1e-4,
     * ``transport="gspmd"`` under the replicated rules (``classical``):
       full replicas, the same objective, the gradients summed by the flat
       all-reduce over ("pod", "data").
-    * ``transport="two_step_int8"`` (needs "pod" in the mesh): full
-      replicas; the gradients of ``unnormalized_loss_fn`` over the pod's
-      micro-batches, reduce-scattered over "data" (the ONU step, in f32);
-      each data rank's shard of a pod-summed leaf crosses "pod" as int8 at
-      that leaf's one scale (``core.aggregation.int8_two_step_leaf``), with
-      noise drawn at each leaf's shape (sorted keys) from ``noise`` or, by
-      default, from (``seed``, ``opt_state["t"]``), alike on every rank;
-      then K = Σ_pod weight, gradients / max(K, 1e-6), loss = Σ_pod nll / K.
+    * ``transport="two_step_int8"`` (needs "pod" in the mesh): the
+      layout of the gspmd step (FSDP shards under ``fsdp="data"``, full
+      replicas under the replicated rules); the gradients of
+      ``unnormalized_loss_fn`` over the pod's micro-batches, summed over
+      "data" (the ONU step, in f32: a shard's by the gathers' backward, a
+      whole leaf's reduce-scattered); each rank's part of a pod-summed leaf
+      crosses "pod" as int8 at that leaf's one scale
+      (``core.aggregation.int8_two_step_leaf``), with noise drawn at each
+      leaf's whole shape (sorted keys), a leaf at a time, from ``noise``
+      or, by default, from (``seed``, ``opt_state["t"]``), alike on every
+      rank, each rank quantizing with its block's slice; then K = Σ_pod
+      weight, gradients / max(K, 1e-6), loss = Σ_pod nll / K. The rank
+      keeps its block of each sum and the optimizer updates its shards.
 
     Tensor and expert parallelism: on a mesh with a "model" axis, of any
     size, under rules that put ``tensor`` and ``expert`` on it (the
@@ -375,9 +380,8 @@ def make_train_step(cfg: ModelConfig, opt_name: str = "adamw", lr: float = 1e-4,
     gradients are whole on their rank, so the reductions above run among
     the ranks of one "model" coordinate; the gradient norm sums each
     block's square once. It combines with FSDP (a leaf then cut on two
-    dimensions) and with the classical rules; under ``two_step_int8`` a
-    "model" axis larger than 1 raises (ROADMAP.md Queue 1 item 1e: the
-    int8 hop's scale and noise are the whole leaf's).
+    dimensions), with the classical rules and with ``two_step_int8``,
+    whose hop then sends 1 / (|data|·|model|) of each leaf a rank.
 
     MoE: the router's load-balance statistics are those of the global
     micro-batch, all-reduced over the client ranks (over "data" alone, the
@@ -391,13 +395,8 @@ def make_train_step(cfg: ModelConfig, opt_name: str = "adamw", lr: float = 1e-4,
     if transport == "two_step_int8" and (mesh is None or "pod" not in mesh.mesh_dim_names):
         raise ValueError("transport='two_step_int8' needs a mesh with a 'pod' axis")
     opt = make_optimizer(opt_name)
-    layout = param_layout(cfg, mesh, rules, transport)
+    layout = param_layout(cfg, mesh, rules)
     if transport == "two_step_int8":
-        if layout is not None and layout.tp is not None and layout.tp.size > 1:
-            raise NotImplementedError(
-                "transport='two_step_int8' over a 'model' axis larger than 1 is not ported: "
-                "its int8 hop scales and draws noise for whole leaves (ROADMAP.md Queue 1 "
-                "item 1e: FSDP and tensor parallelism under two_step_int8)")
         step = _two_step_int8_step(cfg, opt, lr, microbatches, mesh, seed, layout)
     elif mesh is None:
         step = _one_rank_step(cfg, opt, lr, microbatches)
@@ -476,6 +475,19 @@ def _data_parallel_step(cfg, opt, lr, microbatches, mesh, layout):
 def _two_step_int8_step(cfg, opt, lr, microbatches, mesh, seed, layout):
     data_group = axes_group(mesh, ("data",))
     pod_group = axes_group(mesh, ("pod",))
+    model_group = None if layout is None or layout.tp is None else layout.tp.group
+    shards = fsdp_cut = tp_cut = None
+    if layout is not None:
+        fsdp_cut = flatten(tree_map(lambda pl: pl is not None, layout.places))
+        tp_cut = flatten(tree_map(lambda pl: pl is not None, layout.tp_places))
+        shards = flatten(layout.shards)
+
+    def whole(x, place):
+        """The shape of the leaf whose block (at ``place``) ``x`` is."""
+        shape = list(x.shape)
+        for pl in places_of(place):
+            shape[pl.dim] *= pl.count
+        return tuple(shape)
 
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor],
                    noise: Optional[Noise] = None):
@@ -493,17 +505,28 @@ def _two_step_int8_step(cfg, opt, lr, microbatches, mesh, seed, layout):
         tot, K = all_reduce(all_reduce(torch.stack([tot, cnt]), data_group), pod_group).unbind()
         K = K.clamp_min(1e-6)
         dev = leaves[0].device
+        shapes = [whole(x, None if shards is None else shards[i]) for i, x in enumerate(leaves)]
         noises = uniform_noise(noise if noise is not None else _step_noise(seed, opt_state, dev),
-                               [tuple(x.shape) for x in leaves], dev)
+                               shapes, dev)
         summed = []
         for i, x in enumerate(leaves):
             leaves[i] = None
-            # the ONU step (each data rank's shard of the pod's sum, f32),
-            # then the CPS hop: the shard crosses "pod" as int8 at the pod
+            # the noise at the leaf's whole shape, a leaf at a time; the
+            # rank's block of it goes with the rank's block of the gradient
+            u = next(noises)
+            if shards is not None:
+                u = shard_or_replicate(u, shards[i])
+            # the ONU step (a gradient FSDP holds whole over "data" is
+            # reduce-scattered here, a shard's already was), then the CPS
+            # hop: the rank's part crosses "pod" as int8 at the pod-summed
             # leaf's scale; normalised in place
-            summed.append(int8_two_step_leaf(x, next(noises), data_group, pod_group).div_(K))
+            summed.append(int8_two_step_leaf(
+                x, u, data_group, pod_group, model_group,
+                data_summed=bool(fsdp_cut and fsdp_cut[i]),
+                model_cut=bool(tp_cut and tp_cut[i])).div_(K))
+            del u
         grads = unflatten(params, summed)
-        train_step.grad_norm = grad_norm(grads)
+        train_step.grad_norm = grad_norm(grads) if layout is None else layout.grad_norm(grads)
         new_params, new_state = opt.update(params, grads, opt_state, lr)
         return new_params, new_state, tot / K
 
@@ -522,12 +545,11 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(tuple(shape), dtype=dtype, device=_META)
 
 
-def batch_struct(cfg: ModelConfig, shp: ShapeConfig, decode: bool = False,
-                 rows: int = 0):
-    """The cell's batch on ``meta``: tokens (or frames and labels),
+def batch_struct(cfg: ModelConfig, shp: ShapeConfig, decode: bool = False):
+    """The cell's global batch on ``meta``: tokens (or frames and labels),
     patches (media when decoding), decode positions or the FL
-    ``client_weight``; ``rows`` (default the global batch) rows."""
-    B = rows or shp.global_batch
+    ``client_weight``."""
+    B = shp.global_batch
     S = 1 if decode else shp.seq_len
     d = cfg.d_model
     batch = {}
@@ -584,33 +606,90 @@ def opt_state_struct(opt_name: str, params_abs):
     raise ValueError(opt_name)
 
 
-def cache_struct_sharded(cfg: ModelConfig, shp: ShapeConfig, rows: int = 0):
+def serve_rows(mesh, B: int):
+    """(first, last + 1) of the rows of a global batch of ``B`` this rank
+    serves: its block over the client axes ("pod", "data"), every model
+    rank of one coordinate the same; every row where B does not split over
+    them (the reference's ``filter_valid_spec`` replicates the batch:
+    ``long_500k``'s one row)."""
+    r, R = client_index(mesh, [a for a in _CLIENT_AXES if a in mesh_shape(mesh)])
+    return (0, B) if B % R else (r * B // R, (r + 1) * B // R)
+
+
+def cache_struct_sharded(cfg: ModelConfig, shp: ShapeConfig,
+                         mesh_shape: Optional[Dict[str, int]] = None,
+                         rules: Optional[ShardingRules] = None):
     """The decode cache of the cell on ``meta`` (``transformer.init_cache``:
     the unit's stacked, the tail's; each attention layer's position a host
-    int32), ``rows`` (default the global batch) rows."""
-    return transformer.init_cache(cfg, rows or shp.global_batch, shp.seq_len, device=_META)
+    int32), as rank 0 of ``mesh_shape`` holds it under ``rules``: its rows
+    of the batch (:func:`serve_rows`), each attention layer's block by KV
+    heads or by sequence (``layers.kv_block``, the reference's layout) and
+    the recurrent states' channels or heads its compute reads. No mesh: the
+    whole cache."""
+    mesh_shape = dict(mesh_shape or {})
+    mesh = AbstractMesh(mesh_shape) if math.prod(mesh_shape.values()) > 1 else None
+    lo, hi = (0, shp.global_batch) if mesh is None else serve_rows(mesh, shp.global_batch)
+    tp = TensorParallel.of(mesh, rules or ShardingRules())
+    return transformer.init_cache(cfg, hi - lo, shp.seq_len, device=_META, tp=tp)
 
 
-def make_prefill_step(cfg: ModelConfig, cache_len: int):
+def _serving(cfg: ModelConfig, mesh, rules: Optional[ShardingRules]):
+    """(the serve steps' parameter layout, a function taking (params,
+    batch) to (the parameters as the model reads them, this rank's rows,
+    the unit gather, the tensor-parallel region)). The layout is the
+    train step's (:func:`param_layout`): FSDP shards under rules whose
+    ``fsdp`` names a mesh axis, gathered a unit at a time inside the unit
+    loop (the forward of ``core.aggregation.GatherShard``), the other
+    leaves once a step; blocks over "model"."""
+    layout = param_layout(cfg, mesh, rules)
+
+    def inputs(params, batch):
+        gather = tp = None
+        if mesh is not None:
+            lo, hi = serve_rows(mesh, next(iter(batch.values())).shape[0])
+            batch = _rows(batch, lo, hi)
+        if layout is not None:
+            tp = layout.tp
+            if layout.group is not None:
+                params, gather = layout.gather_outer(params), layout.gather_unit
+        return params, batch, gather, tp
+    return layout, inputs
+
+
+def make_prefill_step(cfg: ModelConfig, cache_len: int, mesh=None,
+                      rules: Optional[ShardingRules] = None):
+    """``prefill_step(params, batch) -> (logits, cache)``. On a mesh each
+    rank takes the global batch and serves its rows (:func:`serve_rows`)
+    from its shards of the parameters (``prefill_step.layout.shard`` cuts
+    them from a full tree built with ``init_params(..., tp=<"model"
+    size>)``); it returns its rows' logits, whole over the vocabulary,
+    and its blocks of the cache (:func:`cache_struct_sharded`'s layout).
+    Attention runs head-parallel on the flash kernel; under the sequence
+    layout each rank keeps its slots of the K and V it computed."""
+    layout, inputs = _serving(cfg, mesh, rules)
+
+    @torch.no_grad()
     def prefill_step(params, batch):
-        return transformer.prefill(params, batch, cfg, cache_len)
+        params, batch, gather, tp = inputs(params, batch)
+        return transformer.prefill(params, batch, cfg, cache_len, gather, tp)
+    prefill_step.layout = layout
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, mesh=None, rules: Optional[ShardingRules] = None):
+    """``serve_step(params, batch, cache) -> (logits, cache)``: one decode
+    position, the cache (this rank's blocks, as prefill left them) updated
+    in place. On a mesh as :func:`make_prefill_step`; under the sequence
+    layout the attention is the split-softmax decode
+    (``layers.partial_decode_attention`` and its combine over "model")."""
+    layout, inputs = _serving(cfg, mesh, rules)
+
+    @torch.no_grad()
     def serve_step(params, batch, cache):
-        return transformer.decode_step(params, batch, cache, cfg)
+        params, batch, gather, tp = inputs(params, batch)
+        return transformer.decode_step(params, batch, cache, cfg, gather, tp)
+    serve_step.layout = layout
     return serve_step
-
-
-def check_serving(kind: str, mesh_shape: Dict[str, int]) -> None:
-    """Raise for a prefill or decode cell over a "model" axis larger than
-    1, which the port does not run (ROADMAP.md Queue 1 item 1e)."""
-    if kind != "train" and mesh_shape.get(MODEL_AXIS, 1) > 1:
-        raise NotImplementedError(
-            f"a {kind} cell over a 'model' axis of {mesh_shape[MODEL_AXIS]} is not ported: "
-            "ROADMAP.md Queue 1 item 1e, serving over 'model' (a KV cache sharded by KV "
-            "heads or by sequence, a split-softmax decode)")
 
 
 def _meta_noise(shapes):
@@ -622,14 +701,14 @@ def input_specs(cfg: ModelConfig, shp: ShapeConfig, mesh_shape: Optional[Dict[st
                 microbatches: int = 1, transport: str = "gspmd"):
     """Everything the dry run needs for one cell: (fn, args), the args on
     ``meta``. ``mesh_shape`` ({axis: size}; None or one rank: one card)
-    becomes an ``AbstractMesh`` the train step reduces over, its
-    collectives reckoned. A serving cell on a data-parallel mesh serves
-    each rank's share of the batch with nothing to reduce."""
+    becomes an ``AbstractMesh`` the step runs over as its rank 0, its
+    collectives reckoned. A serving cell's rank takes the global batch and
+    serves its rows from its shards, with its blocks of the cache."""
     mesh_shape = dict(mesh_shape or {})
     n_ranks = math.prod(mesh_shape.values()) if mesh_shape else 1
+    mesh = AbstractMesh(mesh_shape) if n_ranks > 1 else None
     params, _ = param_shardings(cfg, mesh_shape, rules)
     if shp.kind == "train":
-        mesh = AbstractMesh(mesh_shape) if n_ranks > 1 else None
         step = make_train_step(cfg, opt_name, microbatches=microbatches, transport=transport,
                                mesh=mesh, rules=rules)
         if step.layout is not None:
@@ -639,16 +718,17 @@ def input_specs(cfg: ModelConfig, shp: ShapeConfig, mesh_shape: Optional[Dict[st
             def fn(params, opt_state, batch):
                 return step(params, opt_state, batch, noise=_meta_noise)
         return fn, (params, opt_state_struct(opt_name, params), batch_struct(cfg, shp))
-    check_serving(shp.kind, mesh_shape)
-    clients = math.prod(mesh_shape.get(a, 1) for a in _CLIENT_AXES)
-    if shp.global_batch % clients:
-        raise ValueError(f"batch {shp.global_batch} does not split over {clients} ranks")
-    rows = shp.global_batch // clients
     if shp.kind == "prefill":
-        batch = batch_struct(cfg, shp, rows=rows)
+        step = make_prefill_step(cfg, shp.seq_len, mesh, rules)
+        batch = batch_struct(cfg, shp)
         batch.pop("client_weight")
-        return make_prefill_step(cfg, cache_len=shp.seq_len), (params, batch)
-    if shp.kind == "decode":
-        return make_serve_step(cfg), (params, batch_struct(cfg, shp, decode=True, rows=rows),
-                                      cache_struct_sharded(cfg, shp, rows))
-    raise ValueError(shp.kind)
+        args = (batch,)
+    elif shp.kind == "decode":
+        step = make_serve_step(cfg, mesh, rules)
+        args = (batch_struct(cfg, shp, decode=True),
+                cache_struct_sharded(cfg, shp, mesh_shape, rules))
+    else:
+        raise ValueError(shp.kind)
+    if step.layout is not None:
+        params = step.layout.shard(params)
+    return step, (params, *args)

@@ -10,14 +10,23 @@ runs through the flash-attention kernel; ``_decode_attention`` and
 ``cross_attention`` are plain torch, as the reference computes them in
 jnp outside any kernel.
 
-With ``tp`` (a ``core.tensor_parallel.TensorParallel``: the train step on
-a mesh with a "model" axis) attention runs on this rank's block of the
-padded query heads (``wq``, ``bq``, ``wo`` its blocks; ``wo`` row-parallel)
-and the MLP on its block of the ``d_ff`` channels (``wg``, ``wu``,
-``w1``/``b1`` column-parallel, ``wd``/``w2`` row-parallel). K and V are
-split with the heads for MHA whose heads divide the axis, else computed
-whole before the region and read by each local head through the global
-query-to-KV map.
+With ``tp`` (a ``core.tensor_parallel.TensorParallel``: a train or serve
+step on a mesh with a "model" axis) attention runs on this rank's block of
+the padded query heads (``wq``, ``bq``, ``wo`` its blocks; ``wo``
+row-parallel) and the MLP on its block of the ``d_ff`` channels (``wg``,
+``wu``, ``w1``/``b1`` column-parallel, ``wd``/``w2`` row-parallel). K and
+V are split with the heads for MHA whose heads divide the axis, else
+computed whole before the region and read by each local head through the
+global query-to-KV map.
+
+Serving over "model" keeps each attention layer's KV cache in the
+reference's layout (``kv_block``): by KV heads where they divide the axis,
+else by the sequence. A rank of the head layout decodes its heads against
+its block alone; under the sequence layout every rank attends all heads
+against its slots (``partial_decode_attention``) and the ranks' partial
+softmaxes are combined by one max and one sum all-reduce
+(``combine_partial_attention``), the split-softmax decode the reference
+leaves to GSPMD.
 """
 from __future__ import annotations
 
@@ -25,8 +34,10 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.core.aggregation import all_reduce
 from repro_torch.kernels.flash_attention import flash_attention
 
 # ---------------------------------------------------------------------------
@@ -222,18 +233,44 @@ def causal_attention(q, k, v, cfg, *, window: int = 0, lo: int = 0, kv_lo: int =
     return o
 
 
+def kv_block(cfg, tp, clen: int):
+    """This rank's block of an attention layer's (B, clen, KV, hd) cache
+    under ``tp``, in the reference's layout (``repro/launch/specs.py``'s
+    ``cache_struct_sharded``): (its first KV head, its KV heads, its first
+    slot, its slots). By KV heads where they divide the "model" axis, else
+    by the sequence, whose length must then divide; whole without ``tp``,
+    on an axis of one, or where the query heads do not split (attention
+    then runs whole on every rank)."""
+    KV = cfg.n_kv_heads
+    if tp is None or tp.size == 1 or not tp.splits_heads(cfg):
+        return 0, KV, 0, clen
+    if KV % tp.size == 0:
+        n = KV // tp.size
+        H, Hl = cfg.n_heads, pad_to_multiple(cfg.n_heads, tp.size) // tp.size
+        lo = tp.index * Hl
+        read = np.minimum(np.arange(lo, min(lo + Hl, H)) // max(1, H // KV), KV - 1)
+        if read.size and (read.min() < tp.index * n or read.max() >= (tp.index + 1) * n):
+            raise NotImplementedError(
+                f"query heads {lo}..{lo + Hl - 1} read KV heads outside their rank's block "
+                f"of {n}: {cfg.n_heads} heads over {KV} KV heads in uneven groups")
+        return tp.index * n, n, 0, clen
+    if clen % tp.size:
+        raise ValueError(f"a KV cache of {clen} slots does not split into {tp.size} sequence "
+                         "shards over 'model': choose a cache length the axis divides")
+    n = clen // tp.size
+    return 0, KV, tp.index * n, n
+
+
 def self_attention(x, p, cfg, positions, *, window: int = 0, cache=None, tp=None):
     """Full self-attention sublayer (projections + rope + attend + out-proj).
 
     cache: None for prefill / forward; dict(k, v, pos) for decode.
     Returns (out, (k, v) for prefill's cache, or the updated cache).
-    ``tp``: this rank's block of the heads (training only: no cache).
+    ``tp``: this rank's block of the heads; in decode, ``cache`` is this
+    rank's block of the layer's cache (:func:`kv_block`).
     """
     tp, lo, kv_lo, Hp = _tp_heads(p, cfg, tp)
     H = cfg.n_heads
-    if tp is not None and cache is not None:
-        raise NotImplementedError("decoding over a 'model' axis is not ported "
-                                  "(ROADMAP.md Queue 1 item 1e: serving over 'model')")
     q, k, v = _qkv(x, p, cfg, tp)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -241,44 +278,108 @@ def self_attention(x, p, cfg, positions, *, window: int = 0, cache=None, tp=None
         o = causal_attention(q, k, v, cfg, window=window, lo=lo, kv_lo=kv_lo, tp=tp)
         new_kv = (k, v)
     else:
-        o, new_kv = _decode_attention(q, k, v, cache, cfg, window)
+        o, new_kv = _decode_attention(q, k, v, cache, cfg, window, tp, lo, kv_lo)
     if Hp != H:
         o = o * _head_mask(o.shape[2], H, o.dtype, o.device, lo)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
     return (out if tp is None else tp.reduce(out)), new_kv
 
 
-def _decode_attention(q, k_new, v_new, cache, cfg, window: int):
+def partial_decode_attention(q, k, v, valid, softcap: float = 0.0):
+    """One query position against one shard of a KV cache: (o, lse) of the
+    softmax over the shard's valid slots alone, in f32.
+
+    q (B, 1, H, hd); k, v (B, Sl, H, hd), already one KV head a query head;
+    valid (Sl,) bool. o (B, 1, H, hd) is the shard's softmax-weighted sum,
+    lse (B, 1, H) the log of its Σ exp of the (soft-capped) logits: −inf
+    and o = 0 where the shard holds no valid slot, so that such a shard
+    adds exactly 0 in :func:`combine_partial_attention`."""
+    hd = q.shape[-1]
+    logits = torch.einsum("bqhk,bshk->bqhs", q.float(), k.float()) / math.sqrt(hd)
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    logits = logits.masked_fill(~valid, float("-inf"))
+    m = logits.amax(-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.exp(logits - m)
+    den = e.sum(-1)
+    o = torch.einsum("bqhs,bshk->bqhk", e, v.float()) / den.clamp_min(1e-30)[..., None]
+    return o, m[..., 0] + torch.log(den)
+
+
+def combine_partial_attention(o, lse, reduce_max, reduce_sum):
+    """The softmax over every shard from the shards' partials:
+    Σ_r exp(lse_r − m)·o_r / Σ_r exp(lse_r − m), m = max_r lse_r.
+    ``reduce_max`` / ``reduce_sum`` take the max and the sum over the
+    shards: all-reduces over "model", or a reduction of a stacked axis in
+    one process (``o`` and ``lse`` then carry it first). A shard with lse
+    −inf adds 0; at least one shard holds a valid slot."""
+    m = reduce_max(lse)
+    w = torch.exp(lse - m)
+    both = reduce_sum(torch.cat([o * w[..., None], w[..., None]], dim=-1))
+    return both[..., :-1] / both[..., -1:]
+
+
+def decode_valid(slots, pos: int, Smax: int, window: int):
+    """Which of the cache ``slots`` (global slot indices) a query at ``pos``
+    attends, its K/V written: on a ring (a windowed layer, Smax <= window)
+    every slot written so far, in-window by construction; else the
+    positions up to ``pos``, within the window."""
+    if window > 0 and Smax <= window:
+        return slots < min(pos + 1, Smax)
+    valid = slots <= pos
+    if window:
+        valid &= slots > pos - window
+    return valid
+
+
+def _decode_attention(q, k_new, v_new, cache, cfg, window: int, tp=None, lo: int = 0,
+                      kv_lo: int = 0):
     """Single-token decode against a (possibly ring-buffered) KV cache.
 
     cache: {'k': (B, Smax, KV, hd), 'v': ..., 'pos': int}. For windowed
     layers Smax <= window and the buffer is a ring: position p lives in
     slot p % Smax. The new token's K/V are written into the buffers in
     place (the port's cache is mutable; the reference returns new arrays).
+
+    Under ``tp`` the cache is this rank's block (:func:`kv_block`), ``q``
+    its query heads from ``lo`` and ``k_new``, ``v_new`` the KV heads from
+    ``kv_lo``. By KV heads the rank writes and attends its heads alone. By
+    sequence the rank holds slots s_lo .. s_lo + Sl − 1 of every KV head:
+    it writes the new token only if it owns its slot, attends every query
+    head (q all-gathered over "model") against its slots, and the ranks'
+    partials are combined (:func:`combine_partial_attention`); the rank
+    keeps its own heads of the result.
     """
-    B, one, Hp, hd = q.shape
+    B, one, Hl, hd = q.shape
     assert one == 1
     kc, vc, pos = cache["k"], cache["v"], int(cache["pos"])
-    Smax = kc.shape[1]
-    ring = window > 0 and Smax <= window
-    slot = pos % Smax if ring else pos
-    kc[:, slot] = k_new[:, 0]
-    vc[:, slot] = v_new[:, 0]
-
     H, KV = cfg.n_heads, cfg.n_kv_heads
-    kf = _expand_kv(kc, Hp, H, KV)
-    vf = _expand_kv(vc, Hp, H, KV)
-    idx = torch.arange(Smax, device=q.device)
-    if ring:
-        # every slot written so far is in-window by construction
-        valid = idx < min(pos + 1, Smax)
-    else:
-        valid = idx <= pos
-        if window:
-            valid &= idx > pos - window
-    o = _attend_block(q, kf, vf, valid[None, None, None, :], 1.0 / np.sqrt(hd),
-                      cfg.logit_softcap)
-    return o, {"k": kc, "v": vc, "pos": pos + 1}
+    Sl = kc.shape[1]
+    seq = tp is not None and tp.size > 1 and KV % tp.size != 0
+    Smax = Sl * tp.size if seq else Sl
+    c_lo, n, s_lo, _ = kv_block(cfg, tp, Smax)
+    ring = window > 0 and Smax <= window
+    slot = (pos % Smax if ring else pos) - s_lo
+    if not seq or 0 <= slot < Sl:
+        kc[:, slot] = k_new[:, 0, c_lo - kv_lo:c_lo - kv_lo + n]
+        vc[:, slot] = v_new[:, 0, c_lo - kv_lo:c_lo - kv_lo + n]
+
+    valid = decode_valid(s_lo + torch.arange(Sl, device=q.device), pos, Smax, window)
+    new = {"k": kc, "v": vc, "pos": pos + 1}
+    if not seq:
+        kf = _expand_kv(kc, Hl, H, KV, lo, c_lo)
+        vf = _expand_kv(vc, Hl, H, KV, lo, c_lo)
+        return _attend_block(q, kf, vf, valid[None, None, None, :], 1.0 / np.sqrt(hd),
+                             cfg.logit_softcap), new
+    q_all = tp.gather(q, 2)
+    Hp = q_all.shape[2]
+    o, lse = partial_decode_attention(q_all, _expand_kv(kc, Hp, H, KV),
+                                      _expand_kv(vc, Hp, H, KV), valid, cfg.logit_softcap)
+    o = combine_partial_attention(
+        o, lse, lambda t: all_reduce(t, tp.group, op=dist.ReduceOp.MAX),
+        lambda t: all_reduce(t, tp.group))
+    return o[:, :, lo:lo + Hl].to(q.dtype), new
 
 
 def cross_attention(x, p, cfg, media_kv, tp=None):

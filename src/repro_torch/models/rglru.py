@@ -8,7 +8,8 @@ reference uses ``associative_scan`` and a fused jnp update there. With
 ``tp`` (the train step on a mesh with a "model" axis) the block runs on
 this rank's block of the ``rnn_width`` channels where they split: ``w_in``,
 ``w_gate``, ``w_rg``, ``w_ig``, ``conv_w``, ``conv_b`` and ``lam`` its
-column blocks, ``w_out`` row-parallel, the scan on the local channels.
+column blocks, ``w_out`` row-parallel, the scan on the local channels; in
+decode the carried ``h`` and conv state are the rank's channels too.
 """
 from __future__ import annotations
 
@@ -76,7 +77,11 @@ def rglru_block(x, p, cfg, state=None, tp=None):
     return (out if tp is None else tp.reduce(out)), {"conv": new_conv, "h": new_h}
 
 
-def rglru_init_state(cfg, batch: int, dtype, device=None):
+def rglru_init_state(cfg, batch: int, dtype, device=None, tp=None):
+    """Zero decode state; with ``tp`` this rank's block of the channels
+    (where they split), the channels its ``rglru_block`` reads."""
     r, cw = cfg.rnn_width, cfg.conv_width
+    if tp is not None and tp.splits(r):
+        r //= tp.size
     return {"conv": torch.zeros((batch, cw - 1, r), dtype=dtype, device=device),
             "h": torch.zeros((batch, r), dtype=torch.float32, device=device)}

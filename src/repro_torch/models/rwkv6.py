@@ -98,7 +98,8 @@ def _project_heads(x, w, Hp, hd):
 def rwkv_time_mix(x, p, cfg, state=None, tp=None):
     """Time-mix sublayer. state: None (prefill / forward) or
     {'S': (B, Hp, hd, hd) f32, 'shift': (B, d)} (decode). ``tp``: this
-    rank's block of the heads (training only)."""
+    rank's block of the heads (its ``S`` too; a rank of padding alone
+    keeps a zero state)."""
     B, S, d = x.shape
     hd = cfg.rwkv_head_dim
     H, Hp = rwkv_heads(cfg)
@@ -160,9 +161,14 @@ def rwkv_channel_mix(x, p, cfg, state=None, tp=None):
     return out, {"shift": x[:, -1, :]}
 
 
-def rwkv_init_state(cfg, batch: int, dtype, device=None):
+def rwkv_init_state(cfg, batch: int, dtype, device=None, tp=None):
+    """Zero decode state; with ``tp`` the time mix's ``S`` holds this rank's
+    block of the padded heads (where they split), the shifts the whole
+    residual stream every model rank holds."""
     hd = cfg.rwkv_head_dim
     _, Hp = rwkv_heads(cfg)
+    if tp is not None and tp.splits(Hp):
+        Hp //= tp.size
     return {
         "time": {"S": torch.zeros((batch, Hp, hd, hd), dtype=torch.float32, device=device),
                  "shift": torch.zeros((batch, cfg.d_model), dtype=dtype, device=device)},

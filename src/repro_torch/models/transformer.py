@@ -19,11 +19,13 @@ A model is a repeating unit of sublayers (``cfg.block_pattern``) applied
 reference's nested-dict layout, unit leaves stacked ``(n_units, …)``; a
 Python loop over the units replaces ``lax.scan``. The reference's
 sharding rules have no single-card counterpart and are left out of every
-signature; the train step on a mesh with a "model" axis passes ``tp`` (a
-``core.tensor_parallel.TensorParallel``) to ``forward`` and
-``chunked_xent`` instead: each block runs on this rank's heads, channels
-or experts, the embedding reads the table with its columns gathered over
-"model", and the head and the loss are vocab-parallel. Under grad,
+signature; a train or serve step on a mesh with a "model" axis passes
+``tp`` (a ``core.tensor_parallel.TensorParallel``) to ``forward`` and
+``chunked_xent``, or to ``prefill``, ``decode_step`` and ``init_cache``,
+instead: each block runs on this rank's heads, channels or experts, the
+embedding reads the table with its columns gathered over "model", the
+head and the loss are vocab-parallel, and the cache holds the rank's
+blocks. Under grad,
 ``remat="full"`` recomputes each unit in the backward
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does,
 and ``remat="dots"`` keeps only the outputs of the matmuls with no batch
@@ -165,7 +167,7 @@ def _apply_sublayer(x, p, cfg: ModelConfig, kind: str, positions, cache=None, me
     its cache as it is. ``aux`` is the MoE router's load-balance loss (0.0
     without experts): with ``router_group`` this rank's part of the loss
     over the group's rows (``moe.moe_block``). ``tp``: tensor and expert
-    parallelism over "model" (training)."""
+    parallelism over "model" (training and serving)."""
     aux = 0.0
     if kind in ("attn", "cross"):
         h = L.norm(x, p["norm1"], cfg.norm)
@@ -267,8 +269,14 @@ def embed_inputs(params, batch: Dict[str, Any], cfg: ModelConfig, tp=None):
     return x, media, labels, positions
 
 
-def unembed(params, x, cfg: ModelConfig):
+def unembed(params, x, cfg: ModelConfig, tp=None):
+    """The head's logits (B, S, V). With ``tp`` the vocab-parallel head
+    (:func:`_tp_head`), its blocks gathered over "model"."""
     x = L.norm(x, params["final_norm"], cfg.norm)
+    if tp is not None:
+        head, vocab = _tp_head(params, cfg, tp)
+        logits = torch.einsum("bsd,vd->bsv" if cfg.tie_embeddings else "bsd,dv->bsv", x, head)
+        return tp.gather(logits, -1) if vocab else logits
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, params["embed"])
     return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
@@ -439,16 +447,18 @@ def _cache_len(cfg: ModelConfig, cache_len: int) -> int:
     return min(cache_len, cfg.window) if cfg.window else cache_len
 
 
-def _cache_struct(cfg: ModelConfig, kind: str, batch: int, cache_len: int, dtype, device):
+def _cache_struct(cfg: ModelConfig, kind: str, batch: int, cache_len: int, dtype, device,
+                  tp=None):
     if kind == "attn":
-        kv = (batch, _cache_len(cfg, cache_len), cfg.n_kv_heads, cfg.head_dim)
+        _, KV, _, S = L.kv_block(cfg, tp, _cache_len(cfg, cache_len))
+        kv = (batch, S, KV, cfg.head_dim)
         return {"k": torch.zeros(kv, dtype=dtype, device=device),
                 "v": torch.zeros(kv, dtype=dtype, device=device),
                 "pos": torch.zeros((), dtype=torch.int32)}
     if kind == "rglru":
-        return R.rglru_init_state(cfg, batch, dtype, device)
+        return R.rglru_init_state(cfg, batch, dtype, device, tp)
     if kind == "rwkv":
-        return W.rwkv_init_state(cfg, batch, dtype, device)
+        return W.rwkv_init_state(cfg, batch, dtype, device, tp)
     if kind == "cross":
         # the media comes with every step (batch["media"]): no per-layer K/V
         return {"pos": torch.zeros((), dtype=torch.int32)}
@@ -462,41 +472,56 @@ def _stack(trees):
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device: str | torch.device = "cuda"):
-    """Cache tree: per unit sublayer stacked over n_units, plus the tail."""
+               device: str | torch.device = "cuda", tp=None):
+    """Cache tree: per unit sublayer stacked over n_units, plus the tail.
+    With ``tp`` (serving over "model") this rank's blocks: each attention
+    layer's by KV heads or by sequence (``layers.kv_block``), the recurrent
+    states the channels or heads the rank computes."""
     dtype = _dtype(cfg)
-    unit = {f"{i}_{kind}": _stack([_cache_struct(cfg, kind, batch, cache_len, dtype, device)
+    unit = {f"{i}_{kind}": _stack([_cache_struct(cfg, kind, batch, cache_len, dtype, device, tp)
                                    for _ in range(cfg.n_units)])
             for i, kind in enumerate(cfg.block_pattern)}
-    tail = {f"{i}_{kind}": _cache_struct(cfg, kind, batch, cache_len, dtype, device)
+    tail = {f"{i}_{kind}": _cache_struct(cfg, kind, batch, cache_len, dtype, device, tp)
             for i, kind in enumerate(cfg.tail_pattern)}
     return {"unit": unit, "tail": tail}
 
 
-def _attn_prefill_cache(cfg: ModelConfig, kv, S: int, batch: int, cache_len: int):
+def _attn_prefill_cache(cfg: ModelConfig, kv, S: int, batch: int, cache_len: int, tp=None):
     """Prefill's (k, v) of one attention layer -> its decode cache. Past the
-    window, the last ``clen`` rows are rolled so position p is in slot p % clen."""
+    window, the last ``clen`` rows are rolled so position p is in slot p % clen.
+    With ``tp`` the rank's block (``layers.kv_block``): the KV heads of its
+    block (k and v hold the heads from the block's first, or all of them)
+    and, under the sequence layout, its slots; the rank computed every
+    position of those heads, so no slot crosses ranks."""
     k, v = kv
     clen = _cache_len(cfg, cache_len)
+    kv_lo, n, s_lo, Sl = L.kv_block(cfg, tp, clen)
+    if k.shape[2] != n:
+        k, v = k[:, :, kv_lo:kv_lo + n], v[:, :, kv_lo:kv_lo + n]
     if clen < S:
-        k = torch.roll(k[:, S - clen:], shifts=S % clen, dims=1)
-        v = torch.roll(v[:, S - clen:], shifts=S % clen, dims=1)
+        k = torch.roll(k[:, S - clen:], shifts=S % clen, dims=1)[:, s_lo:s_lo + Sl]
+        v = torch.roll(v[:, S - clen:], shifts=S % clen, dims=1)[:, s_lo:s_lo + Sl]
+        k, v = k.contiguous(), v.contiguous()
     else:
-        buf = _cache_struct(cfg, "attn", batch, cache_len, k.dtype, k.device)
-        buf["k"][:, :S], buf["v"][:, :S] = k, v
+        buf = _cache_struct(cfg, "attn", batch, cache_len, k.dtype, k.device, tp)
+        hi = min(S, s_lo + Sl)
+        if hi > s_lo:
+            buf["k"][:, :hi - s_lo], buf["v"][:, :hi - s_lo] = k[:, s_lo:hi], v[:, s_lo:hi]
         k, v = buf["k"], buf["v"]
     return {"k": k, "v": v, "pos": torch.tensor(S, dtype=torch.int32)}
 
 
-def prefill(params, batch, cfg: ModelConfig, cache_len: int):
-    """Process a full prompt: returns (last-position logits (B, V), cache)."""
-    x, media, _, positions = embed_inputs(params, batch, cfg)
+def prefill(params, batch, cfg: ModelConfig, cache_len: int, unit_gather=None, tp=None):
+    """Process a full prompt: returns (last-position logits (B, V), cache).
+    ``unit_gather`` and ``tp`` as in :func:`forward` (serving on a mesh):
+    the cache is then this rank's blocks (:func:`init_cache`)."""
+    x, media, _, positions = embed_inputs(params, batch, cfg, tp)
     B, S = positions.shape
 
     def run(x, p, kind):
-        x, nc, _ = _apply_sublayer(x, p, cfg, kind, positions, media=media)
+        x, nc, _ = _apply_sublayer(x, p, cfg, kind, positions, media=media, tp=tp)
         if kind == "attn":
-            nc = _attn_prefill_cache(cfg, nc, S, B, cache_len)
+            nc = _attn_prefill_cache(cfg, nc, S, B, cache_len, tp)
         elif kind == "cross":
             nc = {"pos": torch.tensor(S, dtype=torch.int32)}
         return x, nc
@@ -504,13 +529,15 @@ def prefill(params, batch, cfg: ModelConfig, cache_len: int):
     units = []
     for i in range(cfg.n_units):
         unit_p, nc = _index(params["unit"], i), {}
+        if unit_gather is not None:
+            unit_p = unit_gather(unit_p)
         for j, kind in enumerate(cfg.block_pattern):
             x, nc[f"{j}_{kind}"] = run(x, unit_p[f"{j}_{kind}"], kind)
         units.append(nc)
     tail = {}
     for j, kind in enumerate(cfg.tail_pattern):
         x, tail[f"{j}_{kind}"] = run(x, params["tail"][f"{j}_{kind}"], kind)
-    logits = unembed(params, x[:, -1:], cfg)[:, -1]
+    logits = unembed(params, x[:, -1:], cfg, tp)[:, -1]
     return logits, {"unit": _stack(units) if units else {}, "tail": tail}
 
 
@@ -526,29 +553,32 @@ def _write_back(dst, src):
             dst[k].copy_(new)
 
 
-def decode_step(params, batch, cache, cfg: ModelConfig):
+def decode_step(params, batch, cache, cfg: ModelConfig, unit_gather=None, tp=None):
     """One-position decode: batch = {'tokens': (B, 1)} or {'frames': (B, 1,
     d)}, with 'pos' (B, 1) and, for the patch frontend, 'media' (B, T, d),
-    projected through ``patch_proj`` again at every step.
+    projected through ``patch_proj`` again at every step. ``unit_gather``
+    and ``tp`` as in :func:`prefill`, ``cache`` this rank's blocks.
 
     Returns (logits (B, V), cache), the cache updated in place."""
     if cfg.frontend == "frames":
-        x = _project(params, "frame_proj", batch["frames"], cfg)
+        x = _project(params, "frame_proj", batch["frames"], cfg, tp)
     else:
-        x = _embed_tokens(params, batch["tokens"], cfg)
+        x = _embed_tokens(params, batch["tokens"], cfg, tp)
     pos = batch["pos"]
     media = batch.get("media")
     if media is not None:
-        media = _project(params, "patch_proj", media, cfg)
+        media = _project(params, "patch_proj", media, cfg, tp)
     for i in range(cfg.n_units):
         unit_c = _index(cache["unit"], i)
-        x, nc, _ = _apply_unit(x, _index(params["unit"], i), cfg, pos, unit_cache=unit_c,
-                               media=media)
+        unit_p = _index(params["unit"], i)
+        if unit_gather is not None:
+            unit_p = unit_gather(unit_p)
+        x, nc, _ = _apply_unit(x, unit_p, cfg, pos, unit_cache=unit_c, media=media, tp=tp)
         _write_back(unit_c, nc)
     for j, kind in enumerate(cfg.tail_pattern):
         key = f"{j}_{kind}"
         x, nc, _ = _apply_sublayer(x, params["tail"][key], cfg, kind, pos,
-                                   cache=cache["tail"][key], media=media)
+                                   cache=cache["tail"][key], media=media, tp=tp)
         _write_back(cache["tail"][key], nc)
-    logits = unembed(params, x, cfg)[:, -1]
+    logits = unembed(params, x, cfg, tp)[:, -1]
     return logits, cache

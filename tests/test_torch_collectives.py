@@ -276,13 +276,18 @@ def _eight_ranks(rank, world, inputs_npz, ref_npz):
         opt = make_optimizer(opt_name)
         step = specs.make_train_step(cfg, opt_name, lr, micro, transport="two_step_int8",
                                      mesh=mesh, seed=0)
-        new, state, loss = step(params, opt.init(params), batch,
+        # FSDP over "data", as the reference's rules: the rank's shards in,
+        # the gathered leaves out
+        shards = step.layout.shard(params)
+        new, state, loss = step(shards, opt.init(shards), batch,
                                 noise=ref_noise(_nest(ref, f"{opt_name}/noise/")))
+        new = step.layout.gather(new)
+        state = step.layout.gather(state, step.layout.state_places(state))
         out[opt_name] = (lm_params_to_jax(new), lm_params_to_jax(state), float(loss),
                          float(step.grad_norm))
     try:
-        specs.make_train_step(cfg, "sgd", 0.5, transport="two_step_int8", mesh=mesh)(
-            params, {}, batch)
+        step = specs.make_train_step(cfg, "sgd", 0.5, transport="two_step_int8", mesh=mesh)
+        step(step.layout.shard(params), {}, batch)
     except ValueError as e:
         out["stateless"] = str(e)
     return out
@@ -560,8 +565,9 @@ def test_rules_choose_the_schedule():
     """FSDP on: the two-step schedule; replicated: the flat all-reduce;
     either beside tensor and expert parallelism over "model", whenever the
     mesh has that axis, of any size. Tensor or expert parallelism over
-    another axis raises, and so does what item 1e still lacks: the int8
-    transport over a "model" axis larger than 1, and serving over one."""
+    another axis raises. The int8 transport holds FSDP shards and blocks
+    over a "model" axis larger than 1, and a serving cell over one counts
+    its "model" bytes."""
     rules = sharding.ShardingRules()
     assert sharding.reduce_schedule(rules, {"pod": 2, "data": 4, "model": 1}) == "two_step"
     assert sharding.reduce_schedule(rules.replicated(), {"data": 4, "model": 1}) == "classical"
@@ -575,10 +581,13 @@ def test_rules_choose_the_schedule():
         sharding.reduce_schedule(rules.with_(tensor=None, expert="data"), {"data": 2})
     cfg = configs.get_smoke("qwen2-0.5b")
     tp2 = mesh_mod.AbstractMesh({"pod": 2, "data": 2, "model": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 1e"):
-        specs.make_train_step(cfg, mesh=tp2, transport="two_step_int8")
-    with pytest.raises(NotImplementedError, match="item 1e, serving over 'model'"):
-        specs.input_specs(cfg, ShapeConfig("p", 16, 4, "prefill"), {"data": 2, "model": 2})
+    from repro_torch.launch.roofline import Counter
+    int8 = specs.make_train_step(cfg, mesh=tp2, transport="two_step_int8").layout
+    assert int8.tp.size == 2 and int8.group is not None
+    fn, args = specs.input_specs(cfg, ShapeConfig("p", 16, 4, "prefill"), {"data": 2, "model": 2})
+    with Counter() as c:
+        fn(*args)
+    assert c.coll["model"] > 0 and c.coll["data"] > 0
     assert specs.make_train_step(cfg, mesh=tp2).layout.tp.size == 2
 
 

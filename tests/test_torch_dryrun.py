@@ -616,31 +616,39 @@ def test_data_parallel_record_reckons_the_pod_hop(tmp_path):
 @pytest.mark.parametrize("arch,mesh", [("qwen2-0.5b", "single"), ("qwen2-0.5b", "both")])
 def test_meshes_the_port_does_not_run_raise_naming_1e(arch, mesh, tmp_path, capsys):
     """The reference's production meshes (tensor and expert parallelism
-    over "model"): a train cell, cut to 2 layers, writes a record with
-    "model" bytes on each mesh; a prefill cell, which the port does not run
-    there, fails naming the serving part of item 1e and writes no record."""
+    over "model"), which the port now runs in full:
+    a train cell and a prefill and a decode cell, each cut to 2 layers,
+    write records with "model" bytes on each mesh; the decode's KV cache
+    (qwen2-0.5b's 2 KV heads do not divide 16: the sequence layout) is
+    1 / (clients · model) of the whole cache on a rank. Tensor
+    parallelism over another axis still raises."""
     n = 2 if mesh == "both" else 1
-    dryrun.main(["--arch", arch, "--shape", "train_4k", "--mesh", mesh, "--set", "n_layers=2",
-                 "--no-segments", "--out", str(tmp_path / "train")])
-    recs = [json.loads(f.read_text()) for f in sorted((tmp_path / "train").iterdir())]
-    assert len(recs) == n
-    for rec in recs:
-        coll = rec["whole_program"]["coll_bytes_by_axis"]
-        assert coll["model"] > 0 and coll["data"] > 0, rec["mesh"]
-        assert ("pod" in coll) == (rec["mesh"] == "multi")
-    capsys.readouterr()
-    with pytest.raises(SystemExit):
-        dryrun.main(["--arch", arch, "--shape", "prefill_32k", "--mesh", mesh,
-                     "--no-segments", "--out", str(tmp_path / "prefill")])
-    out = capsys.readouterr().out
-    assert "FAILURES" in out and out.count("item 1e, serving over") == n
-    assert not (tmp_path / "prefill").exists()
-    shape = dryrun.parse_mesh("single" if mesh == "both" else mesh)[1]
-    rules = dryrun.rules_for_mesh(shape)
-    with pytest.raises(NotImplementedError, match="item 1e"):
-        dryrun._check_mesh(shape, rules, "prefill")
-    with pytest.raises(NotImplementedError, match="item 1e"):
-        specs.input_specs(configs.get(arch), shape_by_name("prefill_32k"), shape, rules)
+    for shape_name in ("train_4k", "prefill_32k", "decode_32k"):
+        dryrun.main(["--arch", arch, "--shape", shape_name, "--mesh", mesh, "--set",
+                     "n_layers=2", "--no-segments", "--out", str(tmp_path / shape_name)])
+        recs = [json.loads(f.read_text()) for f in sorted((tmp_path / shape_name).iterdir())]
+        assert len(recs) == n
+        for rec in recs:
+            coll = rec["whole_program"]["coll_bytes_by_axis"]
+            assert coll["model"] > 0 and coll["data"] > 0, (shape_name, rec["mesh"])
+            assert ("pod" in coll) == (rec["mesh"] == "multi" and shape_name == "train_4k")
+    cfg = dataclasses.replace(configs.get(arch), n_layers=2)
+    whole = _kv_bytes(specs.cache_struct_sharded(cfg, shape_by_name("decode_32k")))
+    for name in ("single", "multi")[:n]:
+        shape = dryrun.parse_mesh(name)[1]
+        rules = dryrun.rules_for_mesh(shape)
+        clients = shape.get("pod", 1) * shape["data"]
+        rank = _kv_bytes(specs.cache_struct_sharded(cfg, shape_by_name("decode_32k"), shape,
+                                                    rules))
+        assert rank * clients * shape["model"] == whole, name
+    with pytest.raises(NotImplementedError, match="over 'model' alone"):
+        dryrun._check_mesh({"data": 2, "model": 2}, dryrun.rules_for_mesh(
+            {"data": 2, "model": 2}).with_(tensor="data"))
+
+
+def _kv_bytes(cache):
+    return sum(t.numel() * t.element_size() for k, t in _paths(cache)
+               if k.endswith(("/k", "/v")))
 
 
 POD2_DATA2_MODEL2 = {"pod": 2, "data": 2, "model": 2}

@@ -8,6 +8,7 @@ before it in the full script.
     python3 tools/chip_phases.py phase_examples # phase 20 alone: the examples
     python3 tools/chip_phases.py phase_fsdp     # phase 21 alone: FSDP, MoE over ranks
     python3 tools/chip_phases.py phase_tp       # phase 22 alone: TP and EP over "model"
+    python3 tools/chip_phases.py phase_serve_tp # phase 23 alone: serving over "model"
 
 ``phase_card`` and ``phase_build`` always run first (the card's name and
 power limit, every kernel built). Each phase prints as in the full script,
