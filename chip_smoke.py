@@ -3380,8 +3380,7 @@ def _obs_ranges_window() -> None:
     from repro_torch import device
     device.resolve("cuda")
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.obs import profile as obs_profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     agg = importlib.import_module("repro_torch.kernels.agg_reduce")
     qz = importlib.import_module("repro_torch.kernels.quantize")
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
@@ -3504,7 +3503,7 @@ def _obs_ranges_window() -> None:
     hd = torch.zeros((4, 4096), device="cuda")
 
     def ranged(fn):
-        with obs_profile.named_scope("kernels.probe"):
+        with record_function("kernels.probe"):
             fn()
     for label, scoped, bare in (
             ("rwkv6_scan decode (4, 48, 1, 64)", lambda: rw.rwkv6_scan(rd, rd, rd, wd, ud),

@@ -23,6 +23,7 @@ import torch
 from torch.func import grad_and_value, vmap
 
 from repro_torch.core import aggregation
+from repro_torch.obs import profile
 from repro_torch.pon import PonConfig, round_times
 
 Params = Dict[str, torch.Tensor]
@@ -103,15 +104,26 @@ def round_transport(fl: FLConfig, rng: np.random.Generator,
     return rt
 
 
+def _ranged_grad(loss_fn: Callable) -> Callable:
+    """``grad_and_value`` of ``loss_fn`` with the loss's forward in an
+    ``fl.forward`` profiler range (under a vmap, one range a chunk)."""
+    def forward(p, batch):
+        with profile.named_scope("fl.forward"):
+            return loss_fn(p, batch)
+    return grad_and_value(forward, has_aux=True)
+
+
 def local_sgd(params: Params, batches: Dict[str, torch.Tensor],
               loss_fn: Callable, lr: float, steps: int):
     """H steps of SGD on one client's minibatches (leading (steps, batch)
     axes) -> (params, mean loss)."""
-    step_fn = grad_and_value(loss_fn, has_aux=True)
+    step_fn = _ranged_grad(loss_fn)
     p, losses = params, []
     for t in range(steps):
-        g, (loss, _) = step_fn(p, {k: v[t] for k, v in batches.items()})
-        p = {k: p[k] - lr * g[k] for k in p}
+        with profile.named_scope("fl.grad"):
+            g, (loss, _) = step_fn(p, {k: v[t] for k, v in batches.items()})
+        with profile.named_scope("fl.sgd"):
+            p = {k: p[k] - lr * g[k] for k in p}
         losses.append(loss)
     return p, torch.stack(losses).mean()
 
@@ -125,11 +137,13 @@ def local_sgd_prox(params: Params, batches: Dict[str, torch.Tensor],
     local trajectory back toward it (client-drift control):
     w ← w − lr · (g + mu · (w − w_ref)), as the reference's.
     """
-    step_fn = grad_and_value(loss_fn, has_aux=True)
+    step_fn = _ranged_grad(loss_fn)
     p, losses = params, []
     for t in range(steps):
-        g, (loss, _) = step_fn(p, {k: v[t] for k, v in batches.items()})
-        p = {k: p[k] - lr * (g[k] + mu * (p[k] - ref_params[k])) for k in p}
+        with profile.named_scope("fl.grad"):
+            g, (loss, _) = step_fn(p, {k: v[t] for k, v in batches.items()})
+        with profile.named_scope("fl.sgd"):
+            p = {k: p[k] - lr * (g[k] + mu * (p[k] - ref_params[k])) for k in p}
         losses.append(loss)
     return p, torch.stack(losses).mean()
 

@@ -17,7 +17,11 @@ owns selection, failures and PON transport. Contract:
 Host timings go into the ambient ``repro_torch.obs`` registry under the
 reference's names (``backend.train_s``, ``backend.eval_s``,
 ``backend.train_step_s``) through ``obs.profile.timed``, which synchronises
-the card before each clock read.
+the card before each clock read; the aggregate is timed the same way as
+``backend.aggregate_s`` into the History's ``aggregate_host_s`` alone (a
+profiler range, no registry record: the reference has none). Under a
+profiler the round's minibatch draws and their copy to the card open
+``fl.minibatch`` and ``fl.h2d`` ranges.
 
 The asynchronous seam of the runtime's semi_sync / fedbuff policies
 (``ClientStackedBackend`` and ``TransportBackend``; ``GradientBackend`` is
@@ -42,7 +46,6 @@ from repro_torch.core import fedavg
 from repro_torch.core.compression import CompressionState
 from repro_torch.core.fedavg import FLConfig
 from repro_torch.data import femnist
-from repro_torch.device import timed
 from repro_torch.fl.strategy import Strategy
 from repro_torch.obs import profile
 from repro_torch.obs.context import get as _obs_get
@@ -126,10 +129,12 @@ class ClientStackedBackend:
         w = np.concatenate([self.sample_counts[active], np.zeros(pad, np.float32)])
         row_mask = np.concatenate([np.ones(len(active), np.float32),
                                    np.zeros(pad, np.float32)])
-        mbs = [self.minibatch_fn(rng, self.clients[c], fl.local_steps,
-                                 fl.local_batch) for c in padded]
-        cb = {k: torch.from_numpy(np.stack([b[k] for b in mbs])).to(self.device)
-              for k in mbs[0]}
+        with profile.named_scope("fl.minibatch"):
+            mbs = [self.minibatch_fn(rng, self.clients[c], fl.local_steps,
+                                     fl.local_batch) for c in padded]
+            stacked = {k: np.stack([b[k] for b in mbs]) for k in mbs[0]}
+        with profile.named_scope("fl.h2d"):
+            cb = {k: torch.from_numpy(v).to(self.device) for k, v in stacked.items()}
         obs = _obs_get()
         (deltas, _), train_s = profile.timed(
             "backend.train_s", fedavg.train_selected_clients,
@@ -146,9 +151,10 @@ class ClientStackedBackend:
         """Shared tail of the sync round and the async apply: strategy
         aggregate → server update → uplink stats, ``aggregate_host_s`` and
         the eval cadence."""
-        (agg, stats), aggregate_s = timed(
-            self.strategy.aggregate, stacked, weights, mask, onu_ids,
-            self.fl.total_onus, comp=self._comp, client_ids=client_ids)
+        (agg, stats), aggregate_s = profile.timed(
+            "backend.aggregate_s", self.strategy.aggregate, stacked, weights,
+            mask, onu_ids, self.fl.total_onus, metrics=None, tracer=None,
+            comp=self._comp, client_ids=client_ids)
         self.params, self.server_state = self.strategy.server_update(
             self.params, agg, self.server_state)
         out = {"uplink_models": float(stats["uplink_models"]),

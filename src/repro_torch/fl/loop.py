@@ -15,6 +15,9 @@ forest's per-segment Mbits) equal the reference's round for round. A crashed
 client is removed before transport (never billed upstream); a transient
 failure is billed but masked out of the aggregate.
 
+Under a profiler the transport stage (selection, failures, the PON
+simulator, the mask) runs in an ``fl.transport`` range.
+
 Every driver owns a ``repro_torch.obs`` bundle: its registry is the source
 of the Mbits accounting (each row reads its segment's counter window back),
 and an enabled tracer puts each round's spans on one global timeline,
@@ -32,6 +35,7 @@ from repro_torch.core.fedavg import round_transport
 from repro_torch.device import timed
 from repro_torch.fl.backends import backend_wire_scale
 from repro_torch.fl.config import ExperimentConfig
+from repro_torch.obs import profile
 from repro_torch.obs.context import Obs
 from repro_torch.obs.context import get as _obs_get
 
@@ -135,7 +139,8 @@ def sync_round(cfg: ExperimentConfig, backend, failures,
         trc.offset_s = rnd * window
         trc.add_span("round", 0.0, window, lane=("fl", "rounds"), cat="round",
                      args={"round": rnd})
-    sel, mask, rt = _transport_stage(cfg, backend, failures, rng, rnd, obs)
+    with profile.named_scope("fl.transport"):
+        sel, mask, rt = _transport_stage(cfg, backend, failures, rng, rnd, obs)
     metrics = backend.run_round(rnd, sel, mask, rt, rng)
     reg = obs.metrics
     rec = {"round": rnd, "n_selected": len(sel),

@@ -22,9 +22,14 @@ Three pillars (DESIGN.md §13):
     bounded histograms. The drivers' source of truth for all bandwidth
     accounting: the ``*_mbits`` History values are *read from* the
     registry, bit for bit the transport's.
-  * **profile / logging** — ``torch.profiler`` ranges (``named_scope``
-    around every kernel wrapper, ``annotate`` host-side) and the shared
-    stdlib logging setup behind ``--log-level``/``--log-json``.
+  * **profile / logging** — ``torch.profiler`` ranges, opened only while
+    a profiler is active through one helper, ``profile.named_scope``:
+    around every kernel wrapper (``kernels.*``), every ``profile.timed``
+    call (``backend.*``) and the FL round's stages (``fl.transport``,
+    ``fl.minibatch``, ``fl.h2d``, ``fl.grad``, ``fl.forward``,
+    ``fl.sgd``), which thereby show on the device's clock and touch no
+    History, registry or tracer; and the shared stdlib logging setup
+    behind ``--log-level``/``--log-json``.
 
 CLI: ``add_obs_cli_args`` contributes ``--trace-out``/``--metrics-out``
 (attached by the shared experiment flag set), ``session_from_args`` builds

@@ -3,18 +3,35 @@
 
 Two complementary mechanisms:
 
-  * :func:`annotate` / :func:`named_scope` — a
-    ``torch.profiler.record_function`` range: a named interval in a
-    ``torch.profiler`` capture, with the device kernels launched inside it
-    attributed to it. :func:`kernel_scope` wraps every public kernel
-    wrapper in one (``kernels.agg_reduce``, ``kernels.flash_attention``,
-    ...: the reference's ``named_scope`` names), so a capture shows each
-    kernel call as a named region; a wrapper called inside another
-    wrapper's range (a per-leaf form over its row form) opens no second
-    range, so one call is one range. It opens the range only while a
-    profiler is active: a range costs tens of microseconds of host time,
-    which at the decode path's call rate is about 1% of a step (PERF.md
-    §6), against a tenth of a microsecond for the test.
+  * :func:`named_scope` — the one range helper: a
+    ``torch.profiler.record_function`` range while a profiler is active
+    (a named interval in the capture, recorded on the same clock as the
+    device operations, which are attributed to the range their launch sat
+    in), and a shared null context otherwise: an open range costs tens of
+    microseconds of host time, which at the decode path's call rate is
+    about 1% of a step (PERF.md §6), against a tenth of a microsecond for
+    the test. Three kinds of range go through it:
+
+      - :func:`kernel_scope` wraps every public kernel wrapper in one
+        (``kernels.agg_reduce``, ``kernels.flash_attention``, ...: the
+        reference's ``named_scope`` names); a wrapper called inside
+        another wrapper's range (a per-leaf form over its row form) opens
+        no second range, so one call is one range;
+      - :func:`timed` opens one around the callable it times
+        (``backend.train_s``, ``backend.eval_s``, ``backend.aggregate_s``,
+        ``backend.train_step_s``);
+      - the FL round's stages, opened where the work happens:
+        ``fl.transport`` (``fl.loop.sync_round``: selection, failures, the
+        PON simulator, the mask), ``fl.minibatch`` and ``fl.h2d``
+        (``ClientStackedBackend.run_round``: the clients' minibatch draws,
+        their copy to the card), and inside local training
+        (``core.fedavg.local_sgd`` / ``local_sgd_prox``, once a local step
+        of a vmap'd chunk) ``fl.grad`` (forward and backward),
+        ``fl.forward`` inside it (the loss alone) and ``fl.sgd`` (the
+        parameter update).
+
+    A stage range adds no clock read, no synchronisation and no History,
+    registry or tracer entry: it exists in a profiler's capture alone.
   * :func:`timed` — one callable's host wall time with the card
     synchronised before each clock read (PyTorch returns before queued
     kernels finish, so a bare host clock would time the enqueue), fed into
@@ -24,6 +41,7 @@ Two complementary mechanisms:
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 import time
@@ -35,14 +53,13 @@ from torch.profiler import record_function
 from repro_torch.device import synchronize
 
 
-def annotate(name: str) -> record_function:
-    """Host-side profiler range around a region (backend train/eval)."""
-    return record_function(name)
+_NO_RANGE = contextlib.nullcontext()
 
 
-def named_scope(name: str) -> record_function:
-    """The range a kernel call opens (the reference's in-jit scope)."""
-    return record_function(name)
+def named_scope(name: str):
+    """A profiler range named ``name`` while a profiler is active (the
+    reference's scope names), a shared null context otherwise."""
+    return record_function(name) if _profiler_enabled() else _NO_RANGE
 
 
 _open = threading.local()   # .depth: this thread's open kernel ranges
@@ -70,13 +87,13 @@ def kernel_scope(name: Union[str, Callable[..., str]]) -> Callable:
 
 def timed(name: str, fn: Callable, *args,
           metrics=None, tracer=None, **kwargs) -> Tuple[Any, float]:
-    """Run ``fn(*args, **kwargs)`` under a profiler range, the card
+    """Run ``fn(*args, **kwargs)`` in ``named_scope(name)``, the card
     synchronised before each clock read; returns ``(result,
     wall_seconds)`` and records the timing into ``metrics.histogram(name)``
     / a tracer wall span when given."""
     synchronize()
     t0 = time.perf_counter()
-    with annotate(name):
+    with named_scope(name):
         out = fn(*args, **kwargs)
         synchronize()
     dt = time.perf_counter() - t0

@@ -5,11 +5,14 @@ packages compute the same thing, and on the port's own terms (tracing moves
 no History value, a replay is invisible, the disabled path costs nothing)
 elsewhere. Mirrors tests/test_obs.py; the entry points' flags at the end."""
 import argparse
+import collections
 import importlib
+import importlib.util
 import io
 import json
 import logging
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -488,6 +491,124 @@ def test_backward_kernels_open_one_range_a_launch(monkeypatch):
         before = wrapper.launches_bwd
         assert _ranges(lambda: out.sum().backward()) == {name: 1}
         assert wrapper.launches_bwd == before + launches
+
+
+# ------------------------------------------------ the FL round's stage ranges
+
+HOST_KEYS = ("wall_s", "train_host_s", "aggregate_host_s")
+
+
+def _cnn_rounds(strategy, profiled):
+    """A reduced-width CNN RoundLoop (8 clients, 6 selected, chunks of 2,
+    H = 2), traced, run for 2 rounds, under torch.profiler when
+    ``profiled``: the loop, its History and the profiler's range counts."""
+    from repro_torch import configs
+    from repro_torch.data import femnist as fdata
+    from repro_torch.models import femnist_cnn
+    flc = FLConfig(n_onus=2, clients_per_onu=4, n_selected=6, local_steps=2, local_batch=4,
+                   client_chunk=2)
+    clients, eval_set = fdata.generate(fdata.FemnistConfig(n_clients=8, seed=1))
+    backend = fl.ClientStackedBackend(
+        flc, fl.make_strategy(strategy),
+        femnist_cnn.init_params(configs.get("femnist_cnn").reduced(),
+                                torch.Generator().manual_seed(0), "cpu"),
+        clients, {k: torch.from_numpy(v) for k, v in eval_set.items()}, femnist_cnn.loss_fn)
+    loop = fl.RoundLoop(fl.ExperimentConfig(fl=flc, seed=4, n_rounds=2), backend,
+                        obs=Obs.enabled_tracing())
+    if not profiled:
+        return loop, loop.run(), {}
+    with torch.profiler.profile() as p:
+        hist = loop.run()
+    return loop, hist, {e.key: e.count for e in p.key_averages()
+                        if e.key.startswith(("fl.", "backend."))}
+
+
+@pytest.mark.parametrize("strategy", ["sfl_two_step", "fedprox"])
+def test_round_stages_open_their_ranges_under_a_profiler_alone(strategy, monkeypatch):
+    """Under a profiler a round opens one ``fl.transport``, and where a
+    client is involved one ``fl.minibatch``, ``fl.h2d`` and
+    ``backend.aggregate_s``, and chunks × H of ``fl.grad``, ``fl.forward``
+    and ``fl.sgd`` (``local_sgd`` under FedAvg, ``local_sgd_prox`` under
+    FedProx): one a local step of a vmap'd chunk, not one a client.
+    Without one no range opens, and the trained parameters (bit for bit),
+    the History rows but their host times, the registry's names and the
+    tracer's spans are the profiled run's."""
+    opened = []
+    real = profile.record_function
+    monkeypatch.setattr(profile, "record_function",
+                        lambda name, *a: opened.append(name) or real(name, *a))
+    base, base_hist, _ = _cnn_rounds(strategy, profiled=False)
+    assert opened == []
+    loop, hist, counts = _cnn_rounds(strategy, profiled=True)
+    fc = loop.backend.fl
+    trained = [r for r in hist if r["involved"] > 0]
+    steps = sum(-(-int(r["involved"]) // fc.client_chunk) for r in trained) * fc.local_steps
+    assert steps > len(trained) * fc.local_steps       # a round of more than one chunk
+    assert counts == {"fl.transport": len(hist), "fl.minibatch": len(trained),
+                      "fl.h2d": len(trained), "backend.train_s": len(trained),
+                      "backend.aggregate_s": len(trained), "backend.eval_s": len(trained),
+                      "fl.grad": steps, "fl.forward": steps, "fl.sgd": steps}
+    assert collections.Counter(n for n in opened if not n.startswith("kernels.")) == counts
+    assert all(torch.equal(base.backend.params[k], loop.backend.params[k])
+               for k in base.backend.params)
+    strip = lambda rows: [{k: v for k, v in r.items() if k not in HOST_KEYS}  # noqa: E731
+                          for r in rows]
+    assert strip(base_hist) == strip(hist)
+    assert base.metrics.names() == loop.metrics.names()
+    spans = lambda lp: [(s.name, s.lane, s.cat) + ((s.t0_s, s.t1_s)  # noqa: E731
+                                                   if s.lane[0] != "wall" else ())
+                        for s in lp.obs.tracer.spans]
+    assert spans(base) == spans(loop) and spans(base)
+
+
+def test_the_stages_tool_reads_nested_ranges_from_a_trace():
+    """``tools/fl_stages.py`` on a hand-built trace: ``fl.forward`` inside
+    ``fl.grad`` inside ``backend.train_s``. A device operation counts to
+    every range its launch sat in (by correlation id), on whichever thread
+    it was launched (the backward's, here on thread 3, while ``fl.grad``
+    waits), an idle gap to every range that holds it, and the breakdown
+    gives each idle piece to the innermost range, else to the round
+    loop."""
+    spec = importlib.util.spec_from_file_location(
+        "fl_stages", Path(__file__).resolve().parents[1] / "tools" / "fl_stages.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    X = lambda name, cat, ts, dur, **a: dict(ph="X", name=name, cat=cat, ts=ts, dur=dur,  # noqa: E731
+                                             tid=a.pop("tid", 1), args=a)
+    events = [X("window", "user_annotation", 0.0, 1000.0),
+              X("backend.train_s", "user_annotation", 50.0, 550.0),
+              X("fl.grad", "user_annotation", 100.0, 200.0),
+              X("fl.forward", "user_annotation", 100.0, 80.0),
+              X("kernels.agg_reduce", "user_annotation", 120.0, 10.0),
+              X("fl.sgd", "user_annotation", 300.0, 50.0),
+              X("fl.grad", "user_annotation", 400.0, 180.0),
+              X("fl.forward", "user_annotation", 400.0, 50.0)]
+    for corr, (launch, ts, dur) in enumerate(((110.0, 150.0, 50.0), (200.0, 250.0, 50.0),
+                                              (320.0, 330.0, 30.0), (700.0, 720.0, 80.0))):
+        events += [X("cudaLaunchKernel", "cuda_runtime", launch, 5.0, correlation=corr,
+                     tid=3 if corr == 1 else 1),
+                   X(f"k{corr}", "kernel", ts, dur, tid=7, correlation=corr)]
+    st = tool.stages(events, "window")
+    us = lambda d: {k: pytest.approx(v * 1e-6) for k, v in d.items()}  # noqa: E731
+    assert st["window_s"] == pytest.approx(1e-3) and st["busy_s"] == pytest.approx(210e-6)
+    assert st["calls"] == {"backend.train_s": 1, "fl.forward": 2, "fl.grad": 2, "fl.sgd": 1}
+    assert st["host_s"] == us({"backend.train_s": 550, "fl.forward": 130, "fl.grad": 380,
+                               "fl.sgd": 50})
+    assert st["idle_s"] == us({"backend.train_s": 420, "fl.forward": 100, "fl.grad": 280,
+                               "fl.sgd": 30})
+    assert st["ops"] == {"backend.train_s": 3, "fl.forward": 1, "fl.grad": 2, "fl.sgd": 1}
+    assert st["device_s"] == us({"backend.train_s": 130, "fl.forward": 50, "fl.grad": 100,
+                                 "fl.sgd": 30})
+    assert st["device_ops"] == 4 and st["top_ops"]["fl.grad"] == [
+        ("k0", pytest.approx(50e-6)), ("k1", pytest.approx(50e-6))]
+    assert st["idle_by_innermost"] == us({tool.LOOP: 370, "fl.grad": 180, "backend.train_s": 110,
+                                          "fl.forward": 100, "fl.sgd": 30})
+    assert list(st["idle_by_innermost"])[0] == tool.LOOP
+    rnd = tool.per_round(st, [{"wall_s": 1.0, "train_host_s": 0.5}, {"wall_s": 2.0}])
+    assert rnd["host_ms"]["fl.grad"] == pytest.approx(0.19) and rnd["ops"]["fl.grad"] == 1.0
+    assert rnd["top_ops_ms"]["fl.sgd"] == [("k2", pytest.approx(0.015))]
+    assert (rnd["rows_wall_s"], rnd["rows_train_host_s"], rnd["rows_aggregate_host_s"]) == (
+        1.5, 0.25, 0.0)
 
 
 # ----------------------------------------------------------------- logging
