@@ -18,15 +18,22 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              the call's device time apart from its host work (``queued_ms``:
              CUDA events around 20 calls queued behind a spin of the card),
              and the library call's the same way.
-   conv    — one vmapped SGD step of 16 full-width clients with the
-             port's convolution (unfold + f32 matmul) and with cuDNN's
-             ``F.conv2d``: gradient error against float64 on the CPU, times.
+   conv    — the im2col kernel (the CNN's patch gather) against
+             ``F.unfold`` bit for bit at a 16-client chunk's, eval's and one
+             client's shapes, one launch a call; its time, device time,
+             bound, plain-version and ``F.unfold`` times. Then one vmapped
+             SGD step of 16 full-width clients with the port's convolution
+             (the kernel's patches + f32 matmul), with the ``F.unfold``
+             form it replaced and with cuDNN's ``F.conv2d``: gradient error
+             against float64 on the CPU, times; the port's step (and 2
+             local SGD steps) equal to the ``F.unfold`` form's bit for bit.
 4. slice   — the port's main path through its user entry point,
              ``repro_torch.launch.femnist.run``: the paper topology
              (16 ONUs × 20 clients, N = 128, 8 local steps) on the
              full-width FEMNIST CNN, 3 rounds each of sfl_two_step and
              classical. Kernel launch counts are zeroed just before and
-             read just after; the upstream accounting is checked.
+             read just after: agg_reduce 8 a trained round, im2col 2 a
+             chunk-step and 2 an eval; the upstream accounting is checked.
 5. parity  — one round on the card and on the CPU, at reduced width and
              at full width: the same involvement, parameters within
              atol 1e-4 after 1 local step (the gap after 8 is printed).
@@ -524,19 +531,96 @@ def phase_kernels():
     return main
 
 
-def phase_conv() -> None:
-    """The CNN's convolutions as the path runs them, 16 clients under
-    ``vmap``: the port's unfold + matmul form against cuDNN's ``F.conv2d``.
-    Each layer alone on random inputs (no pooling, whose ties would route
-    a gradient differently in f32 and f64): input and weight gradients
-    against float64 on the CPU. Then one SGD step of the full-width CNN
-    with each form, timed."""
+@contextlib.contextmanager
+def _unfold_form():
+    """While open, ``conv5_same`` gathers its patches with ``F.unfold``
+    (ATen's im2col, one launch a sample): the form the port replaced."""
+    import types
+
     import torch.nn.functional as F
-    from torch.func import grad, vmap
+    from repro_torch.models import femnist_cnn
+
+    real = femnist_cnn.Im2colFn
+    femnist_cnn.Im2colFn = types.SimpleNamespace(apply=lambda x: F.unfold(x, 5, padding=2))
+    try:
+        yield
+    finally:
+        femnist_cnn.Im2colFn = real
+
+
+# (what, (B, C, H, W)): the im2col kernel's shapes on the main path; the
+# first two are a 16-client chunk's (the kernels-line row is conv2's)
+IM2COL_SHAPES = (("conv1, a 16-client chunk", (160, 1, 28, 28)),
+                 ("conv2, a 16-client chunk", (160, 32, 14, 14)),
+                 ("conv1, eval's batch", (496, 1, 28, 28)),
+                 ("conv2, eval's batch", (496, 32, 14, 14)),
+                 ("conv1, one client's batch", (10, 1, 28, 28)),
+                 ("conv2, one client's batch", (10, 32, 14, 14)))
+
+
+def _im2col_kernel() -> dict:
+    """The im2col kernel against ``F.unfold`` (its plain version and the
+    library call) bit for bit at ``IM2COL_SHAPES``, one launch a call;
+    times and bounds. Returns the kernels-line row (conv2's chunk shape,
+    the others under ``shapes``)."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    ki = importlib.import_module("repro_torch.kernels.im2col")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = {}
+    for what, shape in IM2COL_SHAPES:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        before = ki.im2col.launches
+        got = ki.im2col(x)
+        want = F.unfold(x, 5, padding=2)
+        torch.cuda.synchronize()
+        check(ki.im2col.launches == before + 1, f"im2col [{what}] launched "
+              f"{ki.im2col.launches - before} times")
+        check(torch.equal(got, want), f"im2col [{what}] differs from F.unfold")
+        del got, want
+        row = dict(ms=time_ms(lambda: ki.im2col(x)),
+                   plain_ms=time_ms(lambda: ki.im2col_plain(x)),
+                   library_ms=time_ms(lambda: F.unfold(x, 5, padding=2)))
+        row["device_ms"], row["device_ms_by"] = queued_ms(lambda: ki.im2col(x)), QUEUED
+        row["bound_ms"], row["bound_by"] = ki.im2col_cost(*shape).bound()
+        row["tiling"] = ki.tiling(*shape, ki._sms(0))._asdict()
+        print(f"kernel im2col [{what}] {shape}: equal to F.unfold bit for bit, one launch; "
+              f"ms {row['ms']:.4f} device {row['device_ms']:.4f} plain_ms "
+              f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} (F.unfold) "
+              f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}, "
+              f"{100 * row['bound_ms'] / row['device_ms']:.1f}% of bound by device); "
+              f"tiling {row['tiling']}")
+        rows[what] = row
+        del x
+    main = dict(rows.pop("conv2, a 16-client chunk"), shapes=rows)
+    check(main["bound_ms"] >= 0.5 * main["device_ms"],
+          f"im2col at conv2's chunk shape: {main['device_ms']:.4f} ms, under half its "
+          f"bound's rate ({main['bound_ms']:.4f} ms)")
+    return main
+
+
+def phase_conv() -> dict:
+    """The CNN's convolutions as the path runs them. The im2col kernel
+    against ``F.unfold`` at its shapes (``_im2col_kernel``). Then, 16
+    clients under ``vmap``: the port's form (the kernel's patches + f32
+    matmul), the ``F.unfold`` form it replaced and cuDNN's ``F.conv2d``,
+    each layer alone on random inputs (no pooling, whose ties would route
+    a gradient differently in f32 and f64): input and weight gradients
+    against float64 on the CPU. Then a vmap'd local step of the full-width
+    CNN (the gradients, and 2 SGD steps through ``core.fedavg.local_sgd``)
+    with the port's form equal to the ``F.unfold`` form's bit for bit, and
+    each form's step timed. Returns the kernels-line row of im2col."""
+    import torch.nn.functional as F
+    from torch.func import grad, grad_and_value, vmap
 
     from repro_torch import configs
+    from repro_torch.core import fedavg
     from repro_torch.data import femnist
     from repro_torch.models import femnist_cnn
+
+    row = _im2col_kernel()
 
     def cudnn_conv(x, w, b):
         return F.conv2d(x, w, b, padding=2)
@@ -549,7 +633,9 @@ def phase_conv() -> None:
         return float((a.double().cpu() - ref).abs().max()) / float(ref.abs().max())
 
     port_conv = femnist_cnn.conv5_same
-    forms = (("unfold + matmul (the port)", port_conv), ("cuDNN F.conv2d", cudnn_conv))
+    forms = (("im2col kernel + matmul (the port)", port_conv, contextlib.nullcontext),
+             ("F.unfold + matmul (ATen im2col)", port_conv, _unfold_form),
+             ("cuDNN F.conv2d", cudnn_conv, contextlib.nullcontext))
     gen = torch.Generator().manual_seed(1)
     for layer, c_in, hw, c_out in (("conv1", 1, 28, 32), ("conv2", 32, 14, 64)):
         ts = (torch.randn((16, 10, c_in, hw, hw), generator=gen),
@@ -557,53 +643,75 @@ def phase_conv() -> None:
               torch.zeros((16, c_out)),
               torch.randn((16, 10, c_out, hw, hw), generator=gen))
         ref_x, ref_w = conv_grads(cudnn_conv, *(t.double() for t in ts))
-        for name, conv in forms:
-            gx, gw = conv_grads(conv, *(t.cuda() for t in ts))
+        for name, conv, form in forms:
+            with form():
+                gx, gw = conv_grads(conv, *(t.cuda() for t in ts))
             ex, ew = rel(gx, ref_x), rel(gw, ref_w)
             print(f"conv [{name}] {layer} x16 clients: max error of the input "
                   f"gradient {ex:.3e}, of the weight gradient {ew:.3e} "
                   f"(of the largest entry; f64 reference)")
             if conv is port_conv:
                 check(max(ex, ew) <= 1e-5,
-                      f"the port's {layer} gradient errs by {max(ex, ew)}")
+                      f"the port's {layer} gradient errs by {max(ex, ew)} ({name})")
 
     cfg = configs.get("femnist_cnn")
     pc = femnist_cnn.init_params(cfg, torch.Generator().manual_seed(0), device="cuda")
     clients, _ = femnist.generate(femnist.FemnistConfig(n_clients=16, seed=7))
     rng = np.random.default_rng(0)
-    mbs = [femnist.client_minibatches(rng, c, 1, 10) for c in clients]
-    bc = {k: torch.from_numpy(np.stack([b[k][0] for b in mbs])).cuda() for k in mbs[0]}
+    mbs = [femnist.client_minibatches(rng, c, 2, 10) for c in clients]
+    b2 = {k: torch.from_numpy(np.stack([b[k] for b in mbs])).cuda() for k in mbs[0]}
+    bc = {k: v[:, 0] for k, v in b2.items()}
 
     def step():
-        return vmap(lambda bi: grad(lambda q: femnist_cnn.loss_fn(q, bi)[0])(pc))(bc)
+        return vmap(lambda bi: grad_and_value(lambda q: femnist_cnn.loss_fn(q, bi)[0])(pc))(bc)
 
-    for name, conv in forms:
+    def local():
+        return vmap(lambda bi: fedavg.local_sgd(pc, bi, femnist_cnn.loss_fn, 0.01, 2))(b2)
+
+    (g1, l1), (p1, m1) = step(), local()
+    with _unfold_form():
+        (g0, l0), (p0, m0) = step(), local()
+    torch.cuda.synchronize()
+    check(torch.equal(l1, l0) and torch.equal(m1, m0), "conv: the vmap'd step's loss differs "
+          "from the F.unfold form's")
+    for k in pc:
+        check(torch.equal(g1[k], g0[k]) and torch.equal(p1[k], p0[k]),
+              f"conv: {k}'s gradient or 2-step parameters differ from the F.unfold form's")
+    print("conv: a vmap'd step of 16 full-width clients (loss, every gradient) and 2 local "
+          "SGD steps (loss, every parameter) equal the F.unfold form's bit for bit")
+    for name, conv, form in forms:
         femnist_cnn.conv5_same = conv
         try:
-            ms = time_ms(step)
+            with form():
+                ms = time_ms(step)
         finally:
             femnist_cnn.conv5_same = port_conv
         print(f"conv [{name}]: one SGD step of 16 full-width clients, ms {ms:.4f}")
+    return row
 
 
 def phase_slice():
+    """The main path at full width; returns (launches by kernel: agg_reduce
+    and im2col, classical's involvement)."""
     from repro_torch.kernels.agg_reduce import segment_agg_reduce
+    from repro_torch.kernels.im2col import im2col
     from repro_torch.launch import femnist as launch
     from repro_torch.pon import MODEL_UPDATE_MBITS, PonConfig
 
     modes = ("sfl_two_step", "classical")
     n_sel, n_onus = 128, 16
     torch.cuda.reset_peak_memory_stats()
-    segment_agg_reduce.launches = 0
+    segment_agg_reduce.launches = im2col.launches = 0
     t0 = time.perf_counter()
     res = launch.run(n_rounds=3, n_selected=n_sel, full=True, seed=0, modes=modes,
                      pon=PonConfig(n_onus=n_onus, clients_per_onu=20),
                      device="cuda")
     wall = time.perf_counter() - t0
-    launches = segment_agg_reduce.launches
-    trained = 0
+    launches, gathers = segment_agg_reduce.launches, im2col.launches
+    trained = chunk_steps = 0
     for mode in modes:
         loop = res[mode]["loop"]
+        fc = loop.backend.fl
         for r in loop.history:
             print(f"slice {mode} round {r['round']}: involved {r['involved']:.0f}/"
                   f"{r['n_selected']} upstream_mbits {r['upstream_mbits']:.3f} "
@@ -617,6 +725,7 @@ def phase_slice():
             if r["involved"] == 0:
                 continue
             trained += 1
+            chunk_steps += -(-int(r["involved"]) // fc.client_chunk) * fc.local_steps
             check(math.isfinite(r["eval_loss"]), f"{mode} eval_loss {r['eval_loss']}")
             if mode == "sfl_two_step":
                 # one θ per active ONU crosses the PON, whatever N is
@@ -634,11 +743,15 @@ def phase_slice():
               f"{mode} params not finite")
         check(tuple(params["fc1_w"].shape) == (3136, 2048), "not the full-width CNN")
     print(f"slice: {trained} trained rounds, {launches} agg_reduce launches "
-          f"(8 leaves per trained round), wall {wall:.2f} s, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"(8 leaves per trained round), {gathers} im2col launches ({chunk_steps} "
+          f"chunk-steps and {trained} evals, 2 each), wall {wall:.2f} s, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check(launches > 0 and launches == 8 * trained,
           f"agg_reduce launched {launches} times for {trained} trained rounds")
-    return launches, res["classical"]["involved"]
+    check(gathers > 0 and gathers == 2 * (chunk_steps + trained),
+          f"im2col launched {gathers} times for {chunk_steps} chunk-steps and "
+          f"{trained} evals")
+    return dict(agg_reduce=launches, im2col=gathers), res["classical"]["involved"]
 
 
 def phase_parity() -> None:
@@ -3567,9 +3680,9 @@ def cost_rows():
     """(kernel, its cost function at the shape of its PERF.md §6 row, that
     row's Bound ms)."""
     import importlib
-    ag, kq, fa, rg, rw = (importlib.import_module(f"repro_torch.kernels.{m}") for m in
-                          ("agg_reduce", "quantize", "flash_attention", "rglru_scan",
-                           "rwkv6_scan"))
+    ag, kq, fa, rg, rw, ic = (importlib.import_module(f"repro_torch.kernels.{m}") for m in
+                              ("agg_reduce", "quantize", "flash_attention", "rglru_scan",
+                               "rwkv6_scan", "im2col"))
     bf16 = torch.bfloat16
     return (("agg_reduce", ag.agg_reduce_cost(128, N_FC1, 16, 4), 1.1043),
             ("agg_reduce, classical (1')", ag.agg_reduce_cost(16, N_FC1, 1, 4), 0.1304),
@@ -3585,7 +3698,8 @@ def cost_rows():
             ("rglru_scan backward", rg.rglru_scan_bwd_cost(8, 2048, 4096, False, False),
              0.4007),
             ("rwkv6_scan backward", rw.rwkv6_scan_bwd_cost(8, 48, 2048, 64, 64, bf16),
-             0.4244))
+             0.4244),
+            ("im2col", ic.im2col_cost(160, 32, 14, 14), 0.0312))
 
 
 # the cells phase 19 measures: phase 13's qwen2-0.5b step (batch 8 × 2048,
@@ -4888,13 +5002,13 @@ def main() -> int:
     phase(phase_card)
     phase(phase_build)
     main_case = phase(phase_kernels)
-    phase(phase_conv)
-    launches, classical_involved = phase(phase_slice)
+    im2col_row = phase(phase_conv)
+    slice_launches, classical_involved = phase(phase_slice)
     phase(phase_parity)
     rows = phase(phase_compression_kernels)
     rows["agg_reduce"] = main_case
     compressed = phase(phase_compressed_slice, classical_involved)
-    compressed["agg_reduce"] += launches
+    compressed["agg_reduce"] += slice_launches["agg_reduce"]
     phase(phase_compressed_parity)
     rows.update(phase(phase_lm_kernels))
     launches = dict(compressed, **phase(phase_serve))
@@ -4941,6 +5055,7 @@ def main() -> int:
         launches[name] += n
     for name, by_shape in serve_tp_rows.items():
         rows[name]["serve_tp_shapes"] = by_shape
+    rows["im2col"], launches["im2col"] = im2col_row, slice_launches["im2col"]
     print(f"total {time.perf_counter() - t0:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     table = (("agg_reduce", csrc + "agg_reduce.cu", "src/repro/kernels/agg_reduce.py:60"),
@@ -4956,7 +5071,8 @@ def main() -> int:
              ("rglru_scan", csrc + "rglru_scan.cu", "src/repro/kernels/rglru_scan.py:49"),
              ("rwkv6_scan", csrc + "rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:79"),
              ("rglru_scan_bwd", csrc + "rglru_scan.cu", "src/repro/kernels/rglru_scan.py:49"),
-             ("rwkv6_scan_bwd", csrc + "rwkv6_scan_bwd.cu", "src/repro/kernels/rwkv6_scan.py:79"))
+             ("rwkv6_scan_bwd", csrc + "rwkv6_scan_bwd.cu", "src/repro/kernels/rwkv6_scan.py:79"),
+             ("im2col", csrc + "im2col.cu", "none: the reference convolves with XLA"))
     # the design of each route ("route" itself stays "cuda", the build route)
     designs = {"agg_reduce": "no CSR for one segment, else a CSR copied from pinned memory "
                              "without blocking the host; 4 row loads a batch",
@@ -4982,7 +5098,11 @@ def main() -> int:
                                  "states; products mma.sync 3xTF32; the pair sums factored "
                                  "over 16-token sub-chunks as the forward's, off-diagonal "
                                  "blocks as products, per-pair exponentials only on the "
-                                 "diagonal blocks; 95 KB of shared memory, two blocks an SM"}
+                                 "diagonal blocks; 95 KB of shared memory, two blocks an SM",
+               "im2col": "added for the CNN's patch gather (ATen's im2col launches once a "
+                         "sample): one launch a call; a block stages a band of a plane with "
+                         "its halo in shared memory and writes its kernel rows with 16-byte "
+                         "stores"}
     for name, _, _ in table:
         check(launches[name] > 0, f"{name} never launched on the main path")
     print(json.dumps({"kernels": [

@@ -27,7 +27,8 @@ SOURCES = {"agg_reduce": "agg_reduce.cu", "quantize": "quantize.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_wgmma": "flash_attention_wgmma.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu", "rglru_scan": "rglru_scan.cu",
-           "rwkv6_scan": "rwkv6_scan.cu", "rwkv6_scan_bwd": "rwkv6_scan_bwd.cu"}
+           "rwkv6_scan": "rwkv6_scan.cu", "rwkv6_scan_bwd": "rwkv6_scan_bwd.cu",
+           "im2col": "im2col.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

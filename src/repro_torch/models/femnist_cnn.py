@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import device as device_mod
+from repro_torch.kernels.im2col import Im2colFn
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -73,9 +74,14 @@ def conv5_same(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     entry, whatever the TF32 flags say (``chip_smoke.py`` measures it),
     where the reference computes in f32. The matmul form is exact to f32
     rounding on every device.
+
+    The patch gather is ``kernels.im2col`` (the patches of ``F.unfold``,
+    the same values in the same order): on the card one launch gathers a
+    call's every sample, under the vmap of a client chunk too, where ATen's
+    im2col launches once per sample.
     """
     n, _, h, wd = x.shape
-    cols = F.unfold(x, 5, padding=2)                       # (B, C·25, H·W)
+    cols = Im2colFn.apply(x)                               # (B, C·25, H·W)
     y = w.reshape(w.shape[0], -1) @ cols                   # (B, O, H·W)
     return (y + b[:, None]).reshape(n, w.shape[0], h, wd)
 

@@ -459,9 +459,9 @@ BF16 = torch.bfloat16
 
 def _cost_rows():
     import importlib
-    ag, kq, fa, rg, rw = (importlib.import_module(f"repro_torch.kernels.{m}") for m in
-                          ("agg_reduce", "quantize", "flash_attention", "rglru_scan",
-                           "rwkv6_scan"))
+    ag, kq, fa, rg, rw, ic = (importlib.import_module(f"repro_torch.kernels.{m}") for m in
+                              ("agg_reduce", "quantize", "flash_attention", "rglru_scan",
+                               "rwkv6_scan", "im2col"))
     return {"agg_reduce": (ag.agg_reduce_cost(128, N_FC1, 16, 4), 1.1043),
             "agg_reduce classical": (ag.agg_reduce_cost(16, N_FC1, 1, 4), 0.1304),
             "agg_reduce_quant": (ag.agg_reduce_quant_cost(128, N_FC1, 16, 4), 1.1350),
@@ -476,7 +476,8 @@ def _cost_rows():
             "rglru_scan backward": (rg.rglru_scan_bwd_cost(8, 2048, 4096, False, False),
                                     0.4007),
             "rwkv6_scan backward": (rw.rwkv6_scan_bwd_cost(8, 48, 2048, 64, 64, BF16),
-                                    0.4244)}
+                                    0.4244),
+            "im2col": (ic.im2col_cost(160, 32, 14, 14), 0.0312)}
 
 
 @pytest.mark.parametrize("row", list(_cost_rows()))
@@ -504,9 +505,9 @@ def _meta(*shape, dtype=torch.float32):
 
 def _wrapper_calls():
     import importlib
-    ag, kq, fa, rg, rw = (importlib.import_module(f"repro_torch.kernels.{m}") for m in
-                          ("agg_reduce", "quantize", "flash_attention", "rglru_scan",
-                           "rwkv6_scan"))
+    ag, kq, fa, rg, rw, ic = (importlib.import_module(f"repro_torch.kernels.{m}") for m in
+                              ("agg_reduce", "quantize", "flash_attention", "rglru_scan",
+                               "rwkv6_scan", "im2col"))
     x, wm, r = _meta(6, 40), _meta(6), _meta(3)
     seg = np.array([0, 1, 0, 2, 1, 0])
     q = _meta(2, 2, 24, 16, dtype=BF16)
@@ -524,6 +525,7 @@ def _wrapper_calls():
         "rglru_scan": (lambda: rg.rglru_scan(_meta(2, 24, 8), _meta(2, 24, 8))[0], (2, 24, 8)),
         "rwkv6_scan": (lambda: rw.rwkv6_scan(q, q, q, _meta(2, 2, 24, 16), _meta(2, 16),
                                              chunk=8)[0], (2, 2, 24, 16)),
+        "im2col": (lambda: ic.im2col(_meta(2, 3, 14, 14)), (2, 75, 196)),
     }
 
 

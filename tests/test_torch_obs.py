@@ -611,6 +611,35 @@ def test_the_stages_tool_reads_nested_ranges_from_a_trace():
         1.5, 0.25, 0.0)
 
 
+def test_the_stages_tool_counts_kernel_ranges_apart():
+    """``kernels.*`` ranges (one a wrapper call) are counted with the
+    operations launched inside them, and change nothing of the stages:
+    ``kernels.im2col`` twice inside one ``fl.forward``."""
+    spec = importlib.util.spec_from_file_location(
+        "fl_stages", Path(__file__).resolve().parents[1] / "tools" / "fl_stages.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    X = lambda name, cat, ts, dur, **a: dict(ph="X", name=name, cat=cat, ts=ts, dur=dur,  # noqa: E731
+                                             tid=1, args=a)
+    events = [X("window", "user_annotation", 0.0, 1000.0),
+              X("fl.forward", "user_annotation", 100.0, 300.0)]
+    for corr, (launch, ts, dur) in enumerate(((110.0, 200.0, 40.0), (150.0, 240.0, 10.0),
+                                              (210.0, 250.0, 30.0))):
+        events += [X("cudaLaunchKernel", "cuda_runtime", launch, 5.0, correlation=corr),
+                   X(f"k{corr}", "kernel", ts, dur, correlation=corr)]
+    bare = tool.stages(events, "window")
+    events += [X("kernels.im2col", "user_annotation", 105.0, 10.0),
+               X("kernels.im2col", "user_annotation", 205.0, 10.0)]
+    st = tool.stages(events, "window")
+    assert st["kernels"] == {"kernels.im2col": {"calls": 2, "ops": 2,
+                                                "device_s": pytest.approx(70e-6)}}
+    assert bare["kernels"] == {} and {k: v for k, v in st.items() if k != "kernels"} == {
+        k: v for k, v in bare.items() if k != "kernels"}
+    rnd = tool.per_round(st, [{"wall_s": 1.0}, {"wall_s": 1.0}])
+    assert rnd["kernels"] == {"kernels.im2col": {"calls": 1.0, "ops": 1.0,
+                                                 "device_ms": pytest.approx(0.035)}}
+
+
 # ----------------------------------------------------------------- logging
 
 def test_log_round_lines_equal_the_reference():

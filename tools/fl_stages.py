@@ -13,7 +13,9 @@ card's idle ms inside it (an idle gap counts toward every range that
 contains it), the device operations launched inside it and their device
 ms; the window's idle ms by the innermost such range (else the round
 loop's host work); and the traced rounds' mean History ``wall_s``,
-``train_host_s`` and ``aggregate_host_s``. Ranges nest (``fl.forward``
+``train_host_s`` and ``aggregate_host_s``; and for each kernel wrapper's
+``kernels.*`` range, its calls and the device operations launched inside
+it, with their device ms (``kernels``). Ranges nest (``fl.forward``
 inside ``fl.grad`` inside ``backend.train_s``): each is indexed by name,
 so every range that contains a point counts it. The card's name and
 power limit come first. Needs one card.
@@ -31,6 +33,7 @@ from typing import Dict, List
 import numpy as np
 
 PREFIXES = ("backend.", "fl.")
+KERNELS = "kernels."
 LOOP = "host (round loop, transport)"
 TOP = 4          # device operations named a range
 
@@ -66,7 +69,9 @@ def stages(events: List[dict], window: str) -> Dict:
     ``window``: seconds by range name (``host_s``, ``idle_s``,
     ``device_s``), counts (``calls``, ``ops``), the ``TOP`` device
     operations by device time launched in each range (``top_ops``), and
-    the idle seconds by the innermost range (``idle_by_innermost``).
+    the idle seconds by the innermost range (``idle_by_innermost``); and
+    each ``kernels.*`` range's ``calls``, ``ops`` and ``device_s`` apart
+    (``kernels``), which take no part in the rest.
 
     A device operation counts to every range open when it was launched,
     whichever thread launched it: the autograd engine launches a backward's
@@ -76,14 +81,17 @@ def stages(events: List[dict], window: str) -> Dict:
     win = next(e for e in spans if e.get("name") == window)
     w0, w1 = float(win["ts"]), float(win["ts"]) + float(win["dur"])
     ranges = defaultdict(list)                 # name -> [(start, end)]
+    kernel_ranges = defaultdict(list)
     launches = {}                              # correlation -> launch time
     device = []                                # (start, end, name, correlation)
     for e in spans:
         cat, ts = e.get("cat", ""), float(e["ts"])
         end = ts + float(e["dur"])
         if cat == "user_annotation":
-            if e.get("name", "").startswith(PREFIXES) and w0 <= ts <= w1:
-                ranges[e["name"]].append((ts, min(end, w1)))
+            name = e.get("name", "")
+            if name.startswith((*PREFIXES, KERNELS)) and w0 <= ts <= w1:
+                (kernel_ranges if name.startswith(KERNELS) else ranges)[name].append(
+                    (ts, min(end, w1)))
         elif cat in ("cuda_runtime", "cuda_driver"):
             corr = e.get("args", {}).get("correlation")
             if corr is not None:
@@ -132,6 +140,11 @@ def stages(events: List[dict], window: str) -> Dict:
     for k, d in zip(best, (b - a) / 1e6):
         inner[names[k] if k >= 0 else LOOP] += float(d)
     out["idle_by_innermost"] = dict(sorted(inner.items(), key=lambda kv: -kv[1]))
+    out["kernels"] = {}
+    for n, spans in sorted(kernel_ranges.items()):
+        hit = _inside(*_merged(*np.array(spans, float).T), t)
+        out["kernels"][n] = {"calls": len(spans), "ops": int(hit.sum()),
+                             "device_s": float(dur[hit].sum()) / 1e6}
     return out
 
 
@@ -146,6 +159,9 @@ def per_round(st: Dict, rows: List[Dict]) -> Dict:
            "device_ops": st["device_ops"] / n,
            "ops": {k: v / n for k, v in st["ops"].items()}, "device_ms": ms(st["device_s"]),
            "idle_by_innermost_ms": ms(st["idle_by_innermost"]),
+           "kernels": {k: {"calls": v["calls"] / n, "ops": v["ops"] / n,
+                           "device_ms": 1e3 * v["device_s"] / n}
+                       for k, v in st["kernels"].items()},
            "top_ops_ms": {k: [(op, 1e3 * v / n) for op, v in ops]
                           for k, ops in st["top_ops"].items()}}
     for key in ("wall_s", "train_host_s", "aggregate_host_s"):
